@@ -33,30 +33,14 @@
 // Staging rows with cp.async/TMA and scheduling hub rows by degree are left
 // for later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-
-#include <algorithm>
-#include <cstdint>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to()
-}
+using sgnn::from_float;
+using sgnn::kFullMask;
+using sgnn::kWarpsPerBlock;
+using sgnn::to_float;
 
 template <typename T, int COLS>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -108,10 +92,7 @@ spmm_csr_kernel(const T* __restrict__ x, const int64_t* __restrict__ rowptr,
 template <typename T>
 void launch(const void* x, const void* rowptr, const void* col, const void* w,
             void* out, int64_t num_rows, int64_t feat, cudaStream_t stream) {
-  const int64_t want = (num_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const unsigned blocks =
-      static_cast<unsigned>(std::min<int64_t>(want, int64_t{1} << 30));
-  const dim3 grid(blocks), block(kWarpsPerBlock * 32);
+  const dim3 grid(sgnn::warp_blocks(num_rows)), block(kWarpsPerBlock * 32);
   const T* xp = static_cast<const T*>(x);
   const int64_t* rp = static_cast<const int64_t*>(rowptr);
   const int32_t* cp = static_cast<const int32_t*>(col);

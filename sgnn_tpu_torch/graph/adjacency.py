@@ -5,9 +5,9 @@ Reference: Graph<EdgeData> (core/graph.hpp:82) + FullyRepGraph
 row_indices, srcs in rows) plus the global in/out degree tables used by the
 GCN symmetric normalisation (nts_norm_degree, core/ntsBaseOp.hpp:652).
 
-The port builds it with the numpy stable argsort, which the JAX package
-documents as bit-identical to its native counting sort; the native CSC
-build joins with the sampler slice.
+The CSC is built by the native sampler library's counting sort
+(sampler/native, `sgnn_csc_build`), bit-identical to a numpy stable argsort
+by destination.
 """
 
 from __future__ import annotations
@@ -34,19 +34,15 @@ class Adjacency:
     @staticmethod
     def from_edges(edges: np.ndarray, num_vertices: int) -> "Adjacency":
         """Build from a COO [E, 2] (src, dst) edge list. Stable edge order."""
-        src = edges[:, 0].astype(np.int64)
-        dst = edges[:, 1].astype(np.int64)
-        order = np.argsort(dst, kind="stable")
-        indices = edges[order, 0].astype(np.int32)
-        counts = np.bincount(dst, minlength=num_vertices)
-        indptr = np.zeros(num_vertices + 1, dtype=np.int64)
-        np.cumsum(counts, out=indptr[1:])
-        out_degree = np.bincount(src, minlength=num_vertices).astype(np.int32)
+        from ..sampler.native import build_csc
+
+        indptr, indices, out_degree = build_csc(
+            np.asarray(edges).reshape(-1, 2), num_vertices)
         return Adjacency(
             num_vertices=num_vertices,
             indptr=indptr,
             indices=indices,
-            in_degree=counts.astype(np.int32),
+            in_degree=np.diff(indptr).astype(np.int32),
             out_degree=out_degree,
         )
 

@@ -8,19 +8,23 @@ Model structure (reference toolkits/ engines), the same in both packages:
 
 The parameters are a plain NamedTuple of tensors, as the JAX package's are a
 pytree of arrays, so one layout crosses between them by `params_from_numpy`.
-The sampled `model_forward` joins with the training slice; serving runs the
-whole-graph forward of train/fullbatch.py.
+`model_forward` runs the sampled model over a `SampledBatch` (training);
+serving runs the whole-graph forward of train/fullbatch.py.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..nn.functional import BN_EPS, dropout, log_softmax
 from ..nn.layers import xavier_uniform_init
+from ..ops.aggregate import gather_aggregate
+from ..sampler.blocks import SampledBatch
 
 MODEL_FAMILIES = ("gcn", "sage", "gat")
 
@@ -35,6 +39,14 @@ class GNNParams(NamedTuple):
         return GNNParams(
             weights=tuple(w.to(device=device, dtype=dtype) for w in self.weights),
             attn=tuple(a.to(device=device, dtype=dtype) for a in self.attn))
+
+    def leaves(self) -> List[torch.Tensor]:
+        """Weights then attention vectors: the optimizers' flat order."""
+        return [*self.weights, *self.attn]
+
+    def replace_leaves(self, leaves: Sequence[torch.Tensor]) -> "GNNParams":
+        n = len(self.weights)
+        return GNNParams(weights=tuple(leaves[:n]), attn=tuple(leaves[n:]))
 
 
 def init_model(
@@ -78,3 +90,76 @@ def params_from_numpy(weights, attn=(), device=None) -> GNNParams:
 
     return GNNParams(weights=tuple(conv(w) for w in weights),
                      attn=tuple(conv(a) for a in attn))
+
+
+def _batch_norm(t: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Standardise each column over the VALID rows only (statistics in f32
+    even for bf16 compute), batch-stats mode at train and eval alike."""
+    t32 = t.float()
+    m = valid.float()[:, None]
+    cnt = m.sum().clamp_min(1.0)
+    mu = (t32 * m).sum(dim=0, keepdim=True) / cnt
+    var = ((t32 - mu).square() * m).sum(dim=0, keepdim=True) / cnt
+    return ((t32 - mu) * torch.rsqrt(var + BN_EPS)).to(t.dtype)
+
+
+def _agg_linear(w: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
+                wgt: torch.Tensor) -> torch.Tensor:
+    """agg(X)·W == agg(X·W): when the layer SHRINKS the width (in > out),
+    transform first, so the gather moves out-wide rows."""
+    if w.shape[0] > w.shape[1]:
+        return gather_aggregate(x @ w.to(x.dtype), nbr, wgt)
+    return gather_aggregate(x, nbr, wgt) @ w.to(x.dtype)
+
+
+def model_forward(
+    params: GNNParams,
+    family: str,
+    batch: SampledBatch,
+    *,
+    drop_rate: float = 0.0,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+    cache_emb: Optional[torch.Tensor] = None,
+    remat: bool = False,
+    heads: int = 1,
+    batch_norm: bool = False,
+) -> torch.Tensor:
+    """Run the L-layer GCN/SAGE model; returns log-probs [num_seed_pad, C].
+
+    The port of sgnn_tpu/models/gnn.py:128-238: blocks are consumed
+    input→output (layer l aggregates over batch.blocks[l]); hidden layers
+    are relu(bn(agg(X)·W)) then dropout (drawn from `generator`, on the
+    batch's device); the last layer is log_softmax in f32.  `batch_norm`
+    standardises hidden pre-activations over the hop's valid destination
+    rows.  `remat` recomputes each hidden layer's aggregation in the
+    backward pass (torch.utils.checkpoint) instead of storing it."""
+    if family == "gat":
+        raise NotImplementedError(
+            "sampled GAT waits for the GAT slice (ROADMAP Queue 1 item 2)")
+    if cache_emb is not None:
+        raise NotImplementedError(
+            "the embedding cache waits for the cache slice (ROADMAP Queue 1 "
+            "item 5)")
+    if family not in MODEL_FAMILIES:
+        raise ValueError(f"unknown model family {family!r}")
+    n_layers = len(params.weights)
+    if batch.num_layers != n_layers:
+        raise ValueError(f"{batch.num_layers} blocks for {n_layers} layers")
+    x = batch.x0
+    for l, block in enumerate(batch.blocks):
+        is_last = l == n_layers - 1
+        args = (params.weights[l], x, block.nbr, block.weight)
+        if remat and not is_last:
+            y = checkpoint(_agg_linear, *args, use_reentrant=False)
+        else:
+            y = _agg_linear(*args)
+        if is_last:
+            # classification head in f32 regardless of compute dtype
+            x = log_softmax(y.float())
+        else:
+            x = torch.relu(_batch_norm(y, block.dst_valid) if batch_norm
+                           else y)
+            if train and drop_rate > 0.0 and generator is not None:
+                x = dropout(generator, x, drop_rate, train)
+    return x

@@ -1,4 +1,7 @@
-from .functional import BN_EPS, log_softmax
+from .functional import BN_EPS, dropout, log_softmax, masked_accuracy, nll_loss_masked
 from .layers import xavier_uniform_init
+from .optim import ReferenceAdam, ReferenceSGD, make_optimizer
 
-__all__ = ["BN_EPS", "log_softmax", "xavier_uniform_init"]
+__all__ = ["BN_EPS", "dropout", "log_softmax", "masked_accuracy",
+           "nll_loss_masked", "xavier_uniform_init", "ReferenceAdam",
+           "ReferenceSGD", "make_optimizer"]

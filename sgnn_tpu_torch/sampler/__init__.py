@@ -1,3 +1,3 @@
-from .blocks import WeightKind, pad_to
+from .blocks import SampledBatch, SampledBlock, WeightKind, pad_to
 
-__all__ = ["WeightKind", "pad_to"]
+__all__ = ["SampledBatch", "SampledBlock", "WeightKind", "pad_to"]

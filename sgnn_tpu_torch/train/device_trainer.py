@@ -1,0 +1,252 @@
+"""Fully on-device training: sampling, gather and train step on the card.
+
+The port of sgnn_tpu/train/device_trainer.py.  Reference: the *ALLGPU
+engines (GCN_SAMPLE_ALLGPU.hpp:268-400) — device-resident topology, device
+sampling, no host round trip inside the pipeline.
+
+The padded whole-graph CSC, features and labels live on the device; each
+step receives only the seed ids and runs sample → reindex → weights →
+L-layer forward/backward (K1) → Adam as eager torch ops.  The JAX package
+fuses an epoch into one `lax.scan` program; here an epoch is a Python loop
+of steps with no host sync inside it, so `fused_epoch` keeps its meaning as
+"one sync per epoch" (False syncs after every step, for debugging).  On
+CUDA each step's end is marked by an event, so `step_ms` gives the
+device-timeline time of every step of the last epoch without a sync inside
+it; `step_losses` and `last_overflow` are read at the epoch's one sync.
+CUDA graphs are later work.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..config import RunConfig
+from ..data.dataset import Dataset
+from ..graph.adjacency import Adjacency
+from ..sampler.blocks import WeightKind, pad_to
+from ..sampler.device import device_sample_batch
+from ..utils.logging import get_logger
+from .trainer import SampleTrainer
+
+log = get_logger("sgnn.dev")
+
+
+def feature_capacity(feature_dim: int, itemsize: int, device: torch.device,
+                     budget_bytes: Optional[int] = None) -> int:
+    """How many feature rows fit in free device memory: half the card's
+    free memory (`torch.cuda.mem_get_info`; activations and the graph share
+    the rest), or a forced `budget_bytes` (HBM_BUDGET), or 1 GiB on the
+    CPU, as the JAX package does for a backend without memory statistics
+    (hbm_feature_capacity)."""
+    if budget_bytes is None:
+        if device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(device)
+            budget_bytes = free // 2
+        else:
+            budget_bytes = 1 << 30
+    return max(int(budget_bytes) // max(feature_dim * itemsize, 1), 0)
+
+
+class FeaturesExceedHbm(ValueError):
+    """The feature matrix cannot be resident on the device.
+
+    Device sampling discovers source ids on the device, so there is no
+    per-row host fallback mid-step: such graphs train through the
+    host-sampled engines.  The engine registry catches this and falls
+    back."""
+
+
+class DeviceSampleTrainer(SampleTrainer):
+    """SampleTrainer variant with on-device sampling (ALLGPU-engine analog)."""
+
+    def __init__(
+        self,
+        cfg: RunConfig,
+        dataset: Dataset,
+        family: str = "gcn",
+        weight_kind: WeightKind = WeightKind.GCN,
+        degree_mode: Optional[str] = None,  # None → cfg.up_degree decides
+        bias_correction: bool = False,
+        adj: Optional[Adjacency] = None,
+        hbm_budget_bytes: Optional[int] = None,
+        device=None,
+    ) -> None:
+        if degree_mode is None:
+            degree_mode = "sampled" if cfg.up_degree else "global"
+        self.dev_degree_mode = degree_mode
+        if hbm_budget_bytes is None and cfg.hbm_budget > 0:
+            hbm_budget_bytes = cfg.hbm_budget
+        dev = resolve_device(device)
+        if dataset.features is not None:
+            # residency probe (reference determine_cache_node_idx,
+            # GCN_SAMPLE_PD_CACHE.hpp:1039): device sampling needs resident
+            # features
+            v, f_dim = dataset.features.shape
+            fd = (cfg.feature_dtype or cfg.dtype).lower()
+            itemsize = {"int8": 1, "bfloat16": 2}.get(fd, 4)
+            cap = feature_capacity(f_dim, itemsize, dev, hbm_budget_bytes)
+            if cap < v:
+                if fd != "int8" and feature_capacity(
+                        f_dim, 1, dev, hbm_budget_bytes) >= v:
+                    raise NotImplementedError(
+                        f"features exceed device memory at {fd} ({cap} of "
+                        f"{v} rows fit) but would fit at int8: int8 features "
+                        "wait for the serving-extras slice (ROADMAP Queue 1 "
+                        "item 4)")
+                raise FeaturesExceedHbm(
+                    f"feature matrix needs {v} rows but only {cap} fit in "
+                    "device memory — use a host-sampled engine "
+                    "(e.g. GCNSAMPLEGPU)")
+        super().__init__(
+            cfg, dataset, family=family, weight_kind=weight_kind,
+            degree_mode=degree_mode, bias_correction=bias_correction, adj=adj,
+            features_on_device=True, hbm_budget_bytes=hbm_budget_bytes,
+            device=dev)
+        d = self.device
+        v = self.adj.num_vertices
+        v_pad = pad_to(v, 128)
+        # CSC on the device, padded to v_pad vertices (empty rows) and to a
+        # multiple of 128 edges; indptr is int64 for torch's index ops
+        indptr = np.concatenate([self.adj.indptr, np.full(
+            v_pad - v, self.adj.indptr[-1], np.int64)])
+        self.dev_indptr = torch.from_numpy(indptr).to(d)
+        idx = np.zeros(pad_to(max(self.adj.num_edges, 1), 128), np.int32)
+        idx[: self.adj.num_edges] = self.adj.indices
+        self.dev_indices = torch.from_numpy(idx).to(d)
+        # features/labels padded to v_pad rows so the bottom hop can take
+        # the identity branch (x0 = the feature matrix, no re-gather)
+        if v_pad > v:
+            self.dev_features = torch.cat([self.dev_features, torch.zeros(
+                (v_pad - v, self.dev_features.shape[1]),
+                dtype=self.dev_features.dtype, device=d)])
+            self.dev_labels = torch.cat([self.dev_labels, torch.zeros(
+                v_pad - v, dtype=self.dev_labels.dtype, device=d)])
+        self.dev_in_deg = torch.from_numpy(
+            self.adj.in_degree.astype(np.int32)).to(d)
+        self.dev_out_deg = torch.from_numpy(
+            self.adj.out_degree.astype(np.int32)).to(d)
+        self.weight_kind = weight_kind
+        self.seed_pad = pad_to(cfg.batch_size, 128)
+        self.src_pads = self.compute_src_pads(cfg.batch_size)
+        self.fused_epoch = True
+        self.sample_generator = torch.Generator(device=d).manual_seed(
+            cfg.seed + 17)
+        # per step of the last epoch: device time (CUDA) and loss
+        self.step_ms: List[float] = []
+        self.step_losses: List[float] = []
+        self.last_overflow = 0
+
+    def compute_src_pads(self, batch_size: int) -> Tuple[int, ...]:
+        """Static per-hop source bounds for a seed-batch size: the host
+        sampler's plan rule (src = neighbors ∪ seeds, bounded by dst·(f+1)
+        and V); with SRC_PAD_FACTOR > 0, factor × the degree-aware expected
+        number of unique sources (sgnn_tpu/train/device_trainer.py:153-218),
+        the sampler dropping and counting edges on the rare overflow."""
+        cfg = self.cfg
+        v_pad = pad_to(self.adj.num_vertices, 128)
+        exact = []
+        ndst = pad_to(max(batch_size, 1), 128)
+        for f in cfg.fanout:
+            nsrc = min(pad_to(ndst * (f + 1), 128), v_pad)
+            exact.append(nsrc)
+            ndst = nsrc
+        if cfg.src_pad_factor <= 0:
+            return tuple(exact)
+        # a source v is reached iff some sampled edge (v→d) lands in the
+        # hop; with ndst random destinations, edge (v→d) is sampled with
+        # probability (ndst/V)·min(f/indeg(d), 1).  Poissonized per source:
+        #     E[unique] = Σ_v (1 - e^{-(ndst/V)·c_v}),
+        #     c_v = Σ_{d: v→d} min(f/indeg(d), 1)
+        v_f = float(self.adj.num_vertices)
+        dst_of_edge = np.repeat(
+            np.arange(self.adj.num_vertices, dtype=np.int64),
+            np.diff(self.adj.indptr).astype(np.int64))
+        indeg_e = np.maximum(
+            self.adj.in_degree[dst_of_edge].astype(np.float64), 1.0)
+        est_pads = []
+        ndst = float(batch_size)
+        for h, f in enumerate(cfg.fanout):
+            c_v = np.bincount(self.adj.indices.astype(np.int64),
+                              weights=np.minimum(f / indeg_e, 1.0),
+                              minlength=self.adj.num_vertices)
+            uniq_sampled = float(-np.expm1(-(ndst / v_f) * c_v).sum())
+            est = pad_to(int((uniq_sampled + ndst) * cfg.src_pad_factor), 128)
+            est = min(est, exact[h])
+            est_pads.append(est)
+            ndst = float(est)
+        log.info("src pads (b=%d): exact %s -> degree-aware estimate %s",
+                 batch_size, exact, tuple(est_pads))
+        return tuple(est_pads)
+
+    # ---------------------------------------------------------------- steps
+    def sample(self, seeds: torch.Tensor, valid: torch.Tensor):
+        """One device-sampled batch for padded seeds."""
+        return device_sample_batch(
+            self.sample_generator, seeds, valid, self.dev_indptr,
+            self.dev_indices, self.dev_in_deg, self.dev_out_deg,
+            self.dev_features, self.dev_labels, tuple(self.cfg.fanout),
+            self.src_pads, self.weight_kind, degree_mode=self.dev_degree_mode,
+            compute_dtype=self.compute_dtype)
+
+    def _seed_batches(self, nids: np.ndarray, shuffle: bool):
+        nids = np.asarray(nids, dtype=np.int32)
+        if shuffle:
+            nids = self.sampler.rng.permutation(nids)
+        for i in range(0, nids.shape[0], self.cfg.batch_size):
+            chunk = nids[i:i + self.cfg.batch_size]
+            seeds = np.zeros(self.seed_pad, np.int32)
+            seeds[: chunk.size] = chunk
+            valid = np.zeros(self.seed_pad, bool)
+            valid[: chunk.size] = True
+            yield (torch.from_numpy(seeds).to(self.device),
+                   torch.from_numpy(valid).to(self.device))
+
+    def train_epoch(self) -> Tuple[float, float, int]:
+        """One epoch → (mean loss, train acc, sampled edges), with one host
+        sync at its end (or one per step when `fused_epoch` is False)."""
+        cuda = self.device.type == "cuda"
+        losses, accs, edges, overflow = [], [], [], []
+        events = []
+        if cuda:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        for seeds, valid in self._seed_batches(
+                self._epoch_order(self.train_nids), False):
+            with self.timers.phase("device_step"):
+                batch = self.sample(seeds, valid)
+                loss, acc = self.train_step(batch)
+                if not self.fused_epoch and cuda:
+                    torch.cuda.synchronize(self.device)
+            if cuda:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            losses.append(loss)
+            accs.append(acc)
+            edges.append(batch.num_sampled_edges())
+            overflow.append(batch.overflow)
+        if not losses:
+            return 0.0, 0.0, 0
+        stacked = torch.stack(losses)
+        mean_loss = float(stacked.mean())   # the epoch's sync
+        self.step_losses = stacked.tolist()
+        correct, total = torch.stack(accs).sum(dim=0).tolist()
+        self.last_overflow = int(torch.stack(overflow).sum())
+        self.step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        return (mean_loss, correct / max(total, 1),
+                int(torch.stack(edges).sum()))
+
+    @torch.no_grad()
+    def evaluate(self, nids: np.ndarray) -> float:
+        accs = []
+        for seeds, valid in self._seed_batches(nids, False):
+            with self.timers.phase("device_eval"):
+                accs.append(self.eval_step(self.sample(seeds, valid)))
+        if not accs:
+            return 0.0
+        correct, total = torch.stack(accs).sum(dim=0).tolist()
+        return correct / max(total, 1)
+

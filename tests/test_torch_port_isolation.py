@@ -16,6 +16,9 @@ import sgnn_tpu_torch
 from sgnn_tpu_torch.graph.adjacency import Adjacency
 from sgnn_tpu_torch.models.gnn import init_model, params_from_numpy
 from sgnn_tpu_torch.ops.segment import csr_from_numpy
+from sgnn_tpu_torch.config import RunConfig
+from sgnn_tpu_torch.sampler.native import build as native_build
+from sgnn_tpu_torch.train import build_trainer, run_engine
 from sgnn_tpu_torch.train.inference import (
     InferenceServer, exact_accuracy, layerwise_inference,
 )
@@ -59,7 +62,18 @@ def test_every_port_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) == len(mods) >= 20
+    assert int(out.stdout.split()[-1]) == len(mods) >= 30
+    # the training slice's modules are among them
+    assert {"sgnn_tpu_torch.sampler.native", "sgnn_tpu_torch.sampler.host",
+            "sgnn_tpu_torch.sampler.device", "sgnn_tpu_torch.ops.aggregate",
+            "sgnn_tpu_torch.ops.cuda.gather_agg", "sgnn_tpu_torch.nn.optim",
+            "sgnn_tpu_torch.train.trainer", "sgnn_tpu_torch.train.engines",
+            "sgnn_tpu_torch.train.device_trainer"} <= set(mods)
+
+
+def test_native_sampler_builds_inside_the_checkout():
+    assert native_build.BUILD_DIR == ROOT / "build" / "native"
+    assert native_build.SRC.parent == PORT / "sampler" / "native"
 
 
 @pytest.fixture
@@ -71,6 +85,8 @@ def test_entry_points_default_to_cuda(no_cuda, tiny_ds):
     adj = Adjacency.from_edges(tiny_ds.edges, tiny_ds.num_vertices)
     p = init_model(0, "gcn", [32, 16, 5], device="cpu")
     f = tiny_ds.features
+    cfg = RunConfig(algorithm="GCNSAMPLEGPU", layer_sizes=[32, 16, 5],
+                    fanout=[4, 3], batch_size=64)
     for call in (
         lambda: sgnn_tpu_torch.resolve_device(None),
         lambda: sgnn_tpu_torch.resolve_device("cuda:0"),
@@ -82,6 +98,11 @@ def test_entry_points_default_to_cuda(no_cuda, tiny_ds):
         lambda: params_from_numpy([np.ones((2, 2), np.float32)]),
         lambda: csr_from_numpy(np.array([0, 1]), np.array([0]),
                                np.ones(1), 1),
+        lambda: build_trainer(cfg, tiny_ds),
+        lambda: run_engine(cfg, tiny_ds, epochs=1),
+        lambda: build_trainer(RunConfig(
+            algorithm="GSSAMPLEALLGPU", layer_sizes=[32, 16, 5],
+            fanout=[4, 3], batch_size=64), tiny_ds),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
