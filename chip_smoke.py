@@ -23,36 +23,66 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                25-10, batch 10000: a device-sampled batch's blocks), each
                held to plain and timed beside plain, a library call and the
                bound;
-4. serving   — GCN 602-128-41 (seed-0 weights) on `reddit_like_dataset(seed=0,
+4. kernel_k3 — K3 (`gat_aggregate_cuda`) against `gat_aggregate_plain` on
+               skewed random CSR graphs (hub rows of 6000 edges, rows with
+               no edges, sources != destinations in one case) at (H, F) in
+               {(1,7), (1,41), (1,128), (2,256), (4,128), (8,64), (16,256)}
+               (the last: column tiles of 8 heads, two per row), f32 and
+               bf16, with the score halves of some source rows raised past
+               the ±60 clip; bit-identical on repeat; then at the
+               Reddit-shaped GAT
+               serving shapes (F=128 at H=1 and 4, F=41 at H=1, f32 and
+               bf16) held to plain and timed beside plain, a composition of
+               torch ops (scores, `torch.sparse.mm`, z; H=1, f32: no single
+               PyTorch call computes K3) and the bound;
+5. serving   — GCN 602-128-41 (seed-0 weights) on `reddit_like_dataset(seed=0,
                scale=1.0)` through `InferenceServer.logprobs()`: f32 pass
                time, two kernel launches per pass, agreement with the port's
                CPU pass, then a bf16 server's pass time, its log-probs held to
                the f32 pass within 0.05 and its argmax agreement;
-5. queries   — `query(nids)` for requests of 8, 64 and 512 vertices, each
+6. queries   — `query(nids)` for requests of 8, 64 and 512 vertices, each
                held to the whole-graph rows, with p50 latency per size;
-6. train_host   — GCNSAMPLEGPU (host sampler), GCN 602-128-41, fanout 25-10,
+7. serving_gat — GAT 602-128-41 (seed-0 weights, seeded nonzero attention
+               vectors), heads 1 and 4, on the same graph: f32 pass times,
+               exactly 2 K3 and 0 SpMM launches per pass, agreement with the
+               port's CPU pass, a bf16 server held to the f32 one within 0.05
+               with its argmax agreement, queries of 8/64/512 vertices held
+               to the whole-graph rows with 2 K3 launches each, p50 latency,
+               and one fanout query;
+8. train_host   — GCNSAMPLEGPU (host sampler), GCN 602-128-41, fanout 25-10,
                batch 10000: the first batch's loss and weight gradients on
                the card held to the port's CPU on the same blocks and
                parameters (drop 0), then 3 training steps (drop 0.5), with
                per-step time and sampled edges/s;
-7. train_device — GSSAMPLEALLGPU (device sampler) at the same widths: one
+9. train_device — GSSAMPLEALLGPU (device sampler) at the same widths: one
                whole epoch (16 steps) and `evaluate` on the validation
                vertices; finite losses, the last 4 steps' mean loss below
                the first step's, K1 launched 2 forward + 2 dx per step and 2
                forward per eval batch; per-step median time, sampled
                edges/s, overflow count and train accuracy;
-8. kernels   — one line listing every kernel with its launches on its main
-               path (serving for `spmm_csr`, train_device for K1), its error
-               and its times.
+10. train_gat — GATSAMPLEALLGPU (device sampler), GAT 602-128-41, heads 4,
+               fanout 25-10, batch 10000: the first batch's loss and every
+               weight's and attention vector's gradient on the card held to
+               the port's CPU on the same blocks (drop 0, seeded nonzero
+               attention), then one epoch (16 steps, drop 0.5) and
+               `evaluate`: finite losses, the loss falling, no K1 and no K3
+               launch (sampled GAT aggregates with torch ops); per-step
+               median time, sampled edges/s, accuracies, peak memory;
+11. kernels  — one line listing every kernel with its launches on its main
+               path (serving for `spmm_csr`, train_device for K1,
+               serving_gat for K3), its error and its times.
 
-Then the card's name and power limit as nvidia-smi prints them, and last
-`{"ok": true, "device": {...}}`.  Any failed check raises and the script
-exits non-zero; nothing falls back to the CPU or to a plain version.  With
-no CUDA device it exits 1 and prints no result.  Imports nothing of JAX.
+Every main path (phases 5-10) starts with every launch count set to 0 and
+reads them all at its end.  Then the card's name and power limit as
+nvidia-smi prints them, and last `{"ok": true, "device": {...}}`.  Any
+failed check raises and the script exits non-zero; nothing falls back to
+the CPU or to a plain version.  With no CUDA device it exits 1 and prints
+no result.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -72,9 +102,14 @@ F32_FLOPS_PER_S = 67e12
 # f32 — both sum in f32, the kernel in CSR edge order with FMAs, the plain
 # version by index_add_ (atomics on the card, so another order): only
 # reassociation differs, a few f32 ulps of the largest partial sum;
-# bf16 — both sum in f32 and round once to bf16 at the end, so the
-# results differ by at most about one bf16 ulp (2^-8 relative) of an
-# element; the repo's bf16 kernel bound (tests/test_mxu_spmm.py:57).
+# bf16 — the kernel sums in f32 and rounds once to bf16; it is held to
+# the plain version's f32 result on the same values widened to f32
+# (`exact_ref`), so the difference is that one rounding, at most 2^-8 of
+# an element, plus reassociation; the repo's bf16 kernel bound
+# (tests/test_mxu_spmm.py:57).  (Holding it to the plain version's own
+# bf16 result instead compares two roundings of sums taken in different
+# orders, which land one bf16 ulp, up to 2^-7 of an element, apart when
+# the sums straddle a rounding boundary: K1's dx read 6.5e-3 so.)
 TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 # serving, absolute on log-probs: the card's pass against the port's CPU
 # pass and query rows against whole-graph rows — f32 throughout with TF32
@@ -97,6 +132,24 @@ TRAIN_LOSS_ATOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-4
 # the training configuration: the repo's headline stage (bench.py:104-134)
 TRAIN_LAYERS, TRAIN_FANOUT, TRAIN_BATCH = [602, 128, 41], [25, 10], 10000
+# GAT: scripts/measure_gat_serving.py's serving configuration (heads 1 and
+# 4 on the hidden layer) and the training stage above with heads 4.  The
+# attention vectors are drawn N(0, 1)·0.1: on these activations the scores
+# are then O(1) (init_model's zeros would give uniform attention and leave
+# the scores untested)
+GAT_SERVE_HEADS, GAT_TRAIN_HEADS, GAT_ATTN_SCALE = (1, 4), 4, 0.1
+# K3's check grid: (heads, F).  The scores spread by 2 (the attention
+# scale), and one source row in K3_CLIP_EVERY has its score half raised by
+# 80, past the ±60 clip: about 1% of the edges, some in every hub row, are
+# clipped.  (A spread of 25 on every edge clips too, but with weights
+# spanning e^±60 both f32 sums round visibly in the hub rows: kernel
+# against plain measured 8.3e-6 at H=8, too close to the 1e-5 bound to
+# hold the kernel.)
+# (16, 256) has more heads than a column tile of the kernel spans (8), so
+# each row is walked once per tile of 8 heads.
+K3_GRID = ((1, 7), (1, 41), (1, 128), (2, 256), (4, 128), (8, 64),
+           (16, 256))
+K3_SCORE_STD, K3_CLIP_EVERY, K3_CLIP_RAISE = 2.0, 97, 80.0
 
 
 def emit(obj) -> None:
@@ -115,6 +168,17 @@ def hbm_rate(name: str) -> float:
     raise RuntimeError(f"chip_smoke: no HBM bandwidth known for {name!r}")
 
 
+def batch_to(batch, device):
+    """A SampledBatch with every tensor moved to `device`."""
+    def move(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).to(device)
+            for f in dataclasses.fields(obj)
+            if hasattr(getattr(obj, f.name), "to")})
+    return dataclasses.replace(move(batch),
+                               blocks=[move(b) for b in batch.blocks])
+
+
 def main() -> int:
     import torch
 
@@ -128,8 +192,13 @@ def main() -> int:
     from sgnn_tpu_torch.ops import aggregate as agg
     from sgnn_tpu_torch.ops.cuda import gather_agg as k1
     from sgnn_tpu_torch.ops.cuda.build import build_all
+    from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda
     from sgnn_tpu_torch.ops.cuda.spmm import spmm_csr_cuda
+    from sgnn_tpu_torch.ops.gat import (
+        ATT_CLIP, F32_TINY, NEG_SLOPE, gat_aggregate_plain, pack_score_tables,
+    )
     from sgnn_tpu_torch.ops.segment import spmm_csr_plain
+    from sgnn_tpu_torch.sampler.blocks import WeightKind
     from sgnn_tpu_torch.sampler.device import device_sample_batch
     from sgnn_tpu_torch.train import build_trainer
     from sgnn_tpu_torch.train.inference import InferenceServer
@@ -173,6 +242,41 @@ def main() -> int:
         return ((got.float().to(ref.device) - ref).abs().max()
                 / ref.abs().max().clamp_min(1e-30)).item()
 
+    def exact_ref(x, *rest):
+        """A kernel's arguments for its plain version, with the first (the
+        rows, f32 or bf16) widened to f32: the same values, and the plain
+        version then returns its f32 sum unrounded."""
+        return (x.float(), *rest)
+
+    # every kernel's launch counter: each main path starts from zeros
+    counted = {"spmm_csr": spmm_csr_cuda,
+               "gather_agg_fwd": k1.gather_agg_fwd_cuda,
+               "gather_agg_bwd_dx": k1.gather_agg_bwd_dx_cuda,
+               "gather_agg_bwd_dw": k1.gather_agg_bwd_dw_cuda,
+               "gat_aggregate": gat_aggregate_cuda}
+
+    def reset_counts() -> None:
+        for f in counted.values():
+            f.launches = 0
+
+    def counts() -> dict:
+        return {n: f.launches for n, f in counted.items()}
+
+    def first_batch(trainer):
+        """The first TRAIN_BATCH train vertices of `trainer`, sampled on the
+        card with a generator of their own: the trainer's draws stay
+        untouched."""
+        seeds = torch.zeros(trainer.seed_pad, dtype=torch.int32)
+        seeds[:TRAIN_BATCH] = torch.from_numpy(trainer.train_nids[
+            :TRAIN_BATCH].astype(np.int32))
+        return device_sample_batch(
+            torch.Generator(device=dev).manual_seed(1), seeds.to(dev),
+            (torch.arange(trainer.seed_pad) < TRAIN_BATCH).to(dev),
+            trainer.dev_indptr, trainer.dev_indices, trainer.dev_in_deg,
+            trainer.dev_out_deg, trainer.dev_features, trainer.dev_labels,
+            tuple(TRAIN_FANOUT), trainer.src_pads, trainer.weight_kind,
+            degree_mode=trainer.dev_degree_mode)
+
     # ---- 2. kernel against its plain version -------------------------------
     gen = torch.Generator().manual_seed(0)
     checks = []
@@ -192,7 +296,7 @@ def main() -> int:
             out = spmm_csr_cuda(*args)
             again = spmm_csr_cuda(*args)
             torch.cuda.synchronize()
-            ref = spmm_csr_plain(*args)
+            ref = spmm_csr_plain(*exact_ref(*args))
             err = rel_err(out, ref)
             key = str(dt).removeprefix("torch.")
             checks.append({"F": feat, "dtype": key, "E": e, "rel_err": err,
@@ -218,7 +322,7 @@ def main() -> int:
             x = torch.randn(v, feat, generator=gen).to(dev, dt)
             b = x.element_size()
             out = spmm_csr_cuda(x, rowptr, col, w)
-            ref = spmm_csr_plain(x, rowptr, col, w)
+            ref = spmm_csr_plain(x.float(), rowptr, col, w)
             err_abs = (out.float() - ref.float()).abs().max().item()
             err = rel_err(out, ref)
             key = str(dt).removeprefix("torch.")
@@ -273,9 +377,10 @@ def main() -> int:
                 torch.cuda.synchronize()
                 key = str(dt).removeprefix("torch.")
                 errs = {
-                    "fwd": rel_err(out, agg.gather_aggregate_plain(x, nbr, w)),
+                    "fwd": rel_err(out, agg.gather_aggregate_plain(
+                        x.float(), nbr, w)),
                     "dx": rel_err(dx, agg.gather_agg_bwd_dx_plain(
-                        g, nbr, w, s_chk, dt)),
+                        g, nbr, w, s_chk, torch.float32)),
                     "dw": rel_err(dw, agg.gather_agg_bwd_dw_plain(g, x, nbr))}
                 k1_checks.append({"K": k, "F": feat, "dtype": key,
                                   "rel_err": errs, "tol": TOL[key]})
@@ -294,17 +399,7 @@ def main() -> int:
                         drop_rate=0.5, epochs=1, seed=0,
                         vertices=ds.num_vertices)
     dev_trainer = build_trainer(dev_cfg, ds)
-    seeds = torch.zeros(dev_trainer.seed_pad, dtype=torch.int32)
-    seeds[:TRAIN_BATCH] = torch.from_numpy(dev_trainer.train_nids[
-        :TRAIN_BATCH].astype(np.int32))
-    sample = device_sample_batch(
-        torch.Generator(device=dev).manual_seed(1), seeds.to(dev),
-        (torch.arange(dev_trainer.seed_pad) < TRAIN_BATCH).to(dev),
-        dev_trainer.dev_indptr, dev_trainer.dev_indices,
-        dev_trainer.dev_in_deg, dev_trainer.dev_out_deg,
-        dev_trainer.dev_features, dev_trainer.dev_labels,
-        tuple(TRAIN_FANOUT), dev_trainer.src_pads,
-        dev_trainer.weight_kind, degree_mode=dev_trainer.dev_degree_mode)
+    sample = first_batch(dev_trainer)
     k1_shapes = []
     for layer, feat in ((0, TRAIN_LAYERS[1]), (1, TRAIN_LAYERS[2])):
         blk = sample.blocks[layer]
@@ -372,8 +467,134 @@ def main() -> int:
     emit({"phase": "kernel_k1", "checks": k1_checks,
           "training_shapes": k1_shapes})
 
-    # ---- 4. serving at full width (main path, counted) ----------------------
-    spmm_csr_cuda.launches = 0
+    # ---- 4. K3 against its plain version -----------------------------------
+    def k3_tables(ht, ht_dst, heads, score_std):
+        """Score tables from random attention vectors whose scores have
+        spread `score_std` on unit-variance rows."""
+        feat = ht.shape[1]
+        a = torch.randn(2, feat, generator=gen) * (
+            score_std / (feat // heads) ** 0.5)
+        a = a.to(ht.device)
+        ts, _ = pack_score_tables(ht, a[0], a[1], heads)
+        _, td = pack_score_tables(ht_dst, a[0], a[1], heads)
+        return ts, td
+
+    k3_checks = []
+    for heads, feat in K3_GRID:
+        for dt in (torch.float32, torch.bfloat16):
+            n_dst = 20000
+            # one case gathers from a source set other than the rows
+            n_src = 15000 if (heads, feat) == (4, 128) else n_dst
+            deg = (torch.rand(n_dst, generator=gen) ** 4 * 120).long()
+            deg[::13] = 0                 # rows with no edges write zeros
+            deg[:4] = 6000                # hub rows
+            k_rowptr = torch.zeros(n_dst + 1, dtype=torch.int64)
+            k_rowptr[1:] = deg.cumsum(0)
+            n_e = int(k_rowptr[-1])
+            k_col = torch.randint(0, n_src, (n_e,), generator=gen,
+                                  dtype=torch.int32)
+            ht = torch.randn(n_src, feat, generator=gen).to(dev, dt)
+            ts, td = k3_tables(ht, torch.randn(n_dst, feat, generator=gen)
+                               .to(dev, dt), heads, K3_SCORE_STD)
+            ts[::K3_CLIP_EVERY] += K3_CLIP_RAISE
+            k_rowptr, k_col = k_rowptr.to(dev), k_col.to(dev)
+            raw = (ts.index_select(0, k_col) + td.repeat_interleave(
+                k_rowptr.diff(), dim=0))
+            clipped = float(((raw > ATT_CLIP)
+                             | (NEG_SLOPE * raw < -ATT_CLIP)).float().mean())
+            k3 = (ht, ts, td, k_rowptr, k_col, heads)
+            h, z = gat_aggregate_cuda(*k3)
+            h2, z2 = gat_aggregate_cuda(*k3)
+            torch.cuda.synchronize()
+            ref_h, ref_z = gat_aggregate_plain(*exact_ref(*k3))
+            key = str(dt).removeprefix("torch.")
+            # z elementwise: clipped rows' z reach 1e29, so a max-relative
+            # error would see nothing in the other rows
+            err = rel_err(h, ref_h)
+            zerr = ((z - ref_z).abs() / ref_z.abs().clamp_min(F32_TINY)
+                    ).max().item()
+            k3_checks.append({"H": heads, "F": feat, "dtype": key,
+                              "S": n_src, "D": n_dst, "E": n_e,
+                              "clipped_share": clipped, "rel_err": err,
+                              "z_rel_err": zerr, "tol": TOL[key]})
+            require(clipped > 0, f"K3 H={heads} F={feat}: no score clipped")
+            require(err <= TOL[key] and zerr <= TOL["float32"],
+                    f"K3 vs plain H={heads} F={feat} {key}: {err}, z {zerr}")
+            require(bool((h[::13][1:] == 0).all())
+                    and bool((z[::13][1:] == 0).all()),
+                    "K3: rows with no edges are not zero")
+            require(torch.equal(h, h2) and torch.equal(z, z2),
+                    "K3 is not deterministic")
+            del raw, ref_h, ref_z
+
+    # the serving shapes: the whole Reddit-shaped graph's CSR, H=1 and 4
+    g_rowptr, g_col = srv.csr.rowptr, srv.csr.col
+    g_col64 = g_col.long()
+    rows_e = torch.repeat_interleave(torch.arange(v, device=dev),
+                                     g_rowptr.diff())
+
+    def k3_composition(ht, ts, td):
+        """K3's function in torch ops (H=1): the scores, u, one
+        torch.sparse.mm over a CSR whose values are u, z by index_add_,
+        the divide.  Timed as a yardstick only; the port never calls it."""
+        s = ts[:, 0].index_select(0, g_col) + td[:, 0].index_select(0, rows_e)
+        u = torch.exp(torch.where(s >= 0, s, NEG_SLOPE * s).clamp(
+            -ATT_CLIP, ATT_CLIP))
+        out = torch.sparse.mm(torch.sparse_csr_tensor(
+            g_rowptr, g_col64, u, size=(v, v)), ht)
+        z = torch.zeros(v, device=dev).index_add_(0, rows_e, u)
+        return out / z.clamp_min(F32_TINY)[:, None]
+
+    k3_shapes = []
+    for feat, heads in ((128, 1), (128, 4), (41, 1)):
+        for dt in (torch.float32, torch.bfloat16):
+            ht = torch.randn(v, feat, generator=gen).to(dev, dt)
+            ts, td = k3_tables(ht, ht, heads, 2.0)
+            got, _ = gat_aggregate_cuda(ht, ts, td, g_rowptr, g_col, heads)
+            ref, _ = gat_aggregate_plain(ht.float(), ts, td, g_rowptr, g_col,
+                                         heads)
+            torch.cuda.synchronize()
+            key = str(dt).removeprefix("torch.")
+            err = rel_err(got, ref)
+            require(err <= TOL[key], f"K3 vs plain at the serving shape "
+                                     f"F={feat} H={heads} {key}: {err}")
+            comp_ms = comp_err = None
+            if heads == 1 and dt == torch.float32:
+                comp_err = rel_err(k3_composition(ht, ts, td), ref)
+                require(comp_err <= TOL[key], "the composition does not "
+                                              f"compute K3: {comp_err}")
+                comp_ms = time_ms(lambda: k3_composition(ht, ts, td), 10)
+            b = ht.element_size()
+            once = (v * feat * b * 2 + 4 * heads * v * 3 + 8 * (v + 1)
+                    + 4 * e)
+            # 2 flops per (edge, column); per (edge, head) the score add,
+            # leaky_relu, the clip's two compares, exp and the z add; one
+            # divide per output element
+            flops = 2 * e * feat + 6 * e * heads + v * feat
+            bound_s = max(once / hbm, flops / F32_FLOPS_PER_S)
+            k3_shapes.append({
+                "F": feat, "H": heads, "dtype": key, "V": v, "E": e,
+                "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+                "rel_err": err, "tol": TOL[key],
+                "ms": time_ms(lambda: gat_aggregate_cuda(
+                    ht, ts, td, g_rowptr, g_col, heads), 20),
+                "plain_ms": time_ms(lambda: gat_aggregate_plain(
+                    ht, ts, td, g_rowptr, g_col, heads), 3),
+                "library_ms": None, "composition_ms": comp_ms,
+                "composition_rel_err": comp_err,
+                "bound_ms": bound_s * 1e3,
+                "bound_by": ("bytes" if once / hbm >= flops / F32_FLOPS_PER_S
+                             else "operations"),
+                "gather_bound_ms": (e * feat * b + once) / hbm * 1e3})
+            del got, ref
+    emit({"phase": "kernel_k3", "checks": k3_checks,
+          "serving_shapes": k3_shapes,
+          "library": "none: no single PyTorch call computes K3; "
+                     "composition_ms times scores + torch.sparse.mm + z "
+                     "(H=1, f32) as a yardstick"})
+
+    # ---- 5. serving at full width (main path, counted) ----------------------
+    reset_counts()
     pass_s = []
     for _ in range(4):
         before = spmm_csr_cuda.launches
@@ -419,7 +640,7 @@ def main() -> int:
           "bf16_vs_f32_max_abs_diff": bf16_err, "bf16_tol": BF16_SERVE_ATOL,
           "bf16_argmax_agreement": agree})
 
-    # ---- 5. per-request queries (main path, counted) ------------------------
+    # ---- 6. per-request queries (main path, counted) ------------------------
     rng = np.random.default_rng(0)
     lat = {}
     q_err = 0.0
@@ -439,13 +660,107 @@ def main() -> int:
                         fanout=[25, 10], seed=1)
     require(sampled.shape == (512, 41) and bool(np.isfinite(sampled).all()),
             "fanout query shape or values")
-    launches = spmm_csr_cuda.launches
+    serve_counts = counts()
+    launches = serve_counts.pop("spmm_csr")
     require(launches > 0, "the main path never launched spmm_csr")
+    require(not any(serve_counts.values()),
+            f"GCN serving launched other kernels: {serve_counts}")
     emit({"phase": "queries", "max_abs_diff": q_err, "tol": SERVE_ATOL,
           "p50_ms": {str(s): statistics.median(t) * 1e3
                      for s, t in lat.items()}})
+    del srv, logp
 
-    # ---- 6. host-sampled training (main path, counted) ---------------------
+    # ---- 7. GAT serving at full width (main path, counted) -----------------
+    gat_params = init_model(0, "gat", TRAIN_LAYERS, device=dev)
+    attn_gen = torch.Generator().manual_seed(2)
+    gat_params = gat_params._replace(attn=tuple(
+        (torch.randn(a.shape, generator=attn_gen) * GAT_ATTN_SCALE).to(dev)
+        for a in gat_params.attn))
+    reset_counts()
+    gat_serving = []
+    for heads in GAT_SERVE_HEADS:
+        gsrv = InferenceServer(gat_params, "gat", adj, ds.features,
+                               heads=heads, device=dev)
+        pass_s = []
+        for _ in range(4):
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logp = gsrv.logprobs(as_numpy=False)
+            torch.cuda.synchronize()
+            pass_s.append(time.perf_counter() - t0)
+            now = counts()
+            require(now["gat_aggregate"] - before["gat_aggregate"] == 2
+                    and now["spmm_csr"] == before["spmm_csr"],
+                    f"GAT logprobs() launched {now} after {before}: "
+                    "expected 2 K3 and no SpMM")
+        full = logp.cpu().numpy()
+        require(full.shape == (v, 41) and bool(np.isfinite(full).all()),
+                f"GAT log-probs shape {full.shape} or non-finite values")
+        t0 = time.perf_counter()
+        cpu = InferenceServer(gat_params.to("cpu"), "gat", adj, ds.features,
+                              heads=heads, device="cpu").logprobs()
+        cpu_s = time.perf_counter() - t0
+        cpu_err = float(np.abs(full - cpu).max())
+        require(cpu_err <= SERVE_ATOL,
+                f"GAT heads {heads} card vs CPU pass: {cpu_err}")
+        bsrv = InferenceServer(gat_params, "gat", adj, ds.features,
+                               heads=heads, dtype=torch.bfloat16, device=dev)
+        bpass_s = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blogp = bsrv.logprobs(as_numpy=False)
+            torch.cuda.synchronize()
+            bpass_s.append(time.perf_counter() - t0)
+        bfull = blogp.cpu().numpy()
+        require(bfull.shape == full.shape and bool(np.isfinite(bfull).all()),
+                f"GAT bf16 log-probs shape {bfull.shape} or non-finite")
+        bf16_err = float(np.abs(bfull - full).max())
+        require(bf16_err <= BF16_SERVE_ATOL,
+                f"GAT bf16 vs f32 pass: {bf16_err} > {BF16_SERVE_ATOL}")
+        del bsrv, blogp
+        lat, q_err = {}, 0.0
+        for size in (8, 64, 512):
+            lat[size] = []
+            for _ in range(5):
+                nids = rng.choice(v, size=size, replace=False)
+                before = counts()["gat_aggregate"]
+                t0 = time.perf_counter()
+                got = gsrv.query(nids)
+                lat[size].append(time.perf_counter() - t0)
+                require(counts()["gat_aggregate"] - before == 2,
+                        "GAT query() did not launch K3 twice")
+                q_err = max(q_err, float(np.abs(got - full[nids]).max()))
+        require(q_err <= SERVE_ATOL, f"GAT query vs whole-graph rows: {q_err}")
+        sampled = gsrv.query(rng.choice(v, size=512, replace=False),
+                             fanout=[25, 10], seed=1)
+        require(sampled.shape == (512, 41)
+                and bool(np.isfinite(sampled).all()),
+                "GAT fanout query shape or values")
+        gat_serving.append({
+            "heads": heads, "f32_pass_ms": pass_s[0] * 1e3,
+            "f32_pass_ms_median_last3": statistics.median(pass_s[1:]) * 1e3,
+            "bf16_pass_ms_median_last3": statistics.median(bpass_s[1:]) * 1e3,
+            "cpu_pass_max_abs_diff": cpu_err, "host_cpu_pass_s": cpu_s,
+            "bf16_vs_f32_max_abs_diff": bf16_err,
+            "bf16_argmax_agreement": float(np.mean(
+                bfull.argmax(1) == full.argmax(1))),
+            "query_max_abs_diff": q_err,
+            "query_p50_ms": {str(s): statistics.median(t) * 1e3
+                             for s, t in lat.items()}})
+        del gsrv, logp
+    gat_counts = counts()
+    gat_launches = gat_counts.pop("gat_aggregate")
+    require(gat_launches > 0, "the main path never launched gat_aggregate")
+    require(not any(gat_counts.values()),
+            f"GAT serving launched other kernels: {gat_counts}")
+    emit({"phase": "serving_gat", "model": "gat 602-128-41",
+          "graph": {"V": v, "E": e}, "tol": SERVE_ATOL,
+          "bf16_tol": BF16_SERVE_ATOL, "launches_per_pass": 2,
+          "k3_launches": gat_launches, "by_heads": gat_serving})
+
+    # ---- 8. host-sampled training (main path, counted) ---------------------
     host_cfg = RunConfig(algorithm="GCNSAMPLEGPU", layer_sizes=TRAIN_LAYERS,
                          fanout=TRAIN_FANOUT, batch_size=TRAIN_BATCH,
                          learn_rate=0.01, drop_rate=0.5, epochs=1, seed=0,
@@ -466,8 +781,7 @@ def main() -> int:
     require(max(grad_errs) <= TRAIN_GRAD_RTOL,
             f"card vs CPU gradients: {grad_errs}")
     del card, cpu, cpu_batch, card_batch
-    for f in (spmm_csr_cuda, *k1_fns):
-        f.launches = 0
+    reset_counts()
     host_steps = []
     for i in range(1, 4):
         torch.cuda.synchronize()
@@ -485,8 +799,9 @@ def main() -> int:
                            "edges": nedges, "loss": loss,
                            "edges_per_s": nedges / (t2 - t0)})
     host_launches = [f.launches for f in k1_fns]
-    require(host_launches == [6, 6, 0] and spmm_csr_cuda.launches == 0,
-            f"host-sampled steps launched K1 {host_launches}, expected 2 "
+    require(host_launches == [6, 6, 0] and spmm_csr_cuda.launches == 0
+            and gat_aggregate_cuda.launches == 0,
+            f"host-sampled steps launched {counts()}, expected 2 K1 "
             "forward + 2 dx per step")
     emit({"phase": "train_host", "engine": "GCNSAMPLEGPU",
           "model": "gcn 602-128-41", "fanout": TRAIN_FANOUT,
@@ -497,9 +812,8 @@ def main() -> int:
           "k1_launches": dict(zip(("fwd", "dx", "dw"), host_launches))})
     del host_trainer, batch
 
-    # ---- 7. device-sampled training (main path, counted) -------------------
-    for f in (spmm_csr_cuda, *k1_fns):
-        f.launches = 0
+    # ---- 9. device-sampled training (main path, counted) -------------------
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tr_loss, tr_acc, edges = dev_trainer.train_epoch()
@@ -518,8 +832,9 @@ def main() -> int:
     require(train_launches == [2 * steps, 2 * steps, 0],
             f"training epoch launched K1 {train_launches}")
     require(dev_launches == [2 * steps + 2 * eval_batches, 2 * steps, 0]
-            and spmm_csr_cuda.launches == 0,
-            f"epoch + evaluate launched K1 {dev_launches}")
+            and spmm_csr_cuda.launches == 0
+            and gat_aggregate_cuda.launches == 0,
+            f"epoch + evaluate launched {counts()}")
     med_step_ms = statistics.median(dev_trainer.step_ms[1:])
     emit({"phase": "train_device", "engine": "GSSAMPLEALLGPU",
           "model": "sage 602-128-41", "fanout": TRAIN_FANOUT,
@@ -534,8 +849,76 @@ def main() -> int:
           "eval_batches": eval_batches,
           "k1_launches": dict(zip(("fwd", "dx", "dw"), dev_launches)),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del dev_trainer
 
-    # ---- 8. kernels ---------------------------------------------------------
+    # ---- 10. device-sampled GAT training (main path, counted) --------------
+    gat_cfg = RunConfig(algorithm="GATSAMPLEALLGPU", layer_sizes=TRAIN_LAYERS,
+                        fanout=TRAIN_FANOUT, batch_size=TRAIN_BATCH,
+                        learn_rate=0.01, drop_rate=0.5, epochs=1, seed=0,
+                        heads=GAT_TRAIN_HEADS, vertices=ds.num_vertices)
+    gat_trainer = build_trainer(gat_cfg, ds)
+    require(gat_trainer.family == "gat"
+            and gat_trainer.weight_kind == WeightKind.NONE
+            and gat_trainer.optimizer.bias_correction,
+            "GATSAMPLEALLGPU did not build the GAT device trainer")
+    # the first batch at drop 0, card against CPU, with seeded nonzero
+    # attention vectors (the trainer's own start at zeros, uniform
+    # attention, which would leave the scores untested)
+    check_params = gat_trainer.params._replace(attn=tuple(
+        (torch.randn(a.shape, generator=attn_gen) * GAT_ATTN_SCALE).to(dev)
+        for a in gat_trainer.params.attn))
+    batch = first_batch(gat_trainer)
+    card = loss_and_grads(check_params, "gat", batch, heads=GAT_TRAIN_HEADS)
+    t0 = time.perf_counter()
+    cpu = loss_and_grads(check_params.to("cpu"), "gat",
+                         batch_to(batch, "cpu"), heads=GAT_TRAIN_HEADS)
+    cpu_step_s = time.perf_counter() - t0
+    loss_diff = abs(card.loss.item() - cpu.loss.item())
+    require(loss_diff <= TRAIN_LOSS_ATOL,
+            f"GAT card vs CPU loss: {loss_diff}")
+    grad_errs = [rel_err(a, b) for a, b in zip(card.grads, cpu.grads)]
+    require(len(grad_errs) == 4 and max(grad_errs) <= TRAIN_GRAD_RTOL,
+            f"GAT card vs CPU gradients (W0, W1, a0, a1): {grad_errs}")
+    first_loss = card.loss.item()
+    del card, cpu, batch
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr_loss, tr_acc, edges = gat_trainer.train_epoch()
+    epoch_s = time.perf_counter() - t0
+    val_acc = gat_trainer.evaluate(gat_trainer.val_nids)
+    gat_train_counts = counts()
+    steps = len(gat_trainer.step_ms)
+    losses = gat_trainer.step_losses
+    require(all(np.isfinite(losses)) and np.isfinite(tr_loss),
+            f"non-finite GAT training loss: {losses}")
+    require(steps == 16, f"{steps} GAT steps in the epoch, expected 16")
+    require(float(np.mean(losses[-4:])) < losses[0],
+            f"GAT loss did not fall: first {losses[0]}, last 4 {losses[-4:]}")
+    require(not any(gat_train_counts.values()),
+            f"sampled GAT launched kernels: {gat_train_counts}")
+    med_step_ms = statistics.median(gat_trainer.step_ms[1:])
+    emit({"phase": "train_gat", "engine": "GATSAMPLEALLGPU",
+          "model": "gat 602-128-41", "heads": GAT_TRAIN_HEADS,
+          "fanout": TRAIN_FANOUT, "batch": TRAIN_BATCH,
+          "src_pads": list(gat_trainer.src_pads),
+          "first_batch_loss": first_loss,
+          "first_batch_loss_abs_diff": loss_diff, "loss_atol": TRAIN_LOSS_ATOL,
+          "grad_rel_err": grad_errs, "grad_rtol": TRAIN_GRAD_RTOL,
+          "host_cpu_loss_and_grads_s": cpu_step_s,
+          "steps": steps, "step_ms": gat_trainer.step_ms,
+          "step_ms_median_after_first": med_step_ms,
+          "epoch_s": epoch_s, "edges_per_epoch": edges,
+          "sampled_edges_per_s_epoch": edges / epoch_s,
+          "sampled_edges_per_s_steady": edges / steps / (med_step_ms / 1e3),
+          "overflow": gat_trainer.last_overflow, "losses": losses,
+          "train_acc": tr_acc, "val_acc": val_acc,
+          "launches": gat_train_counts,
+          "peak_mem_gb_epoch": torch.cuda.max_memory_allocated() / 1e9})
+    del gat_trainer
+
+    # ---- 11. kernels --------------------------------------------------------
     # one logprobs() pass's work: the F=128 and the F=41 f32 SpMMs
     per_pass = [t for t in timings if t["dtype"] == "float32"]
 
@@ -571,6 +954,17 @@ def main() -> int:
                                     if t["name"] == kname],
                             "sgnn_tpu_torch/csrc/gather_agg.cu", replaces, n,
                             step_shapes))
+    # one single-head f32 GAT logprobs pass: F=128 + F=41, both at H=1
+    k3_pass = [t for t in k3_shapes
+               if t["dtype"] == "float32" and t["H"] == 1]
+    k3_line = line("gat_aggregate", k3_pass, "sgnn_tpu_torch/csrc/gat.cu",
+                   "sgnn_tpu/ops/pallas/mxu_gat.py:182", gat_launches,
+                   f"one f32 single-head GAT logprobs pass: F=128 + F=41 on "
+                   f"the {v}-vertex, {e}-edge graph (library_ms null: no "
+                   f"single PyTorch call computes K3; composition_ms is "
+                   f"scores + torch.sparse.mm + z)")
+    k3_line["composition_ms"] = total(k3_pass, "composition_ms")
+    kernels.append(k3_line)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,17 +2,20 @@
 """Where the port's serving time goes, on one NVIDIA card.
 
     python3 scripts/torch_profile_serving.py [--scale 1.0] [--out DIR]
+                                             [--family gcn|gat] [--heads N]
 
-Builds the serving configuration of chip_smoke.py (GCN 602-128-41, seed-0
-weights, `reddit_like_dataset(seed=0, scale)`), warms the server, then
-traces with `torch.profiler` one f32 `logprobs()` pass, one bf16 pass and
-one query each of 8, 64 and 512 vertices.  For each it prints one JSON
+Builds the serving configuration of chip_smoke.py (GCN 602-128-41, or with
+`--family gat` GAT 602-128-41 with N heads on the hidden layer and the
+seeded nonzero attention vectors chip_smoke.py serves; seed-0 weights,
+`reddit_like_dataset(seed=0, scale)`), warms the server, then traces with
+`torch.profiler` one f32 `logprobs()` pass, one bf16 pass and one query
+each of 8, 64 and 512 vertices.  For each it prints one JSON
 line: the host wall time (ending in a synchronize), the device time summed
 over the kernels the trace saw, the device's idle share (1 - device/wall)
-and the five kernels with the most device time.  It also prints the peak
+and the eight kernels with the most device time.  It also prints the peak
 device memory with the f32 and the bf16 server resident, and the card's
 name and power limit.  The full per-kernel tables go to
-DIR/torch_profile_serving.txt (default build/profiles/).  Needs a CUDA
+DIR/torch_profile_serving[_gat<N>].txt (default build/profiles/).  Needs a CUDA
 device; imports nothing of JAX.
 """
 
@@ -50,7 +53,7 @@ def traced(label, fn, table_file):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     table_file.write(f"== {label}: wall {wall_ms:.3f} ms\n")
     table_file.write(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=25) + "\n")
@@ -66,6 +69,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--out", default=str(ROOT / "build" / "profiles"))
+    ap.add_argument("--family", choices=("gcn", "gat"), default="gcn")
+    ap.add_argument("--heads", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_serving: no CUDA device", file=sys.stderr)
@@ -77,11 +82,18 @@ def main() -> int:
     dev = torch.device("cuda")
     ds = reddit_like_dataset(seed=0, scale=args.scale)
     adj = Adjacency.from_edges(ds.edges, ds.num_vertices)
-    params = init_model(0, "gcn", [602, 128, 41], device=dev)
+    params = init_model(0, args.family, [602, 128, 41], device=dev)
+    if args.family == "gat":
+        # chip_smoke.py's attention vectors: seeded, N(0, 1)·0.1
+        gen = torch.Generator().manual_seed(2)
+        params = params._replace(attn=tuple(
+            (torch.randn(a.shape, generator=gen) * 0.1).to(dev)
+            for a in params.attn))
     torch.cuda.reset_peak_memory_stats()
-    srv = InferenceServer(params, "gcn", adj, ds.features, device=dev)
-    bsrv = InferenceServer(params, "gcn", adj, ds.features,
-                           dtype=torch.bfloat16, device=dev)
+    kw = dict(heads=args.heads, device=dev)
+    srv = InferenceServer(params, args.family, adj, ds.features, **kw)
+    bsrv = InferenceServer(params, args.family, adj, ds.features,
+                           dtype=torch.bfloat16, **kw)
     for s in (srv, bsrv):
         s.logprobs(as_numpy=False)
         s.logprobs(as_numpy=False)
@@ -89,14 +101,17 @@ def main() -> int:
     rng = np.random.default_rng(1)
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "torch_profile_serving.txt", "w") as f:
+    tag = "" if args.family == "gcn" else f"_gat{args.heads}"
+    with open(out_dir / f"torch_profile_serving{tag}.txt", "w") as f:
         traced("f32 logprobs pass", lambda: srv.logprobs(as_numpy=False), f)
         traced("bf16 logprobs pass", lambda: bsrv.logprobs(as_numpy=False),
                f)
         for size in (8, 64, 512):
             nids = rng.choice(adj.num_vertices, size=size, replace=False)
             traced(f"query {size}", lambda: srv.query(nids), f)
-    print(json.dumps({"graph": {"V": adj.num_vertices, "E": adj.num_edges},
+    print(json.dumps({"model": f"{args.family} 602-128-41",
+                      "heads": args.heads,
+                      "graph": {"V": adj.num_vertices, "E": adj.num_edges},
                       "peak_device_mem_gb_f32_and_bf16_servers":
                           torch.cuda.max_memory_allocated() / 1e9,
                       "card": smi}), flush=True)

@@ -2,11 +2,12 @@
 """Where the port's sampled-training time goes, on one NVIDIA card.
 
     python3 scripts/torch_profile_training.py [--scale 1.0] [--out DIR]
+        [--engine GSSAMPLEALLGPU|GATSAMPLEALLGPU] [--heads N]
 
 Builds the training configuration of chip_smoke.py (602-128-41, fanout
 25-10, batch 10000, lr 0.01, drop 0.5, `reddit_like_dataset(seed=0,
-scale)`): a GSSAMPLEALLGPU trainer (device sampler) and a GCNSAMPLEGPU
-trainer (host sampler).  After one untraced warm-up epoch of the device
+scale)`): a device-sampled trainer (GSSAMPLEALLGPU, or GATSAMPLEALLGPU
+with N heads) and a GCNSAMPLEGPU trainer (host sampler).  After one untraced warm-up epoch of the device
 trainer it runs, untraced and then traced with `torch.profiler`, one
 device-sampled step, one whole device-sampled epoch and one host-sampled
 step (sample, upload, train).  For each it prints one JSON line: the host
@@ -15,7 +16,7 @@ kernels the trace saw, the device's idle share (1 - device/wall, against
 the traced and the untraced wall), K1's device time and share, and the
 eight kernels with the most device time.  It also prints the peak device
 memory and the card's name and power limit.  The full per-kernel tables go
-to DIR/torch_profile_training.txt (default build/profiles/).  Needs a CUDA
+to DIR/torch_profile_training[_<engine>].txt (default build/profiles/).  Needs a CUDA
 device; imports nothing of JAX.
 """
 
@@ -80,6 +81,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--out", default=str(ROOT / "build" / "profiles"))
+    ap.add_argument("--engine", default="GSSAMPLEALLGPU",
+                    choices=("GSSAMPLEALLGPU", "GATSAMPLEALLGPU"))
+    ap.add_argument("--heads", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_training: no CUDA device", file=sys.stderr)
@@ -94,11 +98,11 @@ def main() -> int:
     def cfg(algo):
         return RunConfig(algorithm=algo, layer_sizes=[602, 128, 41],
                          fanout=[25, 10], batch_size=batch, learn_rate=0.01,
-                         drop_rate=0.5, epochs=1, seed=0,
+                         drop_rate=0.5, epochs=1, seed=0, heads=args.heads,
                          vertices=ds.num_vertices)
 
     torch.cuda.reset_peak_memory_stats()
-    dev_tr = build_trainer(cfg("GSSAMPLEALLGPU"), ds)
+    dev_tr = build_trainer(cfg(args.engine), ds)
     host_tr = build_trainer(cfg("GCNSAMPLEGPU"), ds)
     dev_tr.train_epoch()   # warm-up: library start-up, allocator
     seeds, valid = next(dev_tr._seed_batches(dev_tr.train_nids, True))
@@ -115,9 +119,10 @@ def main() -> int:
 
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "torch_profile_training.txt", "w") as f:
-        traced("GSSAMPLEALLGPU step", device_step, f)
-        traced("GSSAMPLEALLGPU epoch", dev_tr.train_epoch, f,
+    tag = "" if args.engine == "GSSAMPLEALLGPU" else f"_{args.engine}"
+    with open(out_dir / f"torch_profile_training{tag}.txt", "w") as f:
+        traced(f"{args.engine} step", device_step, f, heads=args.heads)
+        traced(f"{args.engine} epoch", dev_tr.train_epoch, f,
                steps=-(-len(dev_tr.train_nids) // batch))
         traced("GCNSAMPLEGPU step (sample+upload+train)", host_step, f)
     print(json.dumps({"graph": {"V": ds.num_vertices,

@@ -14,16 +14,22 @@ serving runs the whole-graph forward of train/fullbatch.py.
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..nn.functional import BN_EPS, dropout, log_softmax
 from ..nn.layers import xavier_uniform_init
-from ..ops.aggregate import gather_aggregate
+from ..ops.aggregate import (
+    aggregate_edges_to_dst, edge_softmax, gather_aggregate,
+    scatter_src_to_edges,
+)
+from ..ops.gat import NEG_SLOPE
 from ..sampler.blocks import SampledBatch
 
 MODEL_FAMILIES = ("gcn", "sage", "gat")
@@ -103,6 +109,24 @@ def _batch_norm(t: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return ((t32 - mu) * torch.rsqrt(var + BN_EPS)).to(t.dtype)
 
 
+def check_heads(params: GNNParams, family: str, heads: int) -> None:
+    """GAT: raise ValueError unless every layer has its attention vector
+    [2·out, 1] and `heads` >= 1 divides every hidden width (the last layer
+    is single-head).  GCN/SAGE ignore `heads`, as in the JAX package."""
+    if family != "gat":
+        return
+    n_layers = len(params.weights)
+    if len(params.attn) != n_layers or any(
+            tuple(a.shape) != (2 * w.shape[1], 1)
+            for w, a in zip(params.weights, params.attn)):
+        raise ValueError("GAT needs one attention vector [2*out, 1] per "
+                         f"layer, got {[tuple(a.shape) for a in params.attn]}")
+    widths = [int(w.shape[1]) for w in params.weights[:-1]]
+    if heads < 1 or any(f % heads for f in widths):
+        raise ValueError(f"heads={heads} must divide every hidden width "
+                         f"{widths}")
+
+
 def _agg_linear(w: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
                 wgt: torch.Tensor) -> torch.Tensor:
     """agg(X)·W == agg(X·W): when the layer SHRINKS the width (in > out),
@@ -110,6 +134,35 @@ def _agg_linear(w: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
     if w.shape[0] > w.shape[1]:
         return gather_aggregate(x @ w.to(x.dtype), nbr, wgt)
     return gather_aggregate(x, nbr, wgt) @ w.to(x.dtype)
+
+
+def _gat_layer(w: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
+               nbr: torch.Tensor, wgt: torch.Tensor, seed_in_src: torch.Tensor,
+               heads: int = 1) -> torch.Tensor:
+    """One sampled GAT layer, pre-activation (sgnn_tpu/models/gnn.py:84-125):
+    `heads` > 1 splits the F' output columns into blocks, each with its own
+    attention (concat-of-heads; parameter shapes as single-head).  The
+    leaky_relu slope is NEG_SLOPE, the one whole-graph serving uses."""
+    h = x @ w.to(x.dtype)                                   # [S, F']
+    fprime = h.shape[-1]
+    h_src_e = scatter_src_to_edges(h, nbr)                  # [D, K, F']
+    h_dst = h.index_select(0, seed_in_src)                  # [D, F']
+    # [H_src ‖ H_dst]·a  ==  H_src·a[:F'] + H_dst·a[F':]
+    a_src = a[:fprime, 0].to(h.dtype)
+    a_dst = a[fprime:, 0].to(h.dtype)
+    mask = wgt != 0.0
+    if heads > 1:
+        fh = fprime // heads
+        d, k = h_src_e.shape[0], h_src_e.shape[1]
+        src_h = h_src_e.view(d, k, heads, fh)
+        score = torch.einsum("dkhf,hf->dkh", src_h, a_src.view(heads, fh))
+        score = score + torch.einsum("dhf,hf->dh", h_dst.view(d, heads, fh),
+                                     a_dst.view(heads, fh))[:, None, :]
+        att = edge_softmax(F.leaky_relu(score, NEG_SLOPE), mask)
+        return aggregate_edges_to_dst(src_h, att).reshape(d, fprime)
+    score = torch.einsum("dkf,f->dk", h_src_e, a_src) + (h_dst @ a_dst)[:, None]
+    att = edge_softmax(F.leaky_relu(score, NEG_SLOPE), mask)
+    return aggregate_edges_to_dst(h_src_e, att)             # [D, F']
 
 
 def model_forward(
@@ -125,18 +178,20 @@ def model_forward(
     heads: int = 1,
     batch_norm: bool = False,
 ) -> torch.Tensor:
-    """Run the L-layer GCN/SAGE model; returns log-probs [num_seed_pad, C].
+    """Run the L-layer model; returns log-probs [num_seed_pad, C].
 
     The port of sgnn_tpu/models/gnn.py:128-238: blocks are consumed
-    input→output (layer l aggregates over batch.blocks[l]); hidden layers
-    are relu(bn(agg(X)·W)) then dropout (drawn from `generator`, on the
-    batch's device); the last layer is log_softmax in f32.  `batch_norm`
+    input→output (layer l aggregates over batch.blocks[l]).  GCN/SAGE:
+    hidden layers are relu(bn(agg(X)·W)) then dropout (drawn from
+    `generator`, on the batch's device); the last layer is log_softmax in
+    f32.  GAT: `heads` attention heads on hidden layers, one on the last;
+    relu(bn(.)) on hidden layers and relu then log_softmax in f32 on the
+    last (the reference's relu at every layer); no dropout, so nothing is
+    drawn from `generator`, as the JAX GAT branch draws none.  `batch_norm`
     standardises hidden pre-activations over the hop's valid destination
-    rows.  `remat` recomputes each hidden layer's aggregation in the
-    backward pass (torch.utils.checkpoint) instead of storing it."""
-    if family == "gat":
-        raise NotImplementedError(
-            "sampled GAT waits for the GAT slice (ROADMAP Queue 1 item 2)")
+    rows.  `remat` recomputes a layer in the backward pass
+    (torch.utils.checkpoint) instead of storing it: GCN/SAGE's hidden
+    aggregations, every GAT layer (as the JAX package's checkpoints)."""
     if cache_emb is not None:
         raise NotImplementedError(
             "the embedding cache waits for the cache slice (ROADMAP Queue 1 "
@@ -146,9 +201,22 @@ def model_forward(
     n_layers = len(params.weights)
     if batch.num_layers != n_layers:
         raise ValueError(f"{batch.num_layers} blocks for {n_layers} layers")
+    check_heads(params, family, heads)
     x = batch.x0
     for l, block in enumerate(batch.blocks):
         is_last = l == n_layers - 1
+        if family == "gat":
+            fn = functools.partial(_gat_layer, heads=1 if is_last else heads)
+            args = (params.weights[l], params.attn[l], x, block.nbr,
+                    block.weight, block.seed_in_src)
+            pre = (checkpoint(fn, *args, use_reentrant=False) if remat
+                   else fn(*args))
+            if not is_last and batch_norm:
+                pre = _batch_norm(pre, block.dst_valid)
+            x = torch.relu(pre)
+            if is_last:
+                x = log_softmax(x.float())
+            continue
         args = (params.weights[l], x, block.nbr, block.weight)
         if remat and not is_last:
             y = checkpoint(_agg_linear, *args, use_reentrant=False)

@@ -13,7 +13,11 @@ whose backward is the math of sgnn_tpu/ops/aggregate.py:60-81:
 Dispatch, for each of the three products: a CPU tensor goes to its plain
 PyTorch version here; a CUDA tensor launches the kernel
 (ops/cuda/gather_agg.py) or raises.  There is no fallback between them.
-The GAT edge ops wait for the GAT slice (ROADMAP Queue 1 item 2).
+
+The GAT edge ops at the end (`scatter_src_to_edges`, `scatter_dst_to_edges`,
+`edge_softmax`, `aggregate_edges_to_dst`) are the port of
+sgnn_tpu/ops/aggregate.py:88-144: plain torch ops with autograd, as they are
+plain XLA in the JAX package (no Pallas kernel behind them).
 """
 
 from __future__ import annotations
@@ -162,3 +166,48 @@ def gather_aggregate(x: torch.Tensor, nbr: torch.Tensor,
     in x's dtype, differentiable in x and w.  On CUDA, dx goes through
     float atomics and is not bit-deterministic from run to run."""
     return _GatherAggregate.apply(x, nbr, w)
+
+
+# ------------------------------------------------------- GAT edge ops -------
+def scatter_src_to_edges(x_src: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """Vertex→edge scatter of SOURCE rows: [D, K, F] = x_src[nbr] (reference
+    `BatchGPUScatterSrc`); autograd gives the scatter-add backward."""
+    flat = x_src.index_select(0, nbr.reshape(-1))
+    return flat.view(*nbr.shape, x_src.shape[-1])
+
+
+def scatter_dst_to_edges(x_dst: torch.Tensor, fanout: int) -> torch.Tensor:
+    """Vertex→edge scatter of DESTINATION rows, broadcast over the fanout
+    axis: [D, K, F] (reference `BatchGPUScatterDst`), a view."""
+    return x_dst[:, None, :].expand(x_dst.shape[0], fanout, x_dst.shape[-1])
+
+
+def edge_softmax(scores: torch.Tensor, edge_mask: torch.Tensor) -> torch.Tensor:
+    """Per-destination softmax over the fanout axis with invalid slots
+    masked (reference `BatchGPUEdgeSoftMax`).
+
+    scores [D, K] (or [D, K, H]: softmax per (dst, head)), edge_mask [D, K]
+    bool.  Max-shifted with the max detached, as the JAX version's
+    stop_gradient; 0 on invalid slots, and a row with no valid slot is all
+    zero."""
+    if scores.dim() == 3 and edge_mask.dim() == 2:
+        edge_mask = edge_mask[:, :, None]
+    info = torch.finfo(scores.dtype)
+    masked = torch.where(edge_mask, scores,
+                         torch.full((), info.min, dtype=scores.dtype,
+                                    device=scores.device))
+    m = masked.amax(dim=1, keepdim=True).detach()
+    e = torch.where(edge_mask, torch.exp(masked - m),
+                    torch.zeros((), dtype=scores.dtype, device=scores.device))
+    z = e.sum(dim=1, keepdim=True)
+    return e / z.clamp_min(info.tiny)
+
+
+def aggregate_edges_to_dst(edge_msg: torch.Tensor,
+                           attn: torch.Tensor) -> torch.Tensor:
+    """Attention-weighted edge→destination sum `out[d] = Σ_k attn[d,k]·msg[d,k]`
+    (reference `BatchGPUAggregateDst`).  With a head axis (attn [D,K,H], msg
+    [D,K,H,Fh]) each head sums its own block: [D, H, Fh]."""
+    if attn.dim() == 3:
+        return torch.einsum("dkh,dkhf->dhf", attn, edge_msg)
+    return torch.einsum("dk,dkf->df", attn, edge_msg)

@@ -21,10 +21,9 @@ import functools
 import torch
 
 from ..aggregate import check_block_args, check_grad_arg
-from ..segment import SPMM_DTYPES
+from ..segment import DTYPE_CODES
 from .build import build
 
-_DTYPE_CODES = {dt: code for code, dt in enumerate(SPMM_DTYPES)}
 _P = ctypes.c_void_p
 _ARGS = {
     "sgnn_gather_agg_fwd": [_P] * 4,
@@ -51,7 +50,7 @@ def _launch(name: str, ptrs, x: torch.Tensor, num_dst: int, k_slots: int,
     fn, err = _entry(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(*ptrs, num_dst, k_slots, feat, _DTYPE_CODES[x.dtype], stream)
+        rc = fn(*ptrs, num_dst, k_slots, feat, DTYPE_CODES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({err(rc).decode()})")

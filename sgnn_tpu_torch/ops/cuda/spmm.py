@@ -15,11 +15,8 @@ import functools
 
 import torch
 
-from ..segment import SPMM_DTYPES, check_spmm_args
+from ..segment import DTYPE_CODES, check_spmm_args
 from .build import build
-
-# the C side's dtype codes: 0 = float32, 1 = bfloat16, SPMM_DTYPES' order
-_DTYPE_CODES = {dt: code for code, dt in enumerate(SPMM_DTYPES)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,7 +48,7 @@ def spmm_csr_cuda(x: torch.Tensor, rowptr: torch.Tensor, col: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), rowptr.data_ptr(), col.data_ptr(),
                 w.data_ptr(), out.data_ptr(), num_rows, feat,
-                _DTYPE_CODES[x.dtype], stream)
+                DTYPE_CODES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"spmm_csr kernel launch failed: CUDA error {rc} "
                            f"({err(rc).decode()})")

@@ -24,8 +24,10 @@ from .. import resolve_device
 # edges per index_add_ step in the plain version: bounds its [chunk, F] f32
 # temporaries (128 MB at F = 128)
 PLAIN_CHUNK_EDGES = 1 << 18
-# dtypes of x (and of the result) that the kernel takes; w is always f32
+# dtypes of x (and of the result) that the kernels take; w is always f32
 SPMM_DTYPES = (torch.float32, torch.bfloat16)
+# the C side's dtype codes of every csrc/ kernel: 0 = float32, 1 = bfloat16
+DTYPE_CODES = {dt: code for code, dt in enumerate(SPMM_DTYPES)}
 
 
 class Csr(NamedTuple):

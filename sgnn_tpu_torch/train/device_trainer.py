@@ -129,7 +129,9 @@ class DeviceSampleTrainer(SampleTrainer):
             self.adj.in_degree.astype(np.int32)).to(d)
         self.dev_out_deg = torch.from_numpy(
             self.adj.out_degree.astype(np.int32)).to(d)
-        self.weight_kind = weight_kind
+        # GAT's blocks carry 1 on valid slots (sgnn_tpu/train/
+        # device_trainer.py:138), as the host sampler's in SampleTrainer
+        self.weight_kind = WeightKind.NONE if family == "gat" else weight_kind
         self.seed_pad = pad_to(cfg.batch_size, 128)
         self.src_pads = self.compute_src_pads(cfg.batch_size)
         self.fused_epoch = True

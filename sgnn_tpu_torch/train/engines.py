@@ -4,9 +4,10 @@ The port of sgnn_tpu/train/engines.py.  Reference: toolkits/main.cpp:46-183
 dispatches 14 engine classes, one per (model × placement × caching ×
 #GPU); here one trainer is parameterised by policy knobs, so every
 ALGORITHM string maps to a configuration.  The table is the JAX package's
-in full; the port trains GCNSAMPLESINGLE, GCNSAMPLEGPU, GCNSAMPLEALLGPU and
-GSSAMPLEALLGPU, and every other engine, and every option the port does not
-take yet, raises NotImplementedError naming its ROADMAP item.
+in full; the port trains GCNSAMPLESINGLE, GCNSAMPLEGPU, GCNSAMPLEALLGPU,
+GSSAMPLEALLGPU and GATSAMPLEALLGPU, and every other engine, and every
+option the port does not take yet, raises NotImplementedError naming its
+ROADMAP item.
 
 Placement: *SAMPLESINGLE → bias-corrected Adam (CPU engines); *SAMPLEGPU →
 host sampler; *ALLGPU → device sampler.  Edge-weight degrees follow
@@ -100,8 +101,6 @@ def _not_ported(spec: EngineSpec, cfg: RunConfig) -> Optional[str]:
     trains it."""
     if spec.fullbatch:
         return f"{spec.name}: whole-graph training (ROADMAP Queue 1 item 3)"
-    if spec.family == "gat":
-        return f"{spec.name}: sampled GAT (ROADMAP Queue 1 item 2)"
     if spec.multi_device:
         return f"{spec.name}: data-parallel training (ROADMAP Queue 1 item 6)"
     if spec.use_cache:

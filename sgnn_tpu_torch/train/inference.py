@@ -1,4 +1,4 @@
-"""Exact (full-neighborhood) serving of GCN/GraphSAGE models.
+"""Exact (full-neighborhood) serving of GCN, GraphSAGE and GAT models.
 
 The port's counterpart of `sgnn_tpu/train/inference.py`:
 
@@ -12,13 +12,19 @@ The port's counterpart of `sgnn_tpu/train/inference.py`:
 
 The graph stays the CSC arrays, used as a CSR over destinations: `rowptr`
 is `adj.indptr` (int64), `col` is `adj.indices` (int32), `w` the serving
-weight (f32); bounds are checked once, on the host, at construction.  The
-JAX package's window planner, 512-edge padding and power-of-two query
-buckets exist only for XLA's program memory and static shapes, so the port
-has none of them.
+weight (f32; ones for GAT, whose attention kernel reads no weights);
+bounds are checked once, on the host, at construction.  The JAX package's
+window planner, 512-edge padding, power-of-two query buckets and one-hot
+attention plan exist only for XLA's program memory, static shapes and
+Mosaic's tiling, so the port has none of them.
+
+GAT's whole-graph pass uses the clipped max-free exponential of the JAX
+package's kernel tier (ops/gat.py); its query forward uses the same, where
+the JAX query takes the max-shifted softmax: the two are equal while every
+|score| < 60.
 
 Not ported yet, and raising NotImplementedError with the ROADMAP.md item:
-family "gat", aggregators "min"/"max", int8 residency, and the chunked
+aggregators "min"/"max" (GCN/SAGE), int8 residency, and the chunked
 beyond-device-memory mode of `layerwise_inference` (`whole_graph=False`).
 """
 
@@ -31,7 +37,7 @@ import torch
 
 from .. import resolve_device
 from ..graph.adjacency import Adjacency
-from ..models.gnn import GNNParams
+from ..models.gnn import GNNParams, check_heads
 from ..ops.segment import csr_from_numpy
 from ..sampler.blocks import WeightKind
 from .fullbatch import build_coo, check_ported, full_forward
@@ -88,13 +94,15 @@ def _in_edges(indptr: np.ndarray, dsts: np.ndarray):
 
 
 def _query_forward(params: GNNParams, x_all: torch.Tensor,
-                   gids0: torch.Tensor, layers, family: str,
-                   aggregator: str = "sum") -> torch.Tensor:
+                   gids0: torch.Tensor, layers, dst_rows, family: str,
+                   aggregator: str = "sum", heads: int = 1) -> torch.Tensor:
     """Exact forward over an L-hop query neighborhood: gather the bottom
     source rows, then one full_forward layer per hop CSR (`layers`, bottom
-    first; layer l's rows are layer l+1's sources, the sets are nested)."""
+    first; layer l's rows are layer l+1's sources, the sets are nested, and
+    `dst_rows[l]` places layer l's destinations among its sources)."""
     return full_forward(params, family, x_all.index_select(0, gids0), layers,
-                        aggregator=aggregator)
+                        aggregator=aggregator, heads=heads,
+                        dst_rows=dst_rows)
 
 
 class InferenceServer:
@@ -105,6 +113,8 @@ class InferenceServer:
     over the queried vertices' L-hop neighborhood, and `update_params`
     swaps in fresh weights between passes.  `dtype=torch.bfloat16` halves
     residency (the classification head still ends in f32 log_softmax).
+    `family="gat"` serves GAT models with `heads` attention heads on the
+    hidden layers (the last is single-head); GCN/SAGE ignore `heads`.
 
     `device=None` means CUDA and raises without a card; `device="cpu"`
     runs the plain PyTorch versions of the kernels.
@@ -125,7 +135,7 @@ class InferenceServer:
         dtype=torch.float32,
         device=None,
     ) -> None:
-        check_ported(family, aggregator, heads)
+        check_ported(family, aggregator)
         self.dtype = _resident_dtype(dtype)
         self.device = resolve_device(device)
         if weight_kind is None:
@@ -135,6 +145,7 @@ class InferenceServer:
             raise ValueError(f"features {features.shape} do not match "
                              f"{adj.num_vertices} vertices")
         self.family = family
+        self.heads = heads
         self.aggregator = aggregator
         self.batch_norm = batch_norm
         self.num_vertices = adj.num_vertices
@@ -160,6 +171,7 @@ class InferenceServer:
         self.update_params(params)
 
     def update_params(self, params: GNNParams) -> None:
+        check_heads(params, self.family, self.heads)
         self.params = params.to(self.device)
 
     def warmup(self, sizes=(8, 64, 512), reps: int = 1, fanout=None,
@@ -186,7 +198,7 @@ class InferenceServer:
         `as_numpy=False` keeps the result on the device."""
         logp = full_forward(self.params, self.family, self._x, self.csr,
                             batch_norm=self.batch_norm,
-                            aggregator=self.aggregator)
+                            aggregator=self.aggregator, heads=self.heads)
         return logp.cpu().numpy() if as_numpy else logp
 
     def predict(self) -> np.ndarray:
@@ -250,18 +262,22 @@ class InferenceServer:
             rowptr = np.zeros(dst_set.size + 1, np.int64)
             np.cumsum(np.bincount(dst_local, minlength=dst_set.size),
                       out=rowptr[1:])
+            # dst_in_src: each destination's row in the source set (the sets
+            # are nested), where GAT takes the destination's score half
             plan.append((src_set, rowptr,
-                         np.searchsorted(src_set, src_g).astype(np.int32), w))
+                         np.searchsorted(src_set, src_g).astype(np.int32), w,
+                         np.searchsorted(src_set, dst_set)))
             dst_set = src_set
         plan.reverse()
         self._seen_query_shapes.add(
             (tuple(p[0].size for p in plan) + (uniq.size,),
              tuple(p[2].size for p in plan)))
         layers = [csr_from_numpy(rowptr, col, w, src_set.size, self.device)
-                  for src_set, rowptr, col, w in plan]
+                  for src_set, rowptr, col, w, _ in plan]
+        dst_rows = [torch.from_numpy(p[4]).to(self.device) for p in plan]
         gids0 = torch.from_numpy(plan[0][0]).to(self.device)
-        logp = _query_forward(self.params, self._x, gids0, layers,
-                              self.family, self.aggregator)
+        logp = _query_forward(self.params, self._x, gids0, layers, dst_rows,
+                              self.family, self.aggregator, self.heads)
         return logp.cpu().numpy()[inv]
 
 

@@ -29,7 +29,7 @@ from .. import resolve_device
 from ..config import RunConfig
 from ..data.dataset import Dataset, MASK_TEST, MASK_TRAIN, MASK_VAL
 from ..graph.adjacency import Adjacency
-from ..models.gnn import GNNParams, init_model, model_forward
+from ..models.gnn import GNNParams, check_heads, init_model, model_forward
 from ..nn.functional import masked_accuracy, nll_loss_masked
 from ..nn.optim import make_optimizer
 from ..sampler.blocks import SampledBatch, SampledBlock, WeightKind
@@ -109,13 +109,15 @@ class StepOut(NamedTuple):
 def loss_and_grads(params: GNNParams, family: str, batch: SampledBatch, *,
                    drop_rate: float = 0.0,
                    generator: Optional[torch.Generator] = None,
-                   remat: bool = False, batch_norm: bool = False) -> StepOut:
-    """Forward, masked NLL and its gradient with respect to every weight:
-    the differentiated part of a training step, on the batch's device."""
+                   remat: bool = False, batch_norm: bool = False,
+                   heads: int = 1) -> StepOut:
+    """Forward, masked NLL and its gradient with respect to every weight
+    and attention vector: the differentiated part of a training step, on
+    the batch's device."""
     leaves = [p.detach().requires_grad_() for p in params.leaves()]
     logp = model_forward(params.replace_leaves(leaves), family, batch,
                          drop_rate=drop_rate, train=True, generator=generator,
-                         remat=remat, batch_norm=batch_norm)
+                         remat=remat, batch_norm=batch_norm, heads=heads)
     loss = nll_loss_masked(logp, batch.labels, batch.label_valid)
     loss.backward()
     return StepOut(loss.detach(), logp.detach(), [p.grad for p in leaves])
@@ -150,9 +152,10 @@ class SampleTrainer:
             raise ValueError(
                 f"FANOUT has {len(cfg.fanout)} hops but LAYERS defines "
                 f"{len(cfg.layer_sizes) - 1} layers; they must match")
+        # GAT computes its own attention: its blocks carry 1 on valid slots
+        # whatever the caller asks (sgnn_tpu/train/trainer.py:161)
         if family == "gat":
-            raise NotImplementedError(
-                "sampled GAT waits for the GAT slice (ROADMAP Queue 1 item 2)")
+            weight_kind = WeightKind.NONE
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # full f32 products, as the JAX package computes them
@@ -214,6 +217,7 @@ class SampleTrainer:
             self.dev_labels = None
         self.params = init_model(cfg.seed, family, cfg.layer_sizes,
                                  device=self.device)
+        check_heads(self.params, family, cfg.heads)
         # OPTIMIZER cfg key picks Adam (default) or the reference's SGD rule
         self.optimizer = make_optimizer(cfg, bias_correction)
         self.opt_state = self.optimizer.init(self.params.leaves())
@@ -238,7 +242,8 @@ class SampleTrainer:
         out = loss_and_grads(self.params, self.family, batch,
                              drop_rate=self.cfg.drop_rate,
                              generator=self.generator, remat=self.cfg.remat,
-                             batch_norm=self.cfg.batch_norm)
+                             batch_norm=self.cfg.batch_norm,
+                             heads=self.cfg.heads)
         new, self.opt_state = self.optimizer.update(
             out.grads, self.opt_state, self.params.leaves())
         self.params = self.params.replace_leaves(new)
@@ -248,7 +253,8 @@ class SampleTrainer:
     @torch.no_grad()
     def eval_step(self, batch: SampledBatch) -> torch.Tensor:
         logp = model_forward(self.params, self.family, batch, train=False,
-                             batch_norm=self.cfg.batch_norm)
+                             batch_norm=self.cfg.batch_norm,
+                             heads=self.cfg.heads)
         return masked_accuracy(logp, batch.labels, batch.label_valid)
 
     # ------------------------------------------------------------- batching

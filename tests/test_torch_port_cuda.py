@@ -20,7 +20,9 @@ from sgnn_tpu_torch.graph.adjacency import Adjacency
 from sgnn_tpu_torch.models.gnn import init_model
 from sgnn_tpu_torch.ops import aggregate as agg
 from sgnn_tpu_torch.ops.cuda import gather_agg as k1
+from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda
 from sgnn_tpu_torch.ops.cuda.spmm import spmm_csr_cuda
+from sgnn_tpu_torch.ops.gat import gat_aggregate, gat_aggregate_plain
 from sgnn_tpu_torch.ops.segment import csr_from_numpy, spmm_csr, spmm_csr_plain
 from sgnn_tpu_torch.sampler.host import HostSampler
 from sgnn_tpu_torch.train import build_trainer
@@ -66,10 +68,13 @@ def test_kernel_matches_plain(cuda_device, dtype, tol, feat):
     torch.cuda.synchronize()
     assert spmm_csr_cuda.launches == before + 1
     assert out.dtype == dtype and out.shape == (v, feat)
-    ref = spmm_csr_plain(xd, *csr).float()
-    # f32: reassociation only (index_add_ on the card uses atomics);
-    # bf16: both sum in f32 and round once, ~1 bf16 ulp (2^-8) of an
-    # element — the repo's bf16 kernel bound (tests/test_mxu_spmm.py:57)
+    # the plain version's unrounded f32 sum of the same values: f32 differs
+    # by reassociation only (index_add_ on the card uses atomics); bf16 by
+    # the kernel's one rounding, at most 2^-8 of an element — the repo's
+    # bf16 kernel bound (tests/test_mxu_spmm.py:57).  (Against the plain
+    # version's own bf16 result two roundings of differently ordered sums
+    # can land one ulp, up to 2^-7, apart.)
+    ref = spmm_csr_plain(xd.float(), *csr)
     assert ((out.float() - ref).abs().max() / ref.abs().max()).item() <= tol
     assert bool((out[[1, 2]] == 0).all())  # zero in-degree writes zeros
     assert torch.equal(out, spmm_csr(xd, *csr))  # no atomics: deterministic
@@ -142,10 +147,12 @@ def test_gather_agg_kernels_match_plain(cuda_device, dtype, tol, feat, k):
                                  k1.gather_agg_bwd_dw_cuda)] == [
         c + 1 for c in counts]
     assert out.dtype == dx.dtype == dtype and dw.dtype == torch.float32
-    # f32: only the summation order differs (dx by atomics); bf16: both
-    # sum in f32 and round once, ~1 bf16 ulp (tests/test_mxu_spmm.py:57)
-    assert _rel(out, agg.gather_aggregate_plain(x, nbr, w)) <= tol
-    assert _rel(dx, agg.gather_agg_bwd_dx_plain(g, nbr, w, s, dtype)) <= tol
+    # against the plain versions' unrounded f32 sums of the same values
+    # (as test_kernel_matches_plain): f32 differs by summation order only
+    # (dx by atomics); bf16 by the kernel's one rounding, at most 2^-8
+    assert _rel(out, agg.gather_aggregate_plain(x.float(), nbr, w)) <= tol
+    assert _rel(dx, agg.gather_agg_bwd_dx_plain(g, nbr, w, s,
+                                                 torch.float32)) <= tol
     assert _rel(dw, agg.gather_agg_bwd_dw_plain(g, x, nbr)) <= tol
     assert torch.equal(out, agg.gather_agg_fwd(x, nbr, w))  # deterministic
 
@@ -174,7 +181,7 @@ def test_gather_agg_kernel_rejects_bad_args(cuda_device):
                                                          device=cuda_device))
 
 
-@pytest.mark.parametrize("family", ["gcn", "sage"])
+@pytest.mark.parametrize("family", ["gcn", "sage", "gat"])
 def test_model_grads_card_vs_cpu(cuda_device, family):
     """Loss and weight gradients of one sampled batch, card against CPU on
     the same blocks and weights (f32, TF32 off): summation order only."""
@@ -219,3 +226,109 @@ def test_device_trainer_epoch_launch_counts(cuda_device):
     assert len(tr.step_ms) == steps and np.isfinite(tr.step_losses).all()
     assert [f.launches - b for f, b in zip(fns, before)] == [
         2 * steps, 2 * steps, 0]
+
+
+# ------------------------------------------------------------------- K3 ----
+def _gat_inputs(rng, v_dst, v_src, e, feat, heads, zero_rows):
+    """A skewed dst-sorted CSR (hub rows, `zero_rows` with no edges) and
+    score tables of spread 2, with every 97th source row's half raised by
+    80 so that its scores pass +60 (the clip).  (A spread of 25 on every
+    edge would make the f32 sums' own rounding in the hub rows approach
+    the 1e-5 bound: chip_smoke.py's K3_SCORE_STD.)"""
+    dst = (rng.zipf(1.5, e) % v_dst).astype(np.int32)
+    dst = np.sort(dst[~np.isin(dst, zero_rows)], kind="stable")
+    col = rng.integers(0, v_src, dst.size).astype(np.int32)
+    rowptr = np.zeros(v_dst + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=v_dst), out=rowptr[1:])
+    ht = rng.standard_normal((v_src, feat)).astype(np.float32)
+    ts = (rng.standard_normal((v_src, heads)) * 2.0).astype(np.float32)
+    ts[::97] += 80.0
+    td = (rng.standard_normal((v_dst, heads)) * 2.0).astype(np.float32)
+    return [torch.from_numpy(a) for a in (ht, ts, td, rowptr, col)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("heads,feat", [(1, 41), (4, 128), (8, 64),
+                                        (16, 256)])
+def test_gat_kernel_matches_plain(cuda_device, dtype, tol, heads, feat):
+    rng = np.random.default_rng(heads * 1000 + feat)
+    ht, ts, td, rowptr, col = (t.to(cuda_device) for t in _gat_inputs(
+        rng, 3001, 2500, 60000, feat, heads, zero_rows=[1, 2]))
+    assert bool(((ts[col.long()] + td.repeat_interleave(
+        rowptr.diff(), dim=0)) > 60).any())   # the clip is exercised
+    ht = ht.to(dtype)
+    before = gat_aggregate_cuda.launches
+    h, z = gat_aggregate(ht, ts, td, rowptr, col, heads)
+    torch.cuda.synchronize()
+    assert gat_aggregate_cuda.launches == before + 1
+    assert h.dtype == dtype and h.shape == (3001, feat)
+    assert z.dtype == torch.float32 and z.shape == (3001, heads)
+    ref_h, ref_z = gat_aggregate_plain(ht.float(), ts, td, rowptr, col,
+                                       heads)
+    # against the plain version's unrounded f32 result of the same values:
+    # f32 differs by reassociation and expf's last bit (index_add_ on the
+    # card uses atomics); bf16 by the kernel's one rounding, at most 2^-8
+    assert _rel(h, ref_h) <= tol
+    # z elementwise (clipped rows' z dwarf the rest): f32 sums of positive
+    # terms in two orders
+    assert ((z - ref_z).abs() / ref_z.clamp_min(1e-30)).max().item() <= 1e-5
+    assert bool((h[[1, 2]] == 0).all()) and bool((z[[1, 2]] == 0).all())
+    again = gat_aggregate(ht, ts, td, rowptr, col, heads)
+    assert torch.equal(h, again[0]) and torch.equal(z, again[1])
+
+
+def test_gat_kernel_rejects_bad_args(cuda_device):
+    ht = torch.ones(4, 8, device=cuda_device)
+    ts = torch.zeros(4, 2, device=cuda_device)
+    td = torch.zeros(2, 2, device=cuda_device)
+    rowptr = torch.tensor([0, 1, 2], device=cuda_device)
+    col = torch.tensor([0, 3], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="ts is on cpu"):
+        gat_aggregate_cuda(ht, ts.cpu(), td, rowptr, col, 2)
+    with pytest.raises(ValueError, match="ht must be"):
+        gat_aggregate_cuda(ht.half(), ts, td, rowptr, col, 2)
+    with pytest.raises(ValueError, match="td must be"):
+        gat_aggregate_cuda(ht, ts, td.double(), rowptr, col, 2)
+    with pytest.raises(ValueError, match="heads=3"):
+        gat_aggregate_cuda(ht, ts, td, rowptr, col, 3)
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+def test_gat_server_on_card_matches_cpu(cuda_device, heads):
+    ds = random_graph_dataset(500, 8, 32, 5, seed=7)
+    adj = Adjacency.from_edges(ds.edges, ds.num_vertices)
+    p = init_model(4, "gat", [32, 16, 5], device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    p = p._replace(attn=tuple(torch.randn(a.shape, generator=gen)
+                              for a in p.attn))
+    cpu = InferenceServer(p, "gat", adj, ds.features, heads=heads,
+                          device="cpu")
+    gpu = InferenceServer(p, "gat", adj, ds.features, heads=heads,
+                          device=cuda_device)
+    counts = (gat_aggregate_cuda.launches, spmm_csr_cuda.launches)
+    np.testing.assert_allclose(gpu.logprobs(), cpu.logprobs(), **F32)
+    assert (gat_aggregate_cuda.launches, spmm_csr_cuda.launches) == (
+        counts[0] + 2, counts[1])
+    nids = np.array([0, 9, 9, 400])
+    np.testing.assert_allclose(gpu.query(nids), cpu.query(nids), **F32)
+    np.testing.assert_allclose(gpu.query(nids, fanout=3, seed=1),
+                               cpu.query(nids, fanout=3, seed=1), **F32)
+
+
+def test_gat_device_trainer_epoch(cuda_device):
+    """GATSAMPLEALLGPU on the card: finite losses, and neither K1 nor K3
+    launched (sampled GAT aggregates with torch ops)."""
+    ds = random_graph_dataset(3000, 10, 48, 5, seed=4)
+    cfg = RunConfig(algorithm="GATSAMPLEALLGPU", layer_sizes=[48, 16, 5],
+                    fanout=[5, 3], batch_size=256, drop_rate=0.5, heads=4,
+                    vertices=ds.num_vertices)
+    tr = build_trainer(cfg, ds, device=cuda_device)
+    fns = (k1.gather_agg_fwd_cuda, k1.gather_agg_bwd_dx_cuda,
+           k1.gather_agg_bwd_dw_cuda, gat_aggregate_cuda)
+    before = [f.launches for f in fns]
+    loss, acc, edges = tr.train_epoch()
+    acc_val = tr.evaluate(tr.val_nids)
+    assert np.isfinite(tr.step_losses).all() and edges > 0
+    assert 0.0 <= acc <= 1.0 and 0.0 <= acc_val <= 1.0
+    assert [f.launches for f in fns] == before

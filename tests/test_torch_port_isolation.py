@@ -63,12 +63,13 @@ def test_every_port_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) == len(mods) >= 30
-    # the training slice's modules are among them
+    # the training and GAT slices' modules are among them
     assert {"sgnn_tpu_torch.sampler.native", "sgnn_tpu_torch.sampler.host",
             "sgnn_tpu_torch.sampler.device", "sgnn_tpu_torch.ops.aggregate",
             "sgnn_tpu_torch.ops.cuda.gather_agg", "sgnn_tpu_torch.nn.optim",
             "sgnn_tpu_torch.train.trainer", "sgnn_tpu_torch.train.engines",
-            "sgnn_tpu_torch.train.device_trainer"} <= set(mods)
+            "sgnn_tpu_torch.train.device_trainer", "sgnn_tpu_torch.ops.gat",
+            "sgnn_tpu_torch.ops.cuda.gat"} <= set(mods)
 
 
 def test_native_sampler_builds_inside_the_checkout():
@@ -84,6 +85,7 @@ def no_cuda(monkeypatch):
 def test_entry_points_default_to_cuda(no_cuda, tiny_ds):
     adj = Adjacency.from_edges(tiny_ds.edges, tiny_ds.num_vertices)
     p = init_model(0, "gcn", [32, 16, 5], device="cpu")
+    g = init_model(0, "gat", [32, 16, 5], device="cpu")
     f = tiny_ds.features
     cfg = RunConfig(algorithm="GCNSAMPLEGPU", layer_sizes=[32, 16, 5],
                     fanout=[4, 3], batch_size=64)
@@ -91,6 +93,7 @@ def test_entry_points_default_to_cuda(no_cuda, tiny_ds):
         lambda: sgnn_tpu_torch.resolve_device(None),
         lambda: sgnn_tpu_torch.resolve_device("cuda:0"),
         lambda: InferenceServer(p, "gcn", adj, f),
+        lambda: InferenceServer(g, "gat", adj, f, heads=4),
         lambda: layerwise_inference(p, "gcn", adj, f),
         lambda: exact_accuracy(p, "gcn", adj, f, tiny_ds.labels,
                                np.arange(4)),
@@ -103,6 +106,9 @@ def test_entry_points_default_to_cuda(no_cuda, tiny_ds):
         lambda: build_trainer(RunConfig(
             algorithm="GSSAMPLEALLGPU", layer_sizes=[32, 16, 5],
             fanout=[4, 3], batch_size=64), tiny_ds),
+        lambda: run_engine(RunConfig(
+            algorithm="GATSAMPLEALLGPU", layer_sizes=[32, 16, 5],
+            fanout=[4, 3], batch_size=64, heads=4), tiny_ds, epochs=1),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

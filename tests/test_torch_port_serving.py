@@ -180,17 +180,29 @@ def test_not_ported_features_raise(tiny_ds):
     p = init_model(0, "gcn", [32, 16, 5], device="cpu")
     g = init_model(0, "gat", [32, 16, 5], device="cpu")
     f = tiny_ds.features
+    # GAT serves now (single- and multi-head; parity in
+    # test_torch_port_gat.py); GCN/SAGE ignore `heads`, as in JAX
+    for heads in (1, 4):
+        logp = InferenceServer(g, "gat", adj, f, heads=heads,
+                               device="cpu").logprobs()
+        assert logp.shape == (tiny_ds.num_vertices, 5)
+        assert np.isfinite(logp).all()
+    np.testing.assert_array_equal(
+        InferenceServer(p, "gcn", adj, f, heads=2, device="cpu").logprobs(),
+        InferenceServer(p, "gcn", adj, f, device="cpu").logprobs())
     cases = [
-        lambda: InferenceServer(g, "gat", adj, f, device="cpu"),
         lambda: InferenceServer(p, "gcn", adj, f, aggregator="max",
                                 device="cpu"),
         lambda: InferenceServer(p, "gcn", adj, f, aggregator="min",
+                                device="cpu"),
+        lambda: InferenceServer(p, "sage", adj, f, aggregator="max",
                                 device="cpu"),
         lambda: InferenceServer(p, "gcn", adj, f, dtype="int8",
                                 device="cpu"),
         lambda: InferenceServer(p, "gcn", adj, f, dtype=np.int8,
                                 device="cpu"),
-        lambda: InferenceServer(p, "gcn", adj, f, heads=2, device="cpu"),
+        lambda: InferenceServer(g, "gat", adj, f, dtype="int8",
+                                device="cpu"),
         lambda: layerwise_inference(p, "gcn", adj, f, whole_graph=False,
                                     device="cpu"),
     ]
