@@ -68,12 +68,40 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                `evaluate`: finite losses, the loss falling, no K1 and no K3
                launch (sampled GAT aggregates with torch ops); per-step
                median time, sampled edges/s, accuracies, peak memory;
-11. kernels  — one line listing every kernel with its launches on its main
+11. kernel_k2_bwd — K2's backward (`spmm_csr_bwd_cuda`: the SpMM kernel
+               over the transposed CSR, counted apart) against
+               `spmm_csr_plain` over the same CSR, on skewed random graphs
+               (hub rows, rows with no edges) at F in {7, 41, 128, 256},
+               f32 and bf16, bit-identical on repeat; then at the
+               Reddit-shaped graph's transposed CSR (F=128 and 41, f32)
+               timed beside plain, `torch.sparse.mm` on the transposed CSR
+               and the bound;
+12. kernel_k4 — K4's two passes (`gat_bwd_src_cuda` B1, `gat_bwd_dst_cuda`
+               B2) against their plain versions on K3's grid (clipped
+               edges, rows with no in-edges and sources with no out-edges),
+               f32 and bf16 ht, bit-identical on repeat; then at the
+               Reddit shapes (F=128 H=4, F=128 H=1, F=41 H=1, f32) timed
+               beside plain and the bound, with the backward of K3's plain
+               version under autograd (H=1) timed as a yardstick;
+13. train_full — GCNFULLBATCH, GSFULLBATCH and GATFULLBATCH (heads 4),
+               602-128-41, lr 0.01: the first epoch's loss and every
+               weight's and attention vector's gradient on the card held to
+               the port's CPU at drop 0 on `reddit_like_dataset(seed=0,
+               scale=0.25)`, the CPU taking the card's side of relu's kink
+               where the two differ (counted); then 5 epochs each at drop
+               0.5 on scale 1.0:
+               finite losses, the last below the first, exactly 4 SpMM
+               forward and 2 backward launches an epoch for GCN/GS (4 K3,
+               2 B1, 2 B2 for GAT) and 2 forward launches per `predict()`;
+               median epoch time after the first, whole-graph edges/s,
+               accuracies, peak memory, the transposed CSR's build time;
+14. kernels  — one line listing every kernel with its launches on its main
                path (serving for `spmm_csr`, train_device for K1,
-               serving_gat for K3), its error and its times.
+               serving_gat for K3, train_full for K2's backward and K4),
+               its error and its times.
 
-Every main path (phases 5-10) starts with every launch count set to 0 and
-reads them all at its end.  Then the card's name and power limit as
+Every main path (phases 5-10 and 13) starts with every launch count set to
+0 and reads them all at its end.  Then the card's name and power limit as
 nvidia-smi prints them, and last `{"ok": true, "device": {...}}`.  Any
 failed check raises and the script exits non-zero; nothing falls back to
 the CPU or to a plain version.  With no CUDA device it exits 1 and prints
@@ -150,6 +178,17 @@ GAT_SERVE_HEADS, GAT_TRAIN_HEADS, GAT_ATTN_SCALE = (1, 4), 4, 0.1
 K3_GRID = ((1, 7), (1, 41), (1, 128), (2, 256), (4, 128), (8, 64),
            (16, 256))
 K3_SCORE_STD, K3_CLIP_EVERY, K3_CLIP_RAISE = 2.0, 97, 80.0
+# K4's score-table gradients (dts, dtd) against their plain versions,
+# relative max-abs, f32: each sums q_e = u·lrelu'·(t_e − rz), whose two
+# terms cancel, so the f32 roundings of t_e (an F-term dot product summed
+# in another order by each side) grow by |t_e| / |t_e − rz|
+K4_TABLE_TOL = 1e-5
+# the whole-graph training stage: the GCN/SAGE/GAT training widths above
+# on the Reddit-shaped graph, lr 0.01; exactness at scale 0.25 (the CPU
+# reference's passes stay short), speed at scale 1.0, drop 0.5
+FULL_ENGINES = (("GCNFULLBATCH", 1), ("GSFULLBATCH", 1),
+                ("GATFULLBATCH", GAT_TRAIN_HEADS))
+FULL_EXACT_SCALE, FULL_EPOCHS = 0.25, 5
 
 
 def emit(obj) -> None:
@@ -193,11 +232,17 @@ def main() -> int:
     from sgnn_tpu_torch.ops.cuda import gather_agg as k1
     from sgnn_tpu_torch.ops.cuda.build import build_all
     from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda
-    from sgnn_tpu_torch.ops.cuda.spmm import spmm_csr_cuda
-    from sgnn_tpu_torch.ops.gat import (
-        ATT_CLIP, F32_TINY, NEG_SLOPE, gat_aggregate_plain, pack_score_tables,
+    from sgnn_tpu_torch.ops.cuda.gat_bwd import (
+        gat_bwd_dst_cuda, gat_bwd_src_cuda,
     )
-    from sgnn_tpu_torch.ops.segment import spmm_csr_plain
+    from sgnn_tpu_torch.ops.cuda.spmm import spmm_csr_bwd_cuda, spmm_csr_cuda
+    from sgnn_tpu_torch.ops.gat import (
+        ATT_CLIP, F32_TINY, NEG_SLOPE, GatAggregate, gat_aggregate_plain,
+        gat_bwd_dst_plain, gat_bwd_src_plain, pack_score_tables,
+    )
+    from sgnn_tpu_torch.ops.segment import csr_transpose, spmm_csr_plain
+    from sgnn_tpu_torch.nn.functional import nll_loss_masked
+    from sgnn_tpu_torch.train.fullbatch import build_coo
     from sgnn_tpu_torch.sampler.blocks import WeightKind
     from sgnn_tpu_torch.sampler.device import device_sample_batch
     from sgnn_tpu_torch.train import build_trainer
@@ -253,7 +298,10 @@ def main() -> int:
                "gather_agg_fwd": k1.gather_agg_fwd_cuda,
                "gather_agg_bwd_dx": k1.gather_agg_bwd_dx_cuda,
                "gather_agg_bwd_dw": k1.gather_agg_bwd_dw_cuda,
-               "gat_aggregate": gat_aggregate_cuda}
+               "gat_aggregate": gat_aggregate_cuda,
+               "spmm_csr_bwd": spmm_csr_bwd_cuda,
+               "gat_bwd_src": gat_bwd_src_cuda,
+               "gat_bwd_dst": gat_bwd_dst_cuda}
 
     def reset_counts() -> None:
         for f in counted.values():
@@ -918,7 +966,338 @@ def main() -> int:
           "peak_mem_gb_epoch": torch.cuda.max_memory_allocated() / 1e9})
     del gat_trainer
 
-    # ---- 11. kernels --------------------------------------------------------
+    # ---- 11. K2's backward against its plain version -----------------------
+    def skewed_rows(n_rows, n_src, no_out_every):
+        """A skewed CSR (hub rows, every 13th row without edges) whose
+        sources `no_out_every` apart have no out-edges, and whose source 5
+        takes every 80th edge: a hub row of the transposed CSR, longer than
+        LONG_ROW_EDGES (the kernels split it across warps)."""
+        deg = (torch.rand(n_rows, generator=gen) ** 4 * 120).long()
+        deg[::13] = 0
+        deg[:4] = 6000
+        rowptr_ = torch.zeros(n_rows + 1, dtype=torch.int64)
+        rowptr_[1:] = deg.cumsum(0)
+        col_ = torch.randint(0, n_src, (int(rowptr_[-1]),), generator=gen,
+                             dtype=torch.int32)
+        col_ = torch.where(col_ % no_out_every == 3, col_ - 1, col_)
+        col_[::80] = 5
+        return rowptr_, col_
+
+    def transposed(rowptr_, col_, w_, n_src):
+        return [torch.from_numpy(a).to(dev) for a in csr_transpose(
+            rowptr_.cpu().numpy(), col_.cpu().numpy(), w_.cpu().numpy(),
+            n_src)]
+
+    k2b_checks = []
+    for feat in (7, 41, 128, 256):
+        for dt in (torch.float32, torch.bfloat16):
+            n_rows = n_src = 20000
+            rowptr_, col_ = skewed_rows(n_rows, n_src, 11)
+            w_ = torch.randn(col_.numel(), generator=gen)
+            csr_t = transposed(rowptr_, col_, w_, n_src)
+            g = torch.randn(n_rows, feat, generator=gen).to(dev, dt)
+            out = spmm_csr_bwd_cuda(g, *csr_t)
+            again = spmm_csr_bwd_cuda(g, *csr_t)
+            torch.cuda.synchronize()
+            err = rel_err(out, spmm_csr_plain(*exact_ref(g, *csr_t)))
+            key = str(dt).removeprefix("torch.")
+            k2b_checks.append({"F": feat, "dtype": key,
+                               "E": col_.numel(), "rel_err": err,
+                               "tol": TOL[key]})
+            require(err <= TOL[key], f"K2 bwd vs plain F={feat} {key}: "
+                                     f"{err} > {TOL[key]}")
+            require(bool((out[3::11] == 0).all()),
+                    "K2 bwd: sources with no out-edges are not zero")
+            require(torch.equal(out, again), "K2 bwd is not deterministic")
+
+    # the whole Reddit-shaped graph's transposed CSR, GCN weights (the
+    # GCNFULLBATCH backward's)
+    src_h, _, w_h = build_coo(adj, WeightKind.GCN)
+    t0 = time.perf_counter()
+    rowptr_th, col_th, w_th = csr_transpose(adj.indptr, src_h, w_h, v)
+    transpose_s = time.perf_counter() - t0
+    max_row = int(np.diff(rowptr_th).max())
+    r_t, c_t, w_t = (torch.from_numpy(a).to(dev)
+                     for a in (rowptr_th, col_th, w_th))
+    lib_csr_t = torch.sparse_csr_tensor(r_t, c_t.long(), w_t, size=(v, v))
+    k2b_shapes = []
+    for feat in (128, 41):
+        g = torch.randn(v, feat, generator=gen).to(dev)
+        out = spmm_csr_bwd_cuda(g, r_t, c_t, w_t)
+        ref = spmm_csr_plain(g, r_t, c_t, w_t)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        require(err <= TOL["float32"], f"K2 bwd vs plain at the training "
+                                       f"shape F={feat}: {err}")
+        once = e * 8 + 8 * (v + 1) + 2 * v * feat * 4
+        flops = 2 * e * feat
+        k2b_shapes.append({
+            "F": feat, "dtype": "float32", "V": v, "E": e,
+            "max_row": max_row,
+            "max_abs_err": (out - ref).abs().max().item(), "rel_err": err,
+            "tol": TOL["float32"],
+            "ms": time_ms(lambda: spmm_csr_bwd_cuda(g, r_t, c_t, w_t), 20),
+            "plain_ms": time_ms(lambda: spmm_csr_plain(g, r_t, c_t, w_t), 3),
+            "library_ms": time_ms(lambda: torch.sparse.mm(lib_csr_t, g), 20),
+            "bound_ms": max(once / hbm, flops / F32_FLOPS_PER_S) * 1e3,
+            "bound_by": ("bytes" if once / hbm >= flops / F32_FLOPS_PER_S
+                         else "operations"),
+            "gather_bound_ms": (e * 8 + 8 * (v + 1) + e * feat * 4
+                                + v * feat * 4) / hbm * 1e3})
+        del out, ref
+    del lib_csr_t
+    emit({"phase": "kernel_k2_bwd", "checks": k2b_checks,
+          "training_shapes": k2b_shapes, "csr_transpose_s": transpose_s})
+
+    # ---- 12. K4 against its plain versions ---------------------------------
+    def k4_bounds(feat, heads, b):
+        """(B1, B2) as (bytes, operations), each input read once and each
+        output written once; per (edge, head) ~10 operations for the score,
+        leaky_relu, the clip, exp and q."""
+        common = 16 * heads * v + 8 * (v + 1) + 4 * e
+        return ((v * feat * (b + 8) + common, 4 * e * feat + 10 * e * heads),
+                (v * feat * (b + 4) + common, 2 * e * feat + 10 * e * heads))
+
+    k4_checks = []
+    for heads, feat in K3_GRID:
+        for dt in (torch.float32, torch.bfloat16):
+            n_dst = 20000
+            n_src = 15000 if (heads, feat) == (4, 128) else n_dst
+            rowptr_, col_ = skewed_rows(n_dst, n_src, 17)
+            ht = torch.randn(n_src, feat, generator=gen).to(dev, dt)
+            ts, td = k3_tables(ht, torch.randn(n_dst, feat, generator=gen)
+                               .to(dev, dt), heads, K3_SCORE_STD)
+            ts[::K3_CLIP_EVERY] += K3_CLIP_RAISE
+            gz = torch.randn(n_dst, feat, generator=gen).to(dev)
+            rz = torch.randn(n_dst, heads, generator=gen).to(dev)
+            rowptr_, col_ = rowptr_.to(dev), col_.to(dev)
+            r_t4, c_t4, _ = transposed(rowptr_, col_, torch.ones(
+                col_.numel()), n_src)
+            b1 = (ht, ts, gz, td, rz, r_t4, c_t4, heads)
+            b2 = (ht, ts, gz, td, rz, rowptr_, col_, heads)
+            dht, dts = gat_bwd_src_cuda(*b1)
+            dtd = gat_bwd_dst_cuda(*b2)
+            again = (*gat_bwd_src_cuda(*b1), gat_bwd_dst_cuda(*b2))
+            torch.cuda.synchronize()
+            ref_dht, ref_dts = gat_bwd_src_plain(*exact_ref(*b1))
+            ref_dtd = gat_bwd_dst_plain(*exact_ref(*b2))
+            key = str(dt).removeprefix("torch.")
+            errs = {"dht_agg": rel_err(dht, ref_dht),
+                    "dts": rel_err(dts, ref_dts),
+                    "dtd": rel_err(dtd, ref_dtd)}
+            k4_checks.append({"H": heads, "F": feat, "dtype": key,
+                              "S": n_src, "D": n_dst, "E": col_.numel(),
+                              "rel_err": errs, "tol": TOL[key],
+                              "table_tol": K4_TABLE_TOL})
+            require(errs["dht_agg"] <= TOL[key]
+                    and errs["dts"] <= K4_TABLE_TOL
+                    and errs["dtd"] <= K4_TABLE_TOL,
+                    f"K4 vs plain H={heads} F={feat} {key}: {errs}")
+            require(bool((dtd[::13][1:] == 0).all())
+                    and bool((dht[3::17] == 0).all())
+                    and bool((dts[3::17] == 0).all()),
+                    "K4: rows with no edges are not zero")
+            require(all(torch.equal(a, b) for a, b in
+                        zip((dht, dts, dtd), again)),
+                    "K4 is not deterministic")
+            del ref_dht, ref_dts, ref_dtd
+
+    k4_shapes = []
+    for feat, heads in ((128, 4), (128, 1), (41, 1)):
+        ht = torch.randn(v, feat, generator=gen).to(dev)
+        ts, td = k3_tables(ht, ht, heads, 2.0)
+        gz = torch.randn(v, feat, generator=gen).to(dev)
+        rz = torch.randn(v, heads, generator=gen).to(dev)
+        b1 = (ht, ts, gz, td, rz, r_t, c_t, heads)
+        b2 = (ht, ts, gz, td, rz, g_rowptr, g_col, heads)
+        got = (*gat_bwd_src_cuda(*b1), gat_bwd_dst_cuda(*b2))
+        ref = (*gat_bwd_src_plain(*b1), gat_bwd_dst_plain(*b2))
+        torch.cuda.synchronize()
+        errs = [rel_err(a, r) for a, r in zip(got, ref)]
+        require(errs[0] <= TOL["float32"] and max(errs[1:]) <= K4_TABLE_TOL,
+                f"K4 vs plain at the training shape F={feat} H={heads}: "
+                f"{errs}")
+        comp_ms = None
+        if heads == 1:
+            # a yardstick only (no single PyTorch call computes K4): the
+            # backward of K3's function composed of torch ops under
+            # autograd.  Not k3_composition's: the gradient of
+            # torch.sparse.mm with respect to the CSR's values asks for a
+            # dense [V, V] buffer (202 GiB here); so K3's plain version,
+            # edge gathers, exp and index_add_ in chunks
+            leaves = [t.detach().requires_grad_() for t in (ht, ts, td)]
+            out, _ = gat_aggregate_plain(*leaves, g_rowptr, g_col, heads)
+            cot = torch.randn(v, feat, generator=gen).to(dev)
+            comp_ms = time_ms(lambda: torch.autograd.grad(
+                out, leaves, cot, retain_graph=True), 3)
+            del out, leaves, cot
+        for kname, fn, plain, (nbytes, ops), got_i, ref_i in (
+                ("gat_bwd_src", lambda: gat_bwd_src_cuda(*b1),
+                 lambda: gat_bwd_src_plain(*b1), k4_bounds(feat, heads, 4)[0],
+                 got[:2], ref[:2]),
+                ("gat_bwd_dst", lambda: gat_bwd_dst_cuda(*b2),
+                 lambda: gat_bwd_dst_plain(*b2), k4_bounds(feat, heads, 4)[1],
+                 got[2:], ref[2:])):
+            k4_shapes.append({
+                "name": kname, "F": feat, "H": heads, "dtype": "float32",
+                "V": v, "E": e,
+                "max_row": max_row,
+                "max_abs_err": max((a - r).abs().max().item()
+                                   for a, r in zip(got_i, ref_i)),
+                "rel_err": [rel_err(a, r) for a, r in zip(got_i, ref_i)],
+                "tol": [TOL["float32"], K4_TABLE_TOL],
+                "ms": time_ms(fn, 20), "plain_ms": time_ms(plain, 3),
+                "library_ms": None,
+                "composition_bwd_ms": comp_ms,
+                "bound_ms": max(nbytes / hbm, ops / F32_FLOPS_PER_S) * 1e3,
+                "bound_by": ("bytes" if nbytes / hbm >= ops / F32_FLOPS_PER_S
+                             else "operations"),
+                "gather_bound_ms": (nbytes + e * feat * 4) / hbm * 1e3})
+        del got, ref
+    emit({"phase": "kernel_k4", "checks": k4_checks,
+          "training_shapes": k4_shapes,
+          "library": "none: no single PyTorch call computes K4; "
+                     "composition_bwd_ms times the backward of K3's plain "
+                     "version (torch ops) under autograd (H=1, f32), once "
+                     "per shape, beside both passes"})
+    del r_t, c_t, w_t
+
+    # ---- 13. whole-graph training (main path, counted) ---------------------
+    def full_cfg(algo, heads, n_vertices, drop):
+        return RunConfig(algorithm=algo, layer_sizes=TRAIN_LAYERS,
+                         learn_rate=0.01, drop_rate=drop, epochs=FULL_EPOCHS,
+                         seed=0, heads=heads, vertices=n_vertices)
+
+    def full_loss_and_grads(base, params, branches, replay):
+        """The first epoch's loss and gradients.  relu's subgradient jumps
+        at 0, and among the ~1e7 hidden pre-activations a few lie within
+        f32 rounding of it: the card and the CPU may take its two sides
+        there, and one such element moves dW0 by ~1e-4 of its largest
+        entry.  So the card's run records the side every torch.relu call
+        takes on every element (`branches`), and the CPU's run replays
+        those sides (`replay`): both then differentiate the same piecewise
+        linear function.  Returns the loss, the gradients and how many
+        elements the replay moved to the card's side."""
+        real_relu = torch.relu
+        moved = [0]
+        sides = iter(branches)
+
+        def relu(t):
+            if not replay:
+                branches.append((t > 0).detach().cpu())
+                return real_relu(t)
+            keep = next(sides).to(t.device)
+            moved[0] += int(((t > 0) != keep).sum())
+            return torch.where(keep, t, torch.zeros((), dtype=t.dtype,
+                                                    device=t.device))
+
+        leaves = [p.detach().to(base.device).requires_grad_()
+                  for p in params.leaves()]
+        torch.relu = relu
+        try:
+            logp = base.forward(params.replace_leaves(leaves), train=True)
+        finally:
+            torch.relu = real_relu
+        loss = nll_loss_masked(logp, base.y, base.masks[0])
+        loss.backward()
+        return loss.item(), [t.grad for t in leaves], moved[0]
+
+    small = reddit_like_dataset(seed=0, scale=FULL_EXACT_SCALE)
+    full_exact = []
+    for algo, heads in FULL_ENGINES:
+        cfg = full_cfg(algo, heads, small.num_vertices, 0.0)
+        card_tr = build_trainer(cfg, small).base
+        check_params = card_tr.params._replace(attn=tuple(
+            (torch.randn(a.shape, generator=attn_gen) * GAT_ATTN_SCALE)
+            .to(dev) for a in card_tr.params.attn))
+        branches = []
+        card_loss, card_grads, _ = full_loss_and_grads(
+            card_tr, check_params, branches, replay=False)
+        t0 = time.perf_counter()
+        cpu_loss, cpu_grads, moved = full_loss_and_grads(
+            build_trainer(cfg, small, device="cpu").base,
+            check_params.to("cpu"), branches, replay=True)
+        cpu_s = time.perf_counter() - t0
+        loss_diff = abs(card_loss - cpu_loss)
+        grad_errs = [rel_err(a, b) for a, b in zip(card_grads, cpu_grads)]
+        require(loss_diff <= TRAIN_LOSS_ATOL,
+                f"{algo} card vs CPU loss: {loss_diff}")
+        require(len(grad_errs) == (4 if algo == "GATFULLBATCH" else 2)
+                and max(grad_errs) <= TRAIN_GRAD_RTOL,
+                f"{algo} card vs CPU gradients: {grad_errs}")
+        full_exact.append({"engine": algo, "heads": heads,
+                           "V": small.num_vertices,
+                           "E": card_tr.adj.num_edges, "loss": card_loss,
+                           "loss_abs_diff": loss_diff,
+                           "grad_rel_err": grad_errs,
+                           "relu_sides_replayed": moved,
+                           "relu_elements": sum(b.numel() for b in branches),
+                           "host_cpu_loss_and_grads_s": cpu_s})
+        del card_tr, card_grads, cpu_grads, branches
+    del small
+
+    per_epoch = {"GCNFULLBATCH": {"spmm_csr": 4, "spmm_csr_bwd": 2},
+                 "GSFULLBATCH": {"spmm_csr": 4, "spmm_csr_bwd": 2},
+                 "GATFULLBATCH": {"gat_aggregate": 4, "gat_bwd_src": 2,
+                                  "gat_bwd_dst": 2}}
+    per_predict = {"GCNFULLBATCH": {"spmm_csr": 2},
+                   "GSFULLBATCH": {"spmm_csr": 2},
+                   "GATFULLBATCH": {"gat_aggregate": 2}}
+    full_runs = []
+    reset_counts()
+    for algo, heads in FULL_ENGINES:
+        t0 = time.perf_counter()
+        base = build_trainer(full_cfg(algo, heads, ds.num_vertices, 0.5),
+                             ds).base
+        build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        hist = []
+        for _ in range(FULL_EPOCHS):
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, tr_acc, va_acc, te_acc = base.train_epoch()
+            torch.cuda.synchronize()
+            hist.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "loss": loss, "train": tr_acc, "val": va_acc,
+                         "test": te_acc})
+            now = counts()
+            got = {n: now[n] - before[n] for n in now if now[n] != before[n]}
+            require(got == per_epoch[algo],
+                    f"{algo} epoch launched {got}, expected {per_epoch[algo]}")
+        before = counts()
+        pred = base.predict()
+        now = counts()
+        got = {n: now[n] - before[n] for n in now if now[n] != before[n]}
+        require(got == per_predict[algo],
+                f"{algo} predict() launched {got}")
+        require(pred.shape == (v, 41) and bool(np.isfinite(pred).all()),
+                f"{algo} predict() shape {pred.shape} or non-finite values")
+        losses = [h["loss"] for h in hist]
+        require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+                f"{algo} losses not finite or not falling: {losses}")
+        med_ms = statistics.median(h["ms"] for h in hist[1:])
+        full_runs.append({
+            "engine": algo, "heads": heads, "V": v,
+            "E": base.adj.num_edges, "drop": 0.5, "epochs": hist,
+            "epoch_ms_median_after_first": med_ms,
+            "edges_per_s": base.adj.num_edges / (med_ms / 1e3),
+            "build_s": base.build_s, "csr_transpose_s": base.transpose_s,
+            "build_trainer_s": build_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del base, pred
+    full_counts = counts()
+    for kname in ("spmm_csr_bwd", "gat_bwd_src", "gat_bwd_dst"):
+        require(full_counts[kname] > 0, f"train_full never launched {kname}")
+    require(all(full_counts[k] == 0 for k in (
+        "gather_agg_fwd", "gather_agg_bwd_dx", "gather_agg_bwd_dw")),
+            f"whole-graph training launched K1: {full_counts}")
+    emit({"phase": "train_full", "model": "602-128-41",
+          "loss_atol": TRAIN_LOSS_ATOL, "grad_rtol": TRAIN_GRAD_RTOL,
+          "exact_scale": FULL_EXACT_SCALE, "exact": full_exact,
+          "runs": full_runs, "launches": full_counts})
+
+    # ---- 14. kernels --------------------------------------------------------
     # one logprobs() pass's work: the F=128 and the F=41 f32 SpMMs
     per_pass = [t for t in timings if t["dtype"] == "float32"]
 
@@ -965,6 +1344,28 @@ def main() -> int:
                    f"scores + torch.sparse.mm + z)")
     k3_line["composition_ms"] = total(k3_pass, "composition_ms")
     kernels.append(k3_line)
+    kernels.append(line(
+        "spmm_csr_bwd", k2b_shapes, "sgnn_tpu_torch/csrc/spmm.cu",
+        "sgnn_tpu/ops/pallas/mxu_spmm.py:463", full_counts["spmm_csr_bwd"],
+        f"one GCN/GSFULLBATCH epoch's backward: F=128 + F=41 f32 on the "
+        f"{v}-vertex, {e}-edge graph's transposed CSR"))
+    # one GATFULLBATCH (heads 4) epoch's backward: F=128 H=4 + F=41 H=1
+    for kname, replaces in (("gat_bwd_src", "sgnn_tpu/ops/pallas/mxu_gat.py:431"),
+                            ("gat_bwd_dst", "sgnn_tpu/ops/pallas/mxu_gat.py:431")):
+        rows = [t for t in k4_shapes if t["name"] == kname
+                and (t["F"], t["H"]) in ((128, GAT_TRAIN_HEADS), (41, 1))]
+        k4_line = line(kname, rows, "sgnn_tpu_torch/csrc/gat_bwd.cu",
+                       replaces, full_counts[kname],
+                       f"one GATFULLBATCH heads-{GAT_TRAIN_HEADS} epoch's "
+                       f"backward: F=128 H={GAT_TRAIN_HEADS} + F=41 H=1 f32 "
+                       f"on the {v}-vertex, {e}-edge graph (library_ms "
+                       f"null: no single PyTorch call computes K4; "
+                       f"composition_ms is the backward of K3's plain "
+                       f"version under autograd at F=128 + F=41, H=1)")
+        k4_line["composition_ms"] = total(
+            [t for t in k4_shapes if t["name"] == kname and t["H"] == 1],
+            "composition_bwd_ms")
+        kernels.append(k4_line)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

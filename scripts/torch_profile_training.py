@@ -2,22 +2,28 @@
 """Where the port's sampled-training time goes, on one NVIDIA card.
 
     python3 scripts/torch_profile_training.py [--scale 1.0] [--out DIR]
-        [--engine GSSAMPLEALLGPU|GATSAMPLEALLGPU] [--heads N]
+        [--engine GSSAMPLEALLGPU|GATSAMPLEALLGPU|GCNFULLBATCH|GATFULLBATCH]
+        [--heads N]
 
-Builds the training configuration of chip_smoke.py (602-128-41, fanout
-25-10, batch 10000, lr 0.01, drop 0.5, `reddit_like_dataset(seed=0,
-scale)`): a device-sampled trainer (GSSAMPLEALLGPU, or GATSAMPLEALLGPU
-with N heads) and a GCNSAMPLEGPU trainer (host sampler).  After one untraced warm-up epoch of the device
-trainer it runs, untraced and then traced with `torch.profiler`, one
-device-sampled step, one whole device-sampled epoch and one host-sampled
-step (sample, upload, train).  For each it prints one JSON line: the host
-wall times (ending in a synchronize), the device time summed over the
-kernels the trace saw, the device's idle share (1 - device/wall, against
-the traced and the untraced wall), K1's device time and share, and the
-eight kernels with the most device time.  It also prints the peak device
-memory and the card's name and power limit.  The full per-kernel tables go
-to DIR/torch_profile_training[_<engine>].txt (default build/profiles/).  Needs a CUDA
-device; imports nothing of JAX.
+Builds the training configuration of chip_smoke.py (602-128-41, lr 0.01,
+drop 0.5, `reddit_like_dataset(seed=0, scale)`).  Sampled engines (fanout
+25-10, batch 10000): a device-sampled trainer (GSSAMPLEALLGPU, or
+GATSAMPLEALLGPU with N heads) and a GCNSAMPLEGPU trainer (host sampler);
+after one untraced warm-up epoch of the device trainer it runs, untraced
+and then traced with `torch.profiler`, one device-sampled step, one whole
+device-sampled epoch and one host-sampled step (sample, upload, train).
+Whole-graph engines (GCNFULLBATCH, or GATFULLBATCH with N heads): after
+one untraced warm-up epoch, one whole-graph epoch (forward, backward,
+update and the METRICS:clean forward), untraced and then traced.  For
+each it prints one JSON line: the host wall times (ending in a
+synchronize), the device time summed over the kernels the trace saw, the
+device's idle share (1 - device/wall, against the traced and the untraced
+wall), the port's kernels' device time and share (K1; or K2 forward and
+backward, K3, K4's B1 and B2), and the eight kernels with the most device
+time.  It also prints the peak device memory and the card's name and
+power limit.  The full per-kernel tables go to
+DIR/torch_profile_training[_<engine>].txt (default build/profiles/).
+Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -40,7 +46,15 @@ from sgnn_tpu_torch.data.synthetic import reddit_like_dataset  # noqa: E402
 from sgnn_tpu_torch.train import build_trainer  # noqa: E402
 
 
-def traced(label, fn, table_file, **extra):
+# the port's kernels, by a substring of their names in the trace (K2 and
+# B1 include the kernels that split and combine long rows)
+SAMPLED_KERNELS = {"k1": "gather_agg"}
+FULL_KERNELS = {"k2_spmm": "namespace)::spmm_", "k3": "gat_kernel<",
+                "k4_b1": "namespace)::gat_bwd_src_",
+                "k4_b2": "namespace)::gat_bwd_dst_"}
+
+
+def traced(label, fn, table_file, kernels, **extra):
     """Run fn once untimed-by-the-profiler, then once under it; one JSON
     line of where time went.  The profiler adds host cost to every launch,
     so the idle share is also given against the untraced wall time."""
@@ -58,8 +72,8 @@ def traced(label, fn, table_file, **extra):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    k1_ms = sum(e.self_device_time_total for e in events
-                if "gather_agg" in e.key) / 1e3
+    kernel_ms = {k: sum(e.self_device_time_total for e in events
+                        if pat in e.key) / 1e3 for k, pat in kernels.items()}
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     table_file.write(f"== {label}: wall {wall_ms:.3f} ms\n")
     table_file.write(prof.key_averages().table(
@@ -70,8 +84,9 @@ def traced(label, fn, table_file, **extra):
             "untraced_wall_ms": plain_wall_ms,
             "device_idle_share_untraced": ((1.0 - dev_ms / plain_wall_ms)
                                            if events else None),
-            "k1_ms": k1_ms, "k1_share_of_device": (k1_ms / dev_ms
-                                                   if dev_ms else None),
+            "kernel_ms": kernel_ms,
+            "kernel_share_of_device": {k: (t / dev_ms if dev_ms else None)
+                                       for k, t in kernel_ms.items()},
             "top_kernels_ms": [[e.key[:60], e.self_device_time_total / 1e3,
                                 e.count] for e in top], **extra}
     print(json.dumps(line), flush=True)
@@ -82,7 +97,8 @@ def main() -> int:
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--out", default=str(ROOT / "build" / "profiles"))
     ap.add_argument("--engine", default="GSSAMPLEALLGPU",
-                    choices=("GSSAMPLEALLGPU", "GATSAMPLEALLGPU"))
+                    choices=("GSSAMPLEALLGPU", "GATSAMPLEALLGPU",
+                             "GCNFULLBATCH", "GATFULLBATCH"))
     ap.add_argument("--heads", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -101,9 +117,32 @@ def main() -> int:
                          drop_rate=0.5, epochs=1, seed=0, heads=args.heads,
                          vertices=ds.num_vertices)
 
+    out_dir = pathlib.Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = "" if args.engine == "GSSAMPLEALLGPU" else f"_{args.engine}"
     torch.cuda.reset_peak_memory_stats()
-    dev_tr = build_trainer(cfg(args.engine), ds)
-    host_tr = build_trainer(cfg("GCNSAMPLEGPU"), ds)
+    table = out_dir / f"torch_profile_training{tag}.txt"
+    if args.engine.endswith("FULLBATCH"):
+        full = build_trainer(cfg(args.engine), ds).base
+        full.train_epoch()   # warm-up: library start-up, allocator
+        with open(table, "w") as f:
+            traced(f"{args.engine} epoch", full.train_epoch, f, FULL_KERNELS,
+                   heads=args.heads, edges=full.adj.num_edges,
+                   csr_transpose_s=full.transpose_s)
+    else:
+        profile_sampled(build_trainer(cfg(args.engine), ds),
+                        build_trainer(cfg("GCNSAMPLEGPU"), ds), batch, args,
+                        table)
+    print(json.dumps({"graph": {"V": ds.num_vertices,
+                                "E": int(ds.edges.shape[0])},
+                      "peak_device_mem_gb":
+                          torch.cuda.max_memory_allocated() / 1e9,
+                      "card": smi}), flush=True)
+    return 0
+
+
+def profile_sampled(dev_tr, host_tr, batch, args, table):
+    """One device-sampled step and epoch and one host-sampled step."""
     dev_tr.train_epoch()   # warm-up: library start-up, allocator
     seeds, valid = next(dev_tr._seed_batches(dev_tr.train_nids, True))
     order = host_tr._epoch_order(host_tr.train_nids)
@@ -117,20 +156,13 @@ def main() -> int:
         item = host_tr._make_batch(order[batch:2 * batch])
         host_tr.train_step(host_tr._upload(item)[0])
 
-    out_dir = pathlib.Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tag = "" if args.engine == "GSSAMPLEALLGPU" else f"_{args.engine}"
-    with open(out_dir / f"torch_profile_training{tag}.txt", "w") as f:
-        traced(f"{args.engine} step", device_step, f, heads=args.heads)
+    with open(table, "w") as f:
+        traced(f"{args.engine} step", device_step, f, SAMPLED_KERNELS,
+               heads=args.heads)
         traced(f"{args.engine} epoch", dev_tr.train_epoch, f,
-               steps=-(-len(dev_tr.train_nids) // batch))
-        traced("GCNSAMPLEGPU step (sample+upload+train)", host_step, f)
-    print(json.dumps({"graph": {"V": ds.num_vertices,
-                                "E": int(ds.edges.shape[0])},
-                      "peak_device_mem_gb":
-                          torch.cuda.max_memory_allocated() / 1e9,
-                      "card": smi}), flush=True)
-    return 0
+               SAMPLED_KERNELS, steps=-(-len(dev_tr.train_nids) // batch))
+        traced("GCNSAMPLEGPU step (sample+upload+train)", host_step, f,
+               SAMPLED_KERNELS)
 
 
 if __name__ == "__main__":

@@ -10,20 +10,36 @@ padding, which the JAX package needs only for XLA's static shapes.
 
 Dispatch: a CPU tensor goes to `spmm_csr_plain`; a CUDA tensor launches the
 kernel (ops/cuda/spmm.py) or raises.  There is no fallback between them.
+
+Training (the whole-graph engines) differentiates through `SpmmCsr`: its
+backward is K2's backward, `dx = Aᵀ·g`, the same kernel over the CSR keyed
+by source that `csr_transpose` builds once on the host — what
+`sgnn_tpu/ops/pallas/mxu_spmm.py::_mxu_bwd` is on the TPU (the same kernel
+on the transposed plan).  The edge weights are graph constants: no
+gradient reaches them, as in `_mxu_bwd`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 
-# edges per index_add_ step in the plain version: bounds its [chunk, F] f32
-# temporaries (128 MB at F = 128)
+# edges per index_add_ step in the plain versions: bounds their [chunk, F]
+# temporaries (128 MB of f32 at F = 128)
 PLAIN_CHUNK_EDGES = 1 << 18
+# the plain versions sum in f32 in CSR edge order, as the JAX package's CPU
+# path does; over a CSR with a row longer than this they sum in f64: the f32
+# sum of a hub row of ~1e6 terms strays by ~sqrt(n) roundings, more than the
+# kernels' segmented sums (LONG_ROW_EDGES) that the plain versions check
+PLAIN_F64_ROW_EDGES = 1 << 16
+# rows with more edges than this are split across warps by the kernels that
+# sum along CSR rows (csrc/spmm.cu, csrc/gat_bwd.cu's B1): the transposed
+# CSR of a skewed graph has hub rows of ~1e6 edges
+LONG_ROW_EDGES = 1024
 # dtypes of x (and of the result) that the kernels take; w is always f32
 SPMM_DTYPES = (torch.float32, torch.bfloat16)
 # the C side's dtype codes of every csrc/ kernel: 0 = float32, 1 = bfloat16
@@ -63,6 +79,23 @@ def csr_from_numpy(rowptr: np.ndarray, col: np.ndarray, w: np.ndarray,
                torch.from_numpy(w).to(dev))
 
 
+def csr_transpose(rowptr: np.ndarray, col: np.ndarray, w: np.ndarray,
+                  num_src: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The same edges as a CSR keyed by source, on the host: `(rowptr_t
+    [num_src+1] int64, col_t [E] int32 destinations, w_t [E] f32)`.  A
+    stable argsort by source keeps each source's edges in ascending
+    destination order, as `sgnn_tpu/train/fullbatch.py::csr_order` (whose
+    native counting sort the port leaves for ROADMAP Queue 1 item 7)."""
+    rowptr = np.asarray(rowptr, np.int64)
+    col = np.asarray(col)
+    rows = np.repeat(np.arange(rowptr.size - 1, dtype=np.int32),
+                     np.diff(rowptr))
+    perm = np.argsort(col, kind="stable")
+    rowptr_t = np.zeros(num_src + 1, np.int64)
+    np.cumsum(np.bincount(col, minlength=num_src), out=rowptr_t[1:])
+    return rowptr_t, rows[perm], np.asarray(w, np.float32)[perm]
+
+
 def check_spmm_args(x: torch.Tensor, rowptr: torch.Tensor, col: torch.Tensor,
                     w: torch.Tensor) -> None:
     """Raise ValueError unless the arguments are what the kernel takes."""
@@ -83,19 +116,54 @@ def check_spmm_args(x: torch.Tensor, rowptr: torch.Tensor, col: torch.Tensor,
                          f"{col.numel()}, {w.numel()}")
 
 
+def long_row_segments(rowptr: torch.Tensor, num_edges: int
+                      ) -> Tuple[torch.Tensor, int]:
+    """The split of rows longer than LONG_ROW_EDGES, on rowptr's device
+    without a host sync: `seg_ptr` [R] int64, the inclusive running count
+    of each row's segments of at most LONG_ROW_EDGES edges (0 for a row
+    short enough for one warp), and an upper bound on its last entry, the
+    number of partial rows the kernel's scratch needs."""
+    deg = rowptr[1:] - rowptr[:-1]
+    n_seg = torch.where(deg > LONG_ROW_EDGES,
+                        (deg + LONG_ROW_EDGES - 1) // LONG_ROW_EDGES, 0)
+    return torch.cumsum(n_seg, 0), 2 * num_edges // LONG_ROW_EDGES + 1
+
+
+def plain_sum_dtype(rowptr: torch.Tensor) -> torch.dtype:
+    """The plain versions' summation dtype over this CSR: f32, or f64 when
+    a row is longer than PLAIN_F64_ROW_EDGES."""
+    if rowptr.numel() < 2:
+        return torch.float32
+    longest = int((rowptr[1:] - rowptr[:-1]).max())
+    return torch.float64 if longest > PLAIN_F64_ROW_EDGES else torch.float32
+
+
+def csr_rows(rowptr: torch.Tensor) -> torch.Tensor:
+    """Each edge's row, in CSR edge order (int64, on rowptr's device)."""
+    num_rows = rowptr.numel() - 1
+    return torch.repeat_interleave(torch.arange(num_rows, device=rowptr.device),
+                                   rowptr[1:] - rowptr[:-1])
+
+
+def edge_chunks(num_edges: int):
+    """The plain versions' steps: `(lo, hi)` edge ranges of at most
+    PLAIN_CHUNK_EDGES."""
+    for lo in range(0, num_edges, PLAIN_CHUNK_EDGES):
+        yield lo, min(lo + PLAIN_CHUNK_EDGES, num_edges)
+
+
 def spmm_csr_plain(x: torch.Tensor, rowptr: torch.Tensor, col: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: `index_add_` of weighted source
     rows over `repeat_interleave`d destination rows, in edge chunks of
-    PLAIN_CHUNK_EDGES, summed in f32 and returned in x's dtype."""
+    PLAIN_CHUNK_EDGES, summed in f32 (f64 over a CSR with hub rows,
+    `plain_sum_dtype`) and returned in x's dtype."""
     num_rows = rowptr.numel() - 1
-    out = torch.zeros((num_rows, x.shape[1]), dtype=torch.float32,
-                      device=x.device)
-    rows = torch.repeat_interleave(
-        torch.arange(num_rows, device=x.device), rowptr[1:] - rowptr[:-1])
-    for lo in range(0, col.numel(), PLAIN_CHUNK_EDGES):
-        hi = min(lo + PLAIN_CHUNK_EDGES, col.numel())
-        msg = x.index_select(0, col[lo:hi]).float() * w[lo:hi, None]
+    acc = plain_sum_dtype(rowptr)
+    out = torch.zeros((num_rows, x.shape[1]), dtype=acc, device=x.device)
+    rows = csr_rows(rowptr)
+    for lo, hi in edge_chunks(col.numel()):
+        msg = x.index_select(0, col[lo:hi]).to(acc) * w[lo:hi, None].to(acc)
         out.index_add_(0, rows[lo:hi], msg)
     return out.to(x.dtype)
 
@@ -112,3 +180,38 @@ def spmm_csr(x: torch.Tensor, rowptr: torch.Tensor, col: torch.Tensor,
 
         return spmm_csr_cuda(x, rowptr, col, w)
     raise ValueError(f"spmm_csr runs on cpu or cuda tensors, not {x.device}")
+
+
+def spmm_csr_bwd(g: torch.Tensor, rowptr_t: torch.Tensor, col_t: torch.Tensor,
+                 w_t: torch.Tensor) -> torch.Tensor:
+    """K2's backward, `dx = Aᵀ·g` over the transposed CSR: the plain
+    version on the CPU, the same CUDA kernel as `spmm_csr` on the card,
+    launched through a wrapper of its own (`spmm_csr_bwd_cuda`, with its
+    own launch count)."""
+    if g.device.type == "cpu":
+        check_spmm_args(g, rowptr_t, col_t, w_t)
+        return spmm_csr_plain(g, rowptr_t, col_t, w_t)
+    if g.device.type == "cuda":
+        from .cuda.spmm import spmm_csr_bwd_cuda
+
+        return spmm_csr_bwd_cuda(g, rowptr_t, col_t, w_t)
+    raise ValueError(f"spmm_csr_bwd runs on cpu or cuda tensors, not "
+                     f"{g.device}")
+
+
+class SpmmCsr(torch.autograd.Function):
+    """Differentiable whole-graph SpMM: forward `spmm_csr` over the CSR,
+    backward `spmm_csr_bwd` over the transposed one (`csr_transpose`).
+    Only x takes a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, rowptr, col, w, rowptr_t, col_t, w_t):
+        ctx.save_for_backward(rowptr_t, col_t, w_t)
+        return spmm_csr(x, rowptr, col, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 7
+        dx = spmm_csr_bwd(g.contiguous(), *ctx.saved_tensors)
+        return (dx,) + (None,) * 6

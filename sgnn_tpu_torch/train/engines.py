@@ -5,12 +5,14 @@ dispatches 14 engine classes, one per (model × placement × caching ×
 #GPU); here one trainer is parameterised by policy knobs, so every
 ALGORITHM string maps to a configuration.  The table is the JAX package's
 in full; the port trains GCNSAMPLESINGLE, GCNSAMPLEGPU, GCNSAMPLEALLGPU,
-GSSAMPLEALLGPU and GATSAMPLEALLGPU, and every other engine, and every
-option the port does not take yet, raises NotImplementedError naming its
-ROADMAP item.
+GSSAMPLEALLGPU and GATSAMPLEALLGPU (sampled) and GCNFULLBATCH, GSFULLBATCH
+and GATFULLBATCH (whole graph, `FullBatchEngine`), and every other engine,
+and every option the port does not take yet, raises NotImplementedError
+naming its ROADMAP item.
 
 Placement: *SAMPLESINGLE → bias-corrected Adam (CPU engines); *SAMPLEGPU →
-host sampler; *ALLGPU → device sampler.  Edge-weight degrees follow
+host sampler; *ALLGPU → device sampler; *FULLBATCH → whole-graph training
+(train/fullbatch.py), bias-corrected Adam.  Edge-weight degrees follow
 UP_DEGREE for every engine (GraphSegment.cpp:273): false → "global"
 full-graph degrees, true → "sampled" degrees.
 """
@@ -98,9 +100,12 @@ def resolve_degree_mode(cfg: RunConfig) -> str:
 
 def _not_ported(spec: EngineSpec, cfg: RunConfig) -> Optional[str]:
     """The ROADMAP item a configuration waits for, or None if the port
-    trains it."""
+    trains it.  PUSHDOWN and the advisor concern sampled engines only: a
+    *FULLBATCH engine ignores them, as in the JAX package."""
+    reorder = "REORDER: graph/reorder.py (ROADMAP Queue 1 item 7)"
     if spec.fullbatch:
-        return f"{spec.name}: whole-graph training (ROADMAP Queue 1 item 3)"
+        return reorder if (cfg.reorder or "none").lower() not in (
+            "none", "") else None
     if spec.multi_device:
         return f"{spec.name}: data-parallel training (ROADMAP Queue 1 item 6)"
     if spec.use_cache:
@@ -111,8 +116,59 @@ def _not_ported(spec: EngineSpec, cfg: RunConfig) -> Optional[str]:
         return ("ESTIMATOR_ADVISOR:route: the advisor (ROADMAP Queue 1 "
                 "item 5)")
     if (cfg.reorder or "none").lower() not in ("none", ""):
-        return "REORDER: graph/reorder.py (ROADMAP Queue 1 item 7)"
+        return reorder
     return None
+
+
+class FullBatchEngine:
+    """Adapter giving FullBatchTrainer the sampled trainers' run() contract
+    (sgnn_tpu/train/engines.py:124-192): `run()` returns a TrainReport with
+    every epoch's edges = the graph's edge count, and the wrapped trainer
+    is on `.base`."""
+
+    def __init__(self, cfg: RunConfig, dataset: Dataset, family: str,
+                 weight_kind: WeightKind, device=None) -> None:
+        from .fullbatch import FullBatchTrainer
+
+        self.cfg = cfg
+        self.base = FullBatchTrainer(cfg, dataset, family=family,
+                                     weight_kind=weight_kind, halo=cfg.halo,
+                                     device=device)
+
+    @property
+    def family(self) -> str:
+        return self.base.family
+
+    @property
+    def params(self):
+        return self.base.params
+
+    @property
+    def adj(self):
+        return self.base.adj
+
+    def train_epoch(self):
+        """(loss, train accuracy, edges), the sampled trainers' triple."""
+        loss, tr, _va, _te = self.base.train_epoch()
+        return loss, tr, int(self.base.adj.num_edges)
+
+    def evaluate(self, nids) -> float:
+        return self.base.evaluate(nids)
+
+    def run(self, epochs: Optional[int] = None):
+        from ..utils.timing import PhaseTimer
+        from .trainer import TrainReport
+
+        hist = self.base.run(epochs)
+        return TrainReport(
+            epoch_times=[h["time"] for h in hist],
+            train_acc=[h["train"] for h in hist],
+            val_acc=[h["val"] for h in hist],
+            test_acc=[h["test"] for h in hist],
+            losses=[h["loss"] for h in hist],
+            edges_per_epoch=[int(self.base.adj.num_edges)] * len(hist),
+            timers=PhaseTimer(),
+            time_skip=self.cfg.time_skip)
 
 
 def build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
@@ -123,6 +179,9 @@ def build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     if missing is not None:
         raise NotImplementedError(missing)
     degree_mode = resolve_degree_mode(cfg)
+    if spec.fullbatch:
+        return FullBatchEngine(cfg, dataset, spec.family, spec.weight_kind,
+                               device=device)
     kw = dict(family=spec.family, weight_kind=spec.weight_kind,
               degree_mode=degree_mode, bias_correction=spec.bias_correction,
               device=device)

@@ -23,9 +23,14 @@ package's kernel tier (ops/gat.py); its query forward uses the same, where
 the JAX query takes the max-shifted softmax: the two are equal while every
 |score| < 60.
 
+`aggregator="min"/"max"` serves GCN/SAGE models trained with those
+reductions (the JAX server's AGGREGATOR): every layer transform-first,
+then the elementwise extreme over each destination's in-edges
+(ops/reductions.py), in `logprobs()` and in `query()` alike.
+
 Not ported yet, and raising NotImplementedError with the ROADMAP.md item:
-aggregators "min"/"max" (GCN/SAGE), int8 residency, and the chunked
-beyond-device-memory mode of `layerwise_inference` (`whole_graph=False`).
+int8 residency, and the chunked beyond-device-memory mode of
+`layerwise_inference` (`whole_graph=False`).
 """
 
 from __future__ import annotations

@@ -18,14 +18,23 @@ from sgnn_tpu_torch.config import RunConfig
 from sgnn_tpu_torch.data.synthetic import random_graph_dataset
 from sgnn_tpu_torch.graph.adjacency import Adjacency
 from sgnn_tpu_torch.models.gnn import init_model
+from sgnn_tpu_torch.nn.functional import nll_loss_masked
 from sgnn_tpu_torch.ops import aggregate as agg
 from sgnn_tpu_torch.ops.cuda import gather_agg as k1
 from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda
-from sgnn_tpu_torch.ops.cuda.spmm import spmm_csr_cuda
-from sgnn_tpu_torch.ops.gat import gat_aggregate, gat_aggregate_plain
-from sgnn_tpu_torch.ops.segment import csr_from_numpy, spmm_csr, spmm_csr_plain
+from sgnn_tpu_torch.ops.cuda.gat_bwd import gat_bwd_dst_cuda, gat_bwd_src_cuda
+from sgnn_tpu_torch.ops.cuda.spmm import spmm_csr_bwd_cuda, spmm_csr_cuda
+from sgnn_tpu_torch.ops.gat import (
+    gat_aggregate, gat_aggregate_plain, gat_bwd_dst, gat_bwd_dst_plain,
+    gat_bwd_src, gat_bwd_src_plain,
+)
+from sgnn_tpu_torch.ops.segment import (
+    LONG_ROW_EDGES, csr_from_numpy, csr_transpose, spmm_csr, spmm_csr_bwd,
+    spmm_csr_plain,
+)
 from sgnn_tpu_torch.sampler.host import HostSampler
 from sgnn_tpu_torch.train import build_trainer
+from sgnn_tpu_torch.train.fullbatch import FullBatchTrainer
 from sgnn_tpu_torch.train.inference import InferenceServer
 from sgnn_tpu_torch.train.trainer import host_batch_to_device, loss_and_grads
 
@@ -332,3 +341,124 @@ def test_gat_device_trainer_epoch(cuda_device):
     assert np.isfinite(tr.step_losses).all() and edges > 0
     assert 0.0 <= acc <= 1.0 and 0.0 <= acc_val <= 1.0
     assert [f.launches for f in fns] == before
+
+
+# --------------------------------------------------- whole-graph training --
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("feat", [7, 41, 128, 256])
+def test_spmm_bwd_kernel_matches_plain(cuda_device, dtype, tol, feat):
+    """K2's backward: the kernel over the transposed CSR, under its own
+    launch count, against the plain version's unrounded f32 sum."""
+    rng = np.random.default_rng(feat + 1)
+    v = 3000
+    rowptr, col, w = _skewed_csr(rng, v, 60000, zero_rows=[1, 2])
+    col[::20] = 5      # a hub source: a transposed row split across warps
+    csr_t = csr_from_numpy(*csr_transpose(rowptr, col, w, v), v,
+                           device=cuda_device)
+    assert int(csr_t.rowptr.diff().max()) > LONG_ROW_EDGES
+    g = torch.from_numpy(rng.standard_normal((v, feat)).astype(
+        np.float32)).to(cuda_device, dtype)
+    before = (spmm_csr_cuda.launches, spmm_csr_bwd_cuda.launches)
+    dx = spmm_csr_bwd(g, *csr_t)
+    torch.cuda.synchronize()
+    assert (spmm_csr_cuda.launches, spmm_csr_bwd_cuda.launches) == (
+        before[0], before[1] + 1)
+    assert dx.dtype == dtype and dx.shape == (v, feat)
+    assert _rel(dx, spmm_csr_plain(g.float(), *csr_t)) <= tol
+    assert torch.equal(dx, spmm_csr_bwd(g, *csr_t))   # deterministic
+
+
+# K4's tables against the plain versions, as chip_smoke.py's kernel_k4
+# phase holds them (its K4_TABLE_TOL says why they could need more)
+K4_TABLE_TOL = 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("heads,feat", [(1, 41), (4, 128), (2, 48), (3, 30),
+                                        (16, 256)])
+def test_gat_bwd_kernels_match_plain(cuda_device, dtype, tol, heads, feat):
+    """B1 and B2 against their plain versions on the same CUDA tensors:
+    skewed rows, a hub source (a B1 row split across warps), rows with no
+    edges, clipped scores; (2, 48) and (3, 30) put heads off the lane
+    groups (one head per tile)."""
+    rng = np.random.default_rng(heads * 1000 + feat + 7)
+    ht, ts, td, rowptr, col = (t.to(cuda_device) for t in _gat_inputs(
+        rng, 2500, 2500, 60000, feat, heads, zero_rows=[1, 2]))
+    col[::20] = 5
+    ht = ht.to(dtype)
+    gz = torch.from_numpy(rng.standard_normal((2500, feat)).astype(
+        np.float32)).to(cuda_device)
+    rz = torch.from_numpy(rng.standard_normal((2500, heads)).astype(
+        np.float32)).to(cuda_device)
+    rowptr_t, col_t, _ = (torch.from_numpy(a).to(cuda_device) for a in
+                          csr_transpose(rowptr.cpu().numpy(),
+                                        col.cpu().numpy(),
+                                        np.ones(col.numel(), np.float32),
+                                        2500))
+    before = (gat_bwd_src_cuda.launches, gat_bwd_dst_cuda.launches)
+    dht, dts = gat_bwd_src(ht, ts, gz, td, rz, rowptr_t, col_t, heads)
+    dtd = gat_bwd_dst(ht, ts, gz, td, rz, rowptr, col, heads)
+    torch.cuda.synchronize()
+    assert (gat_bwd_src_cuda.launches, gat_bwd_dst_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert int(rowptr_t.diff().max()) > LONG_ROW_EDGES
+    ref_ht = ht.float()
+    ref_dht, ref_dts = gat_bwd_src_plain(ref_ht, ts, gz, td, rz, rowptr_t,
+                                         col_t, heads)
+    ref_dtd = gat_bwd_dst_plain(ref_ht, ts, gz, td, rz, rowptr, col, heads)
+    assert _rel(dht, ref_dht) <= 1e-5
+    assert _rel(dts, ref_dts) <= K4_TABLE_TOL
+    assert _rel(dtd, ref_dtd) <= K4_TABLE_TOL
+    assert bool((dtd[[1, 2]] == 0).all())      # rows with no in-edges
+    again = gat_bwd_src(ht, ts, gz, td, rz, rowptr_t, col_t, heads)
+    assert torch.equal(dht, again[0]) and torch.equal(dts, again[1])
+    assert torch.equal(dtd, gat_bwd_dst(ht, ts, gz, td, rz, rowptr, col,
+                                        heads))
+
+
+@pytest.mark.parametrize("family,aggregator,heads", [
+    ("gcn", "sum", 1), ("sage", "sum", 1), ("gat", "sum", 4),
+    ("gcn", "max", 1)])
+def test_fullbatch_trainer_card_vs_cpu(cuda_device, family, aggregator,
+                                       heads):
+    """One whole-graph epoch's loss and gradients, card against CPU from
+    the same parameters (drop 0, TF32 off), and the launches of an epoch
+    with METRICS:clean at drop 0.5: GCN/SAGE 4 SpMM forward + 2 backward,
+    GAT 4 K3 + 2 B1 + 2 B2, min/max none."""
+    ds = random_graph_dataset(2000, 10, 48, 5, seed=3)
+    cfg = RunConfig(layer_sizes=[48, 16, 5], drop_rate=0.0, heads=heads,
+                    aggregator=aggregator, vertices=ds.num_vertices)
+    trs = [FullBatchTrainer(cfg, ds, family=family, device=dev)
+           for dev in ("cpu", cuda_device)]
+    gen = torch.Generator().manual_seed(1)
+    p = trs[0].params._replace(attn=tuple(
+        torch.randn(a.shape, generator=gen) for a in trs[0].params.attn))
+    outs = []
+    for tr in trs:
+        leaves = [t.detach().to(tr.device).requires_grad_()
+                  for t in p.leaves()]
+        logp = tr.forward(p.replace_leaves(leaves), train=True)
+        loss = nll_loss_masked(logp, tr.y, tr.masks[0])
+        loss.backward()
+        outs.append((loss.item(), [t.grad.cpu() for t in leaves]))
+    assert abs(outs[0][0] - outs[1][0]) <= 1e-5
+    for a, b in zip(outs[0][1], outs[1][1]):
+        assert _rel(b, a) <= 1e-4
+    fns = (spmm_csr_cuda, spmm_csr_bwd_cuda, gat_aggregate_cuda,
+           gat_bwd_src_cuda, gat_bwd_dst_cuda)
+    tr = FullBatchTrainer(RunConfig(layer_sizes=[48, 16, 5], drop_rate=0.5,
+                                    heads=heads, aggregator=aggregator,
+                                    vertices=ds.num_vertices),
+                          ds, family=family, device=cuda_device)
+    before = [f.launches for f in fns]
+    loss, *accs = tr.train_epoch()
+    assert np.isfinite(loss) and all(0.0 <= a <= 1.0 for a in accs)
+    want = {"gat": [0, 0, 4, 2, 2]}.get(
+        family, [4, 2, 0, 0, 0] if aggregator == "sum" else [0] * 5)
+    assert [f.launches - b for f, b in zip(fns, before)] == want
+    before = [f.launches for f in fns]
+    tr.predict()
+    assert [f.launches - b for f, b in zip(fns, before)] == [
+        w // 2 if i in (0, 2) else 0 for i, w in enumerate(want)]

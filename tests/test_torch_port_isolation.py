@@ -18,7 +18,7 @@ from sgnn_tpu_torch.models.gnn import init_model, params_from_numpy
 from sgnn_tpu_torch.ops.segment import csr_from_numpy
 from sgnn_tpu_torch.config import RunConfig
 from sgnn_tpu_torch.sampler.native import build as native_build
-from sgnn_tpu_torch.train import build_trainer, run_engine
+from sgnn_tpu_torch.train import FullBatchTrainer, build_trainer, run_engine
 from sgnn_tpu_torch.train.inference import (
     InferenceServer, exact_accuracy, layerwise_inference,
 )
@@ -69,7 +69,9 @@ def test_every_port_module_imports_with_jax_blocked():
             "sgnn_tpu_torch.ops.cuda.gather_agg", "sgnn_tpu_torch.nn.optim",
             "sgnn_tpu_torch.train.trainer", "sgnn_tpu_torch.train.engines",
             "sgnn_tpu_torch.train.device_trainer", "sgnn_tpu_torch.ops.gat",
-            "sgnn_tpu_torch.ops.cuda.gat"} <= set(mods)
+            "sgnn_tpu_torch.ops.cuda.gat", "sgnn_tpu_torch.ops.reductions",
+            "sgnn_tpu_torch.ops.cuda.gat_bwd",
+            "sgnn_tpu_torch.train.fullbatch"} <= set(mods)
 
 
 def test_native_sampler_builds_inside_the_checkout():
@@ -109,6 +111,13 @@ def test_entry_points_default_to_cuda(no_cuda, tiny_ds):
         lambda: run_engine(RunConfig(
             algorithm="GATSAMPLEALLGPU", layer_sizes=[32, 16, 5],
             fanout=[4, 3], batch_size=64, heads=4), tiny_ds, epochs=1),
+        lambda: build_trainer(RunConfig(
+            algorithm="GCNFULLBATCH", layer_sizes=[32, 16, 5]), tiny_ds),
+        lambda: run_engine(RunConfig(
+            algorithm="GATFULLBATCH", layer_sizes=[32, 16, 5], heads=4),
+            tiny_ds, epochs=1),
+        lambda: FullBatchTrainer(RunConfig(layer_sizes=[32, 16, 5],
+                                           aggregator="max"), tiny_ds),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -190,13 +190,13 @@ def test_not_ported_features_raise(tiny_ds):
     np.testing.assert_array_equal(
         InferenceServer(p, "gcn", adj, f, heads=2, device="cpu").logprobs(),
         InferenceServer(p, "gcn", adj, f, device="cpu").logprobs())
+    # min/max serve now (parity in test_torch_port_fullbatch.py)
+    for family, agg in (("gcn", "max"), ("gcn", "min"), ("sage", "max")):
+        logp = InferenceServer(p, family, adj, f, aggregator=agg,
+                               device="cpu").logprobs()
+        assert logp.shape == (tiny_ds.num_vertices, 5)
+        assert np.isfinite(logp).all()
     cases = [
-        lambda: InferenceServer(p, "gcn", adj, f, aggregator="max",
-                                device="cpu"),
-        lambda: InferenceServer(p, "gcn", adj, f, aggregator="min",
-                                device="cpu"),
-        lambda: InferenceServer(p, "sage", adj, f, aggregator="max",
-                                device="cpu"),
         lambda: InferenceServer(p, "gcn", adj, f, dtype="int8",
                                 device="cpu"),
         lambda: InferenceServer(p, "gcn", adj, f, dtype=np.int8,
@@ -211,6 +211,8 @@ def test_not_ported_features_raise(tiny_ds):
             make()
     with pytest.raises(ValueError):
         InferenceServer(p, "gin", adj, f, device="cpu")
+    with pytest.raises(ValueError, match="aggregator"):
+        InferenceServer(p, "gcn", adj, f, aggregator="mean", device="cpu")
     with pytest.raises(ValueError):
         InferenceServer(p, "gcn", adj, f, dtype=np.float16, device="cpu")
     with pytest.raises(ValueError):

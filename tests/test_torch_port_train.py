@@ -35,7 +35,8 @@ from sgnn_tpu_torch.train.trainer import SampleTrainer
 CFG = os.path.join(os.path.dirname(__file__), "..", "configs",
                    "gcn_cora_sample.cfg")
 PORTED = {"GCNSAMPLESINGLE", "GCNSAMPLEGPU", "GCNSAMPLEALLGPU",
-          "GSSAMPLEALLGPU", "GATSAMPLEALLGPU"}
+          "GSSAMPLEALLGPU", "GATSAMPLEALLGPU", "GCNFULLBATCH", "GSFULLBATCH",
+          "GATFULLBATCH"}
 
 
 def _cfg(**kw):
