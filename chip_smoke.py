@@ -95,12 +95,25 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                2 B1, 2 B2 for GAT) and 2 forward launches per `predict()`;
                median epoch time after the first, whole-graph edges/s,
                accuracies, peak memory, the transposed CSR's build time;
-14. kernels  — one line listing every kernel with its launches on its main
+14. kernel_probes — the rate probes' four kernels (`ops/probes.py`,
+               csrc/probe_gather.cu, probe_tile.cu) against their plain
+               versions at the probes' shapes: gather_sum with the table in
+               shared memory and in device memory at T=2048 and in device
+               memory at T=232,965 and 2^22 (E = 2^20), shuffle at the nine
+               shapes, tile_spmm at configuration 0 and each bisect case,
+               gat_tile at the probe's tile and at 4096 tiles; the
+               deterministic ones bit-identical on repeat; then the path:
+               the three `scripts/torch_probe_*.py` timing runs from zeroed
+               counts (CUDA-graph replays, their kernel runs counted), each
+               kernel beside its plain version and one library call timed
+               the same way, the bound, and P-T's ns/edge beside K2
+               forward's;
+15. kernels  — one line listing every kernel with its launches on its main
                path (serving for `spmm_csr`, train_device for K1,
-               serving_gat for K3, train_full for K2's backward and K4),
-               its error and its times.
+               serving_gat for K3, train_full for K2's backward and K4,
+               kernel_probes for the probes), its error and its times.
 
-Every main path (phases 5-10 and 13) starts with every launch count set to
+Every main path (phases 5-10, 13 and 14) starts with every launch count set to
 0 and reads them all at its end.  Then the card's name and power limit as
 nvidia-smi prints them, and last `{"ok": true, "device": {...}}`.  Any
 failed check raises and the script exits non-zero; nothing falls back to
@@ -111,7 +124,9 @@ no result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -189,6 +204,14 @@ K4_TABLE_TOL = 1e-5
 FULL_ENGINES = (("GCNFULLBATCH", 1), ("GSFULLBATCH", 1),
                 ("GATFULLBATCH", GAT_TRAIN_HEADS))
 FULL_EXACT_SCALE, FULL_EPOCHS = 0.25, 5
+# the probe kernels against their plain versions, relative max-abs: P-G
+# and P-T f32 — only the order of the f32 sums differs (a 2048-term sum of
+# N(0,1) rows for P-G; products of bf16 values are exact for P-T, whose
+# atomics add in a changing order), the repo's f32 rtol
+# (tests/test_ops.py:47); P-A's out 5e-3, the repo's bf16 kernel bound
+# (tests/test_mxu_spmm.py:57): a one-ulp difference in expf can flip
+# bf16(u); its z 1e-5.  P-S moves data and must be bit-identical.
+PROBE_F32_TOL, PROBE_BF16_TOL = 1e-5, 5e-3
 
 
 def emit(obj) -> None:
@@ -240,6 +263,8 @@ def main() -> int:
         ATT_CLIP, F32_TINY, NEG_SLOPE, GatAggregate, gat_aggregate_plain,
         gat_bwd_dst_plain, gat_bwd_src_plain, pack_score_tables,
     )
+    from sgnn_tpu_torch.ops import probes as pr
+    from sgnn_tpu_torch.ops.cuda import probes as probe_k
     from sgnn_tpu_torch.ops.segment import csr_transpose, spmm_csr_plain
     from sgnn_tpu_torch.nn.functional import nll_loss_masked
     from sgnn_tpu_torch.train.fullbatch import build_coo
@@ -250,6 +275,7 @@ def main() -> int:
     from sgnn_tpu_torch.train.trainer import (
         host_batch_to_device, loss_and_grads,
     )
+    from sgnn_tpu_torch.utils.timing import cuda_graph_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
     torch.backends.cudnn.allow_tf32 = False
@@ -301,7 +327,11 @@ def main() -> int:
                "gat_aggregate": gat_aggregate_cuda,
                "spmm_csr_bwd": spmm_csr_bwd_cuda,
                "gat_bwd_src": gat_bwd_src_cuda,
-               "gat_bwd_dst": gat_bwd_dst_cuda}
+               "gat_bwd_dst": gat_bwd_dst_cuda,
+               "probe_gather_sum": probe_k.gather_sum_cuda,
+               "probe_shuffle": probe_k.shuffle_cuda,
+               "probe_tile_spmm": probe_k.tile_spmm_cuda,
+               "probe_gat_tile": probe_k.gat_tile_cuda}
 
     def reset_counts() -> None:
         for f in counted.values():
@@ -1297,7 +1327,196 @@ def main() -> int:
           "exact_scale": FULL_EXACT_SCALE, "exact": full_exact,
           "runs": full_runs, "launches": full_counts})
 
-    # ---- 14. kernels --------------------------------------------------------
+    # ---- 14. rate probes (main path: the probe scripts, counted) ----------
+    def load_script(stem: str):
+        spec = importlib.util.spec_from_file_location(
+            stem, pathlib.Path(__file__).resolve().parent / "scripts"
+            / f"{stem}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    probe_t0 = time.perf_counter()
+    gather_mod = load_script("torch_probe_gather")
+    tile_mod = load_script("torch_probe_tile_spmm")
+    gat_mod = load_script("torch_probe_gat_tile")
+
+    def probe_bound(nbytes: float, ops: float) -> dict:
+        return {"bound_ms": max(nbytes / hbm, ops / F32_FLOPS_PER_S) * 1e3,
+                "bound_by": ("bytes" if nbytes / hbm >= ops / F32_FLOPS_PER_S
+                             else "operations")}
+
+    # each kernel against its plain version on the same CUDA tensors, at
+    # the probes' shapes; these launches are not the path's
+    probe_checks = {"gather_sum": [], "shuffle": [], "tile_spmm": [],
+                    "gat_tile": []}
+    gather_cases = list(gather_mod.gather_cases(dev))
+    for t_rows, resident, table, idx in gather_cases:
+        ref = pr.gather_sum_plain(table, idx)
+        got, again = (pr.gather_sum(table, idx, resident) for _ in range(2))
+        err = rel_err(got, ref)
+        require(err <= PROBE_F32_TOL and torch.equal(got, again),
+                f"gather_sum T={t_rows} resident={resident}: rel err {err}, "
+                f"repeat equal {torch.equal(got, again)}")
+        probe_checks["gather_sum"].append({
+            "T": t_rows, "variant": "shared" if resident else "global",
+            "rel_err": err, "max_abs_err": (got - ref).abs().max().item()})
+    for (m, n), axis in pr.SHUFFLE_SHAPES:
+        x = torch.from_numpy(pr.shuffle_input(0, m, n)).to(dev)
+        got, again = (pr.shuffle(x, axis) for _ in range(2))
+        require(torch.equal(got, pr.shuffle_plain(x, axis))
+                and torch.equal(got, again),
+                f"shuffle [{m},{n}] axis={axis} differs from plain or repeat")
+        probe_checks["shuffle"].append({"m": m, "n": n, "axis": axis,
+                                        "bit_identical": True})
+    tile_args = tile_mod.config_inputs("0", dev)
+    part_args = tile_mod.part_inputs(dev)
+    tile_cases = [("config 0", pr.tile_spmm, tile_args)] + [
+        (part, *pr.tile_part_args(part, *part_args))
+        for part in pr.TILE_PARTS]
+    for case, fn, args in tile_cases:
+        plain = (pr.tile_gather_plain if fn is pr.tile_gather
+                 else pr.tile_spmm_plain)
+        got, again, ref = fn(*args), fn(*args), plain(*args)
+        err = rel_err(got, ref)
+        require(err <= PROBE_F32_TOL, f"tile_spmm {case}: rel err {err}")
+        if fn is pr.tile_gather:   # plain stores: deterministic
+            require(torch.equal(got, again) and torch.equal(got, ref),
+                    f"tile_gather {case} not bit-identical")
+        probe_checks["tile_spmm"].append({
+            "case": case, "rel_err": err,
+            "max_abs_err": (got - ref).abs().max().item(),
+            "repeat_bit_identical": torch.equal(got, again)})
+    for n_tiles in (1, pr.GAT_TILES):
+        g_args = gat_mod.tile_args(dev, n_tiles)
+        (out, z), again = pr.gat_tile(*g_args), pr.gat_tile(*g_args)
+        ref_out, ref_z = pr.gat_tile_plain(*g_args)
+        errs = [rel_err(out, ref_out), rel_err(z, ref_z)]
+        require(errs[0] <= PROBE_BF16_TOL and errs[1] <= PROBE_F32_TOL
+                and torch.equal(out, again[0]) and torch.equal(z, again[1]),
+                f"gat_tile {n_tiles} tiles: rel err {errs} or not "
+                f"bit-identical on repeat")
+        probe_checks["gat_tile"].append({
+            "tiles": n_tiles, "rel_err": errs,
+            "max_abs_err": max((out - ref_out).abs().max().item(),
+                               (z - ref_z).abs().max().item())})
+        del out, z, again, ref_out, ref_z
+    # the path: the three probe scripts' timed runs, counts from zero (the
+    # timing adds its graph replays' kernel runs to them)
+    reset_counts()
+    p_gather = gather_mod.time_gather(gather_cases)
+    p_shuffle = gather_mod.time_shuffle(dev)
+    p_tile = [tile_mod.time_config("0", dev)] + tile_mod.time_parts(dev)
+    p_gat = gat_mod.time_tiles(dev)
+    probe_counts = {k: n for k, n in counts().items()
+                    if k.startswith("probe_")}
+    # each timed case: a warm-up call, then two replays of REPS calls
+    runs = {"probe_gather_sum": len(gather_cases) * (1 + 2 * gather_mod.REPS),
+            "probe_shuffle": len(pr.SHUFFLE_SHAPES) * (1 + 2 * gather_mod.REPS),
+            "probe_tile_spmm": (1 + len(pr.TILE_PARTS)) * (1 + 2 * tile_mod.REPS),
+            "probe_gat_tile": 1 + 2 * gat_mod.REPS}
+    require(probe_counts == runs,
+            f"kernel_probes launched {probe_counts}, its timing ran {runs}")
+    require(sum(counts().values()) == sum(probe_counts.values()),
+            f"the probes launched other kernels: {counts()}")
+    # beside each: its plain version and one library call, timed as the
+    # kernel is (graph replays of the script's REPS calls), and the bound
+    gather_rows = []
+    for (t_rows, resident, table, idx), rec, chk in zip(
+            gather_cases, p_gather, probe_checks["gather_sum"]):
+        e_n, feat = idx.numel(), table.shape[1]
+        touched = torch.unique(idx).numel()   # the rows this run reads
+        gather_rows.append({
+            **rec, "rows_touched": touched, "max_abs_err": chk["max_abs_err"],
+            "plain_ms": cuda_graph_ms(
+                lambda: pr.gather_sum_plain(table, idx), gather_mod.REPS),
+            "library_ms": cuda_graph_ms(
+                lambda: torch.nn.functional.embedding_bag(
+                    idx, table, mode="sum"), gather_mod.REPS),
+            **probe_bound(touched * feat * 4 + e_n * 4
+                          + idx.shape[0] * feat * 4, e_n * feat)})
+    shuffle_rows = []
+    for rec in p_shuffle:
+        m, n, axis = rec["m"], rec["n"], rec["axis"]
+        x = torch.from_numpy(pr.shuffle_input(0, m, n)).to(dev)
+        every = torch.stack([pr.shuffle_index(m, n, axis, i, dev)
+                             for i in range(pr.SHUFFLE_STEPS)])
+        stacked = x.expand(pr.SHUFFLE_STEPS, m, n)
+        require(torch.equal(torch.gather(stacked, axis + 1, every)[-1],
+                            pr.shuffle_plain(x, axis)),
+                "the shuffle's library yardstick computes another function")
+        shuffle_rows.append({
+            **rec, "max_abs_err": 0.0,
+            "plain_ms": cuda_graph_ms(lambda: pr.shuffle_plain(x, axis),
+                                      gather_mod.REPS),
+            "library_ms": cuda_graph_ms(
+                lambda: torch.gather(stacked, axis + 1, every),
+                gather_mod.REPS),
+            **probe_bound(2 * m * n * 4, 0)})
+        del every, stacked
+    tile_rows = []
+    for (case, fn, args), rec, chk in zip(tile_cases, p_tile,
+                                          probe_checks["tile_spmm"]):
+        t_slab, t_src = args[0], args[1]
+        e_n, feat = t_src.numel(), t_slab.shape[1]
+        slab_f32 = t_slab.float()
+        if fn is pr.tile_gather:
+            flat = t_src.reshape(-1)
+            lib = lambda: torch.index_select(slab_f32, 0, flat)  # noqa: E731
+            plain = pr.tile_gather_plain
+            nbytes, ops = t_slab.numel() * 2 + e_n * 4 + e_n * feat * 4, 0
+        else:
+            _, _, t_dst, t_w, t_r0, d_blk = args
+            rows = pr.tile_rows(t_src, t_dst, t_r0).reshape(-1)
+            vals = (t_w.reshape(-1).float() if t_w is not None
+                    else torch.ones(e_n, device=dev))
+            coo = torch.sparse_coo_tensor(
+                torch.stack([rows, t_src.reshape(-1).long()]), vals,
+                (d_blk, t_slab.shape[0])).coalesce()
+            lib = lambda: torch.sparse.mm(coo, slab_f32)  # noqa: E731
+            plain = pr.tile_spmm_plain
+            nbytes = (t_slab.numel() * 2 + e_n * 4
+                      + (e_n * 4 if t_dst is not None else 0)
+                      + (e_n * 2 if t_w is not None else 0)
+                      + t_r0.numel() * 4 + d_blk * feat * 4)
+            ops = e_n * feat * (2 if t_w is not None else 1)
+        tile_rows.append({
+            "case": case, **rec, "max_abs_err": chk["max_abs_err"],
+            "plain_ms": cuda_graph_ms(lambda: plain(*args), tile_mod.REPS),
+            "library_ms": cuda_graph_ms(lib, tile_mod.REPS),
+            **probe_bound(nbytes, ops)})
+    g_slab, g_ts, g_td, g_src, g_dst, _ = g_args   # the GAT_TILES tiles
+    live_d = int((g_dst < pr.GAT_W).sum())
+    live_both = int(((g_dst < pr.GAT_W) & (g_src < pr.GAT_S_BLK)).sum())
+    g_cols = g_ts.shape[2]
+    gat_rows = [{
+        **p_gat, "max_abs_err": probe_checks["gat_tile"][-1]["max_abs_err"],
+        "plain_ms": cuda_graph_ms(lambda: pr.gat_tile_plain(*g_args),
+                                  gat_mod.REPS),
+        "library_ms": None,
+        **probe_bound(g_slab.numel() * 2 + g_ts.numel() * 2
+                      + g_td.numel() * 4 + g_src.numel() * 8
+                      + pr.GAT_TILES * pr.GAT_W * (pr.PROBE_F + g_cols) * 4,
+                      live_d * g_cols * 6 + live_both * pr.PROBE_F * 2)}]
+    del g_args, g_slab, g_ts, g_td, g_src, g_dst, gather_cases
+    k2_f128 = next(t for t in timings
+                   if t["F"] == 128 and t["dtype"] == "float32")
+    emit({"phase": "kernel_probes", "checks": probe_checks,
+          "tol": {"gather_sum": PROBE_F32_TOL, "shuffle": "exact",
+                  "tile_spmm": PROBE_F32_TOL,
+                  "gat_tile": [PROBE_BF16_TOL, PROBE_F32_TOL]},
+          "gather_sum": gather_rows, "shuffle": shuffle_rows,
+          "tile_spmm": tile_rows, "gat_tile": gat_rows,
+          "tile_spmm_ns_per_edge": p_tile[0]["ns_per_edge"],
+          "k2_fwd_ns_per_edge": k2_f128["ms"] * 1e6 / k2_f128["E"],
+          "launches": probe_counts,
+          "phase_s": time.perf_counter() - probe_t0,
+          "timing": "kernel, plain and library ms alike: device time of "
+                    "CUDA-graph replays of the script's REPS calls "
+                    "(utils.timing.cuda_graph_ms); launches count the "
+                    "replays' kernel runs"})
+
+    # ---- 15. kernels -------------------------------------------------------
     # one logprobs() pass's work: the F=128 and the F=41 f32 SpMMs
     per_pass = [t for t in timings if t["dtype"] == "float32"]
 
@@ -1366,6 +1585,31 @@ def main() -> int:
             [t for t in k4_shapes if t["name"] == kname and t["H"] == 1],
             "composition_bwd_ms")
         kernels.append(k4_line)
+    for kname, rows, source, replaces, what in (
+            ("probe_gather_sum", gather_rows, "probe_gather.cu",
+             "scripts/profile_vmem_gather.py:57",
+             f"E = 2^20, F = 128 f32: shared-memory table T=2048 + "
+             f"device-memory tables T=2048, {pr.GATHER_ROWS[1]} and "
+             f"{pr.GATHER_ROWS[2]}; all columns by CUDA-graph replay"),
+            ("probe_shuffle", shuffle_rows, "probe_gather.cu",
+             "scripts/probe_dyngather_shapes.py:34",
+             "one call of 64 steps at each of the probe's nine shapes; "
+             "library: torch.gather of all 64 steps at once; all columns "
+             "by CUDA-graph replay"),
+            ("probe_tile_spmm", tile_rows, "probe_tile.cu",
+             "scripts/profile_onehot_spmm.py:101",
+             "configuration 0 (2^20 edges) + the six bisect cases "
+             "(scripts/probe_onehot_parts.py:55,:93,:146; "
+             "probe_onehot_parts2.py:57,:83,:110) at 8192 edges each; "
+             "library: torch.sparse.mm (index_select for c1); all "
+             "columns by CUDA-graph replay"),
+            ("probe_gat_tile", gat_rows, "probe_tile.cu",
+             "scripts/probe_gat_kernel_parts.py:98",
+             f"{pr.GAT_TILES} independent tiles of the probe's shape "
+             f"(library_ms null: no single PyTorch call computes it); "
+             f"all columns by CUDA-graph replay")):
+        kernels.append(line(kname, rows, f"sgnn_tpu_torch/csrc/{source}",
+                            replaces, probe_counts[kname], what))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -20,7 +20,9 @@ from sgnn_tpu_torch.graph.adjacency import Adjacency
 from sgnn_tpu_torch.models.gnn import init_model
 from sgnn_tpu_torch.nn.functional import nll_loss_masked
 from sgnn_tpu_torch.ops import aggregate as agg
+from sgnn_tpu_torch.ops import probes as pr
 from sgnn_tpu_torch.ops.cuda import gather_agg as k1
+from sgnn_tpu_torch.ops.cuda import probes as prc
 from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda
 from sgnn_tpu_torch.ops.cuda.gat_bwd import gat_bwd_dst_cuda, gat_bwd_src_cuda
 from sgnn_tpu_torch.ops.cuda.spmm import spmm_csr_bwd_cuda, spmm_csr_cuda
@@ -37,6 +39,7 @@ from sgnn_tpu_torch.train import build_trainer
 from sgnn_tpu_torch.train.fullbatch import FullBatchTrainer
 from sgnn_tpu_torch.train.inference import InferenceServer
 from sgnn_tpu_torch.train.trainer import host_batch_to_device, loss_and_grads
+from sgnn_tpu_torch.utils.timing import cuda_graph_ms
 
 pytestmark = pytest.mark.cuda
 
@@ -462,3 +465,103 @@ def test_fullbatch_trainer_card_vs_cpu(cuda_device, family, aggregator,
     tr.predict()
     assert [f.launches - b for f, b in zip(fns, before)] == [
         w // 2 if i in (0, 2) else 0 for i, w in enumerate(want)]
+
+
+# ---- rate probes (ops/probes.py, csrc/probe_gather.cu, probe_tile.cu) ----
+# each kernel against its plain version on the same CUDA tensors: P-G and
+# P-T at 1e-5 relative (f32 sums in another order), P-S exact, P-A out at
+# 5e-3 (a one-ulp expf difference can flip bf16(u)) and z at 1e-5
+@pytest.mark.parametrize("t_rows,edges,tile,feat", [(2048, 1 << 14, 2048, 128),
+                                                    (300, 1000, 100, 40)])
+def test_probe_gather_sum_matches_plain(cuda_device, t_rows, edges, tile,
+                                        feat):
+    table, idx = (torch.from_numpy(a).to(cuda_device) for a in
+                  pr.gather_inputs(t_rows, t_rows, edges, feat, tile))
+    ref = pr.gather_sum_plain(table, idx)
+    for resident in (True, False):
+        before = prc.gather_sum_cuda.launches
+        out = pr.gather_sum(table, idx, resident)
+        again = pr.gather_sum(table, idx, resident)
+        torch.cuda.synchronize()
+        assert prc.gather_sum_cuda.launches == before + 2
+        assert _rel(out, ref) <= 1e-5
+        assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("shape,axis", [((128, 128), 0), ((100, 300), 1),
+                                        ((2048, 37), 0)])
+def test_probe_shuffle_matches_plain(cuda_device, shape, axis):
+    x = torch.from_numpy(pr.shuffle_input(1, *shape)).to(cuda_device)
+    out = pr.shuffle(x, axis)
+    assert torch.equal(out, pr.shuffle_plain(x, axis))
+    assert torch.equal(out, pr.shuffle(x, axis))
+
+
+def test_cuda_graph_ms_counts_the_replayed_runs(cuda_device):
+    # a warm-up call, `reps` captured calls, two replays: 1 + 2 * reps runs
+    x = torch.from_numpy(pr.shuffle_input(1, 64, 64)).to(cuda_device)
+    before = prc.shuffle_cuda.launches
+    ms = cuda_graph_ms(lambda: pr.shuffle(x, 0), 3, prc.COUNTED)
+    assert ms > 0 and prc.shuffle_cuda.launches == before + 7
+
+
+@pytest.mark.parametrize("cfg", [(4, 64, 512, 256, 64, 96, 128),
+                                 (3, 100, 300, 96, 32, 40, 40)])
+def test_probe_tile_spmm_matches_plain(cuda_device, cfg):
+    n, s_blk, d_blk, e_t, e_sub, w_win, feat = cfg
+    t = pr.to_torch(pr.tile_inputs(n, s_blk, d_blk, e_t, e_sub, w_win, n,
+                                   feat), cuda_device)
+    args = (t["slab"], t["src"], t["dst"], t["w"], t["r0"], d_blk)
+    assert _rel(pr.tile_spmm(*args), pr.tile_spmm_plain(*args)) <= 1e-5
+    gathered = pr.tile_gather(t["slab"], t["src"])
+    assert torch.equal(gathered, pr.tile_gather_plain(t["slab"], t["src"]))
+    assert torch.equal(gathered, pr.tile_gather(t["slab"], t["src"]))
+
+
+def test_probe_tile_parts_match_plain(cuda_device):
+    t = pr.to_torch(pr.tile_part_inputs(2, 64, 256, 48, 512, 4), cuda_device)
+    for part in pr.TILE_PARTS:
+        fn, args = pr.tile_part_args(part, t["slab"], t["src"], t["w"],
+                                     t["r0s"], 48, 512)
+        plain = (pr.tile_gather_plain if part == "c1"
+                 else pr.tile_spmm_plain)
+        assert _rel(fn(*args), plain(*args)) <= 1e-5, part
+
+
+@pytest.mark.parametrize("kw", [{}, dict(n_tiles=16, s_blk=100, w_win=50,
+                                         n_edges=120, feat=64, heads=2,
+                                         n_live=90, cols=4)])
+def test_probe_gat_tile_matches_plain(cuda_device, kw):
+    a = pr.gat_tile_inputs(4, **kw)
+    a["src"][:, -10:] = kw.get("s_blk", pr.GAT_S_BLK)  # sentinel sources
+    a["dst"][:, -10:] = np.arange(10) % kw.get("w_win", pr.GAT_W)
+    t = pr.to_torch(a, cuda_device)
+    args = (t["slab"], t["ts"], t["td"], t["src"], t["dst"],
+            kw.get("heads", pr.GAT_HEADS))
+    out, z = pr.gat_tile(*args)
+    ref_out, ref_z = pr.gat_tile_plain(*args)
+    assert _rel(out, ref_out) <= 5e-3 and _rel(z, ref_z) <= 1e-5
+    again = pr.gat_tile(*args)
+    assert torch.equal(out, again[0]) and torch.equal(z, again[1])
+
+
+def test_probe_kernels_reject_bad_args(cuda_device):
+    table = torch.ones(8, 16, device=cuda_device)
+    idx = torch.zeros(2, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="idx is on cpu"):
+        pr.gather_sum(table, idx)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        prc.gather_sum_cuda(table.cpu(), idx)
+    with pytest.raises(ValueError, match="x must be"):
+        pr.shuffle(table.double(), 0)
+    slab = torch.ones(8, 16, device=cuda_device)      # f32, not bf16
+    src = torch.zeros(2, 4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="slab must be"):
+        pr.tile_gather(slab, src)
+    with pytest.raises(ValueError, match="heads"):
+        pr.gat_tile(torch.ones(1, 4, 8, dtype=torch.bfloat16,
+                               device=cuda_device),
+                    torch.ones(1, 4, 2, dtype=torch.bfloat16,
+                               device=cuda_device),
+                    torch.ones(1, 2, 2, device=cuda_device), src[:1],
+                    src[:1], 3)

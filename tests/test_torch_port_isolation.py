@@ -15,6 +15,9 @@ import torch
 import sgnn_tpu_torch
 from sgnn_tpu_torch.graph.adjacency import Adjacency
 from sgnn_tpu_torch.models.gnn import init_model, params_from_numpy
+from sgnn_tpu_torch.ops.probes import (  # noqa: F401 (import checked)
+    gat_tile, gather_sum, shuffle, tile_gather, tile_part_args, tile_spmm,
+)
 from sgnn_tpu_torch.ops.segment import csr_from_numpy
 from sgnn_tpu_torch.config import RunConfig
 from sgnn_tpu_torch.sampler.native import build as native_build
@@ -71,7 +74,8 @@ def test_every_port_module_imports_with_jax_blocked():
             "sgnn_tpu_torch.train.device_trainer", "sgnn_tpu_torch.ops.gat",
             "sgnn_tpu_torch.ops.cuda.gat", "sgnn_tpu_torch.ops.reductions",
             "sgnn_tpu_torch.ops.cuda.gat_bwd",
-            "sgnn_tpu_torch.train.fullbatch"} <= set(mods)
+            "sgnn_tpu_torch.train.fullbatch", "sgnn_tpu_torch.ops.probes",
+            "sgnn_tpu_torch.ops.cuda.probes"} <= set(mods)
 
 
 def test_native_sampler_builds_inside_the_checkout():
@@ -143,3 +147,18 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run_chip_smoke(tmp_path, {"PYTHONPATH": ""})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("script", ["torch_probe_gather.py",
+                                    "torch_probe_tile_spmm.py",
+                                    "torch_probe_gat_tile.py"])
+def test_probe_scripts_raise_without_a_card(script):
+    import os
+
+    out = subprocess.run([sys.executable, str(ROOT / "scripts" / script)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "ns/" not in out.stdout
