@@ -18,11 +18,13 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
 3. kernel_k1 — K1's three kernels (`gather_agg_fwd`, `_bwd_dx`, `_bwd_dw`)
                against their plain versions at K in {1, 10, 25}, F in {7, 41,
                128, 602}, f32 and bf16, D not a multiple of 8, zero-weight
-               slots and hub sources of 10^4 slots each; then at the two
-               full-width training shapes (GraphSAGE 602-128-41, fanout
-               25-10, batch 10000: a device-sampled batch's blocks), each
-               held to plain and timed beside plain, a library call and the
-               bound;
+               slots and hub sources of 10^4 slots each, forward and dx
+               bit-identical on repeat; then at the two full-width training
+               shapes (GraphSAGE 602-128-41, fanout 25-10, batch 10000: a
+               device-sampled batch's blocks), each held to plain and timed
+               beside plain, a library call and the bound, dx as called
+               (its transpose, `block_transpose`, included) and the
+               transpose alone, bit-identical to its plain version;
 4. kernel_k3 — K3 (`gat_aggregate_cuda`) against `gat_aggregate_plain` on
                skewed random CSR graphs (hub rows of 6000 edges, rows with
                no edges, sources != destinations in one case) at (H, F) in
@@ -59,7 +61,8 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                vertices; finite losses, the last 4 steps' mean loss below
                the first step's, K1 launched 2 forward + 2 dx per step and 2
                forward per eval batch; per-step median time, sampled
-               edges/s, overflow count and train accuracy;
+               edges/s, overflow count and train accuracy; dx's transpose
+               launched once per dx;
 10. train_gat — GATSAMPLEALLGPU (device sampler), GAT 602-128-41, heads 4,
                fanout 25-10, batch 10000: the first batch's loss and every
                weight's and attention vector's gradient on the card held to
@@ -68,9 +71,10 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                `evaluate`: finite losses, the loss falling, no K1 and no K3
                launch (sampled GAT aggregates with torch ops); per-step
                median time, sampled edges/s, accuracies, peak memory;
-11. kernel_k2_bwd — K2's backward (`spmm_csr_bwd_cuda`: the SpMM kernel
-               over the transposed CSR, counted apart) against
-               `spmm_csr_plain` over the same CSR, on skewed random graphs
+11. kernel_k2_bwd — K2's backward (`spmm_csr_bwd_cuda`: csr_sum.cuh's
+               edge-balanced sum over the transposed CSR, counted apart)
+               against `spmm_csr_plain` over the same CSR, on skewed random
+               graphs
                (hub rows, rows with no edges) at F in {7, 41, 128, 256},
                f32 and bf16, bit-identical on repeat; then at the
                Reddit-shaped graph's transposed CSR (F=128 and 41, f32)
@@ -169,7 +173,7 @@ BF16_SERVE_ATOL = 0.05
 # training, card against the port's CPU on the same blocks and parameters
 # (drop 0, TF32 off): the loss absolutely, each weight's gradient as
 # max|Δg| / max|g| — f32 throughout, only summation orders differ (cuBLAS,
-# K1's slot order, dx by atomics), a few f32 ulps through the 602- and
+# K1's slot order, dx's transposed sum), a few f32 ulps through the 602- and
 # 128-term sums
 TRAIN_LOSS_ATOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-4
@@ -324,6 +328,7 @@ def main() -> int:
                "gather_agg_fwd": k1.gather_agg_fwd_cuda,
                "gather_agg_bwd_dx": k1.gather_agg_bwd_dx_cuda,
                "gather_agg_bwd_dw": k1.gather_agg_bwd_dw_cuda,
+               "block_transpose": k1.block_transpose_cuda,
                "gat_aggregate": gat_aggregate_cuda,
                "spmm_csr_bwd": spmm_csr_bwd_cuda,
                "gat_bwd_src": gat_bwd_src_cuda,
@@ -451,6 +456,7 @@ def main() -> int:
                 out = k1.gather_agg_fwd_cuda(x, nbr, w)
                 again = k1.gather_agg_fwd_cuda(x, nbr, w)
                 dx = k1.gather_agg_bwd_dx_cuda(g, nbr, w, x)
+                dx_again = k1.gather_agg_bwd_dx_cuda(g, nbr, w, x)
                 dw = k1.gather_agg_bwd_dw_cuda(g, x, nbr)
                 torch.cuda.synchronize()
                 key = str(dt).removeprefix("torch.")
@@ -467,6 +473,8 @@ def main() -> int:
                                              f"F={feat} {key}: {err}")
                 require(torch.equal(out, again),
                         "K1 forward is not deterministic")
+                require(torch.equal(dx, dx_again),
+                        "K1 dx is not deterministic")
 
     # the full-width training shapes: the blocks of one device-sampled
     # GSSAMPLEALLGPU batch (its own generator: the trainer's draws in
@@ -508,6 +516,23 @@ def main() -> int:
         except RuntimeError:
             dw_library = None
         b = x.element_size()
+        # dx's transpose: bit-identical to its plain version (torch ops);
+        # reads nbr and w, writes rowptr_t, col_t and w_t once
+        got = k1.block_transpose_cuda(nbr, w, s_)
+        want = agg.block_transpose_plain(nbr, w, s_)
+        require(all(torch.equal(a, b_) for a, b_ in zip(got, want)),
+                f"block_transpose differs from plain at layer {layer}")
+        t_bytes = d_ * k_ * 16 + 8 * (s_ + 1)
+        k1_shapes.append({
+            "name": "block_transpose", "layer": layer, "D": d_, "K": k_,
+            "S": s_, "F": feat, "nnz": nnz, "dtype": "int32/float32",
+            "max_abs_err": 0.0, "bit_identical": True,
+            "ms": time_ms(lambda: k1.block_transpose_cuda(nbr, w, s_), 20),
+            "plain_ms": time_ms(
+                lambda: agg.block_transpose_plain(nbr, w, s_), 3),
+            "library_ms": None, "bound_ms": t_bytes / hbm * 1e3,
+            "bound_by": "bytes"})
+        del got, want
         once = d_ * k_ * 8 + s_ * feat * b + d_ * feat * b
         gathered = d_ * k_ * 8 + nnz * feat * b + d_ * feat * b
         for kname, fn, plain, lib, flops in (
@@ -878,6 +903,7 @@ def main() -> int:
                            "edges_per_s": nedges / (t2 - t0)})
     host_launches = [f.launches for f in k1_fns]
     require(host_launches == [6, 6, 0] and spmm_csr_cuda.launches == 0
+            and k1.block_transpose_cuda.launches == 6
             and gat_aggregate_cuda.launches == 0,
             f"host-sampled steps launched {counts()}, expected 2 K1 "
             "forward + 2 dx per step")
@@ -910,9 +936,11 @@ def main() -> int:
     require(train_launches == [2 * steps, 2 * steps, 0],
             f"training epoch launched K1 {train_launches}")
     require(dev_launches == [2 * steps + 2 * eval_batches, 2 * steps, 0]
+            and k1.block_transpose_cuda.launches == 2 * steps
             and spmm_csr_cuda.launches == 0
             and gat_aggregate_cuda.launches == 0,
             f"epoch + evaluate launched {counts()}")
+    transpose_launches = k1.block_transpose_cuda.launches
     med_step_ms = statistics.median(dev_trainer.step_ms[1:])
     emit({"phase": "train_device", "engine": "GSSAMPLEALLGPU",
           "model": "sage 602-128-41", "fanout": TRAIN_FANOUT,
@@ -926,6 +954,7 @@ def main() -> int:
           "train_acc": tr_acc, "val_acc": val_acc,
           "eval_batches": eval_batches,
           "k1_launches": dict(zip(("fwd", "dx", "dw"), dev_launches)),
+          "transpose_launches": transpose_launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     del dev_trainer
 
@@ -1001,7 +1030,7 @@ def main() -> int:
         """A skewed CSR (hub rows, every 13th row without edges) whose
         sources `no_out_every` apart have no out-edges, and whose source 5
         takes every 80th edge: a hub row of the transposed CSR, longer than
-        LONG_ROW_EDGES (the kernels split it across warps)."""
+        LONG_ROW_EDGES and many of the CSR sum's chunks."""
         deg = (torch.rand(n_rows, generator=gen) ** 4 * 120).long()
         deg[::13] = 0
         deg[:4] = 6000
@@ -1320,7 +1349,8 @@ def main() -> int:
     for kname in ("spmm_csr_bwd", "gat_bwd_src", "gat_bwd_dst"):
         require(full_counts[kname] > 0, f"train_full never launched {kname}")
     require(all(full_counts[k] == 0 for k in (
-        "gather_agg_fwd", "gather_agg_bwd_dx", "gather_agg_bwd_dw")),
+        "gather_agg_fwd", "gather_agg_bwd_dx", "gather_agg_bwd_dw",
+        "block_transpose")),
             f"whole-graph training launched K1: {full_counts}")
     emit({"phase": "train_full", "model": "602-128-41",
           "loss_atol": TRAIN_LOSS_ATOL, "grad_rtol": TRAIN_GRAD_RTOL,
@@ -1541,17 +1571,24 @@ def main() -> int:
                     "sgnn_tpu/ops/pallas/mxu_spmm.py:316", launches,
                     f"one f32 logprobs pass: F=128 + F=41 on the {v}-vertex, "
                     f"{e}-edge graph")]
-    for kname, replaces, n in (
+    for kname, replaces, n, note in (
             ("gather_agg_fwd", "sgnn_tpu/ops/pallas/gather_agg.py:43",
-             dev_launches[0]),
+             dev_launches[0], ""),
             ("gather_agg_bwd_dx", "sgnn_tpu/ops/aggregate.py:60",
-             dev_launches[1]),
+             dev_launches[1], "; ms includes building the transpose, "
+             "library_ms (torch.sparse.mm on a prebuilt transpose) does not"),
+            ("block_transpose", "sgnn_tpu/ops/aggregate.py:60",
+             transpose_launches, "; dx's transpose alone, also inside "
+             "gather_agg_bwd_dx's ms (library_ms null: no single PyTorch "
+             "call builds it)"),
             ("gather_agg_bwd_dw", "sgnn_tpu/ops/aggregate.py:60",
-             dev_launches[2])):
+             dev_launches[2], "")):
         kernels.append(line(kname, [t for t in k1_shapes
                                     if t["name"] == kname],
-                            "sgnn_tpu_torch/csrc/gather_agg.cu", replaces, n,
-                            step_shapes))
+                            "sgnn_tpu_torch/csrc/" + (
+                                "csr_sum.cuh" if kname == "gather_agg_bwd_dx"
+                                else "gather_agg.cu"), replaces, n,
+                            step_shapes + note))
     # one single-head f32 GAT logprobs pass: F=128 + F=41, both at H=1
     k3_pass = [t for t in k3_shapes
                if t["dtype"] == "float32" and t["H"] == 1]
@@ -1564,7 +1601,7 @@ def main() -> int:
     k3_line["composition_ms"] = total(k3_pass, "composition_ms")
     kernels.append(k3_line)
     kernels.append(line(
-        "spmm_csr_bwd", k2b_shapes, "sgnn_tpu_torch/csrc/spmm.cu",
+        "spmm_csr_bwd", k2b_shapes, "sgnn_tpu_torch/csrc/csr_sum.cuh",
         "sgnn_tpu/ops/pallas/mxu_spmm.py:463", full_counts["spmm_csr_bwd"],
         f"one GCN/GSFULLBATCH epoch's backward: F=128 + F=41 f32 on the "
         f"{v}-vertex, {e}-edge graph's transposed CSR"))

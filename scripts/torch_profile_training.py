@@ -18,8 +18,9 @@ update and the METRICS:clean forward), untraced and then traced.  For
 each it prints one JSON line: the host wall times (ending in a
 synchronize), the device time summed over the kernels the trace saw, the
 device's idle share (1 - device/wall, against the traced and the untraced
-wall), the port's kernels' device time and share (K1; or K2 forward and
-backward, K3, K4's B1 and B2), and the eight kernels with the most device
+wall), the port's kernels' device time and share (K1's forward, dx's
+transpose and CSR sum; or K2 forward and backward, K3, K4's B1 and B2),
+and the eight kernels with the most device
 time.  It also prints the peak device memory and the card's name and
 power limit.  The full per-kernel tables go to
 DIR/torch_profile_training[_<engine>].txt (default build/profiles/).
@@ -46,10 +47,15 @@ from sgnn_tpu_torch.data.synthetic import reddit_like_dataset  # noqa: E402
 from sgnn_tpu_torch.train import build_trainer  # noqa: E402
 
 
-# the port's kernels, by a substring of their names in the trace (K2 and
-# B1 include the kernels that split and combine long rows)
-SAMPLED_KERNELS = {"k1": "gather_agg"}
-FULL_KERNELS = {"k2_spmm": "namespace)::spmm_", "k3": "gat_kernel<",
+# the port's kernels, by a substring of their names in the trace: K1's
+# forward (and dw), dx's transpose (its radix passes and fill) and its CSR
+# sum (csr_sum.cuh's three kernels, in whole-graph training K2's backward);
+# K2's forward (a warp per row on the Reddit-shaped CSR); B1 includes the
+# kernels that split and combine long rows
+SAMPLED_KERNELS = {"k1_fwd": "gather_agg", "k1_dx_sum": "sgnn::csr_",
+                   "k1_dx_transpose": "block_transpose"}
+FULL_KERNELS = {"k2_fwd": "spmm_csr_kernel", "k2_bwd": "sgnn::csr_",
+                "k3": "gat_kernel<",
                 "k4_b1": "namespace)::gat_bwd_src_",
                 "k4_b2": "namespace)::gat_bwd_dst_"}
 

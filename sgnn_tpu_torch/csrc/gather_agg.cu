@@ -3,7 +3,7 @@
 // [S, F] f32 or bf16):
 //
 //   forward  out[d, :]  = sum over k of w[d, k] * x[nbr[d, k], :]
-//   dx       dx[s, :]  += w[d, k] * g[d, :]          for every nbr[d, k] = s
+//   dx       dx[s, :]   = sum over nbr[d, k] = s of w[d, k] * g[d, :]
 //   dw       dw[d, k]   = <g[d, :], x[nbr[d, k], :]>
 //
 // The forward replaces sgnn_tpu/ops/pallas/gather_agg.py::_kernel (launched
@@ -21,7 +21,7 @@
 // 3.35 TB/s, against 0.009 ms of f32 FMA time.  The gathers read a row of x
 // per slot, and x (119 MB there) does not fit the 50 MB L2, so the traffic
 // really caused is nearer D*K*F*b for the rows.  dx moves the same bytes
-// the other way, through f32 atomics into a [S, F] buffer.
+// the other way.
 //
 // Design, simple first:
 //  * forward: one warp per destination row, lanes over feature columns
@@ -30,20 +30,24 @@
 //    and broadcast with __shfl_sync; slots of weight 0 are skipped (the
 //    sampler's padding); the sum is an f32 register sum in slot order and
 //    each output element is written once, so the forward is deterministic;
-//  * dx: one warp per destination row, the row of g held in registers, and
-//    for each slot of nonzero weight an f32 atomicAdd of w*g into the
-//    source row, as float4 (a vector red.global.add, sm_90) when F is a
-//    multiple of 4, else per element.  Atomics from different destinations
-//    into one source row land in an order that changes from run to run, so
-//    dx is NOT bit-deterministic; the hub sources of a power-law graph are
-//    where they contend;
+//  * dx, without float atomics: the block is first transposed into a CSR
+//    keyed by source (block_transpose_*: the key of slot p is nbr[p], or S
+//    for a slot of weight 0 so that the padding, which points at row 0, is
+//    dropped instead of making row 0 a hub; a stable LSD radix sort of the
+//    keys, a counting sort per 9-bit digit; then the fill of each entry
+//    (d = p / K, w[p]) and of rowptr by binary searches of the sorted
+//    keys).  Each source's entries keep ascending slot order p = d*K + k,
+//    so the order is fixed.  Then
+//    csr_sum.cuh's edge-balanced gather-sum over that CSR, the same sum
+//    as K2's, writes every dx row once in x's dtype (rows with no entries
+//    as zeros): bit-identical from run to run;
 //  * dw: one warp per (row, slot) pair, lanes over F, an f32 sum reduced
 //    across the warp with __shfl_xor_sync, written once.  Not on the
 //    training path (the sampler's weights need no gradient).
-// Row offsets are 64-bit.  Staging rows with cp.async/TMA, degree-sorted
-// scheduling and an atomic-free dx (a per-batch transpose) are later work.
+// Row offsets are 64-bit.  Staging rows with cp.async/TMA and
+// degree-sorted scheduling are later work.
 
-#include "common.cuh"
+#include "csr_sum.cuh"
 
 namespace {
 
@@ -99,59 +103,161 @@ gather_agg_fwd_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
   }
 }
 
-// VEC = 4: each lane owns 4 adjacent columns per group and adds them with
-// one float4 atomic (needs F % 4 == 0, so a group is in range as a whole
-// and 16-byte aligned); VEC = 1: one column per group, scalar atomics.
-template <typename T, int COLS, int VEC>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gather_agg_dx_kernel(const T* __restrict__ g, const int32_t* __restrict__ nbr,
-                     const float* __restrict__ w, float* __restrict__ dx,
-                     int64_t num_dst, int k_slots, int64_t feat) {
+// dx's transpose is a stable LSD radix sort of the slots by key, a
+// counting sort per kRadixBits-bit digit: the key of slot p is nbr[p], or
+// num_src for a slot of weight 0 (dropped: keyed past the last source).
+// Each pass: block_transpose_count_kernel counts the digits of each tile
+// of kTileItems slots (digit-major, counts[digit * tiles + tile]); the
+// caller's torch.cumsum of counts (index bookkeeping) gives every (digit,
+// tile) its first output place; block_transpose_scatter_kernel then writes
+// each tile's (key, slot) pairs there in slot order.  Integer atomics on
+// shared-memory counts only.  The first pass reads nbr and w
+// (slot = its index); later passes the previous pass's output.
+constexpr int kRadixBits = 9;
+constexpr int kBuckets = 1 << kRadixBits;
+constexpr int kSortThreads = 256;
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kTileItems = 2048;
+
+// Slot i's (key, slot): from nbr and w in the first pass (pairs null),
+// else from the previous pass's (key, slot) pairs.
+__device__ __forceinline__ int2 slot_pair(const int32_t* __restrict__ nbr,
+                                          const float* __restrict__ w,
+                                          const int2* __restrict__ pairs,
+                                          int64_t i, int32_t num_src) {
+  if (pairs != nullptr) return pairs[i];
+  return make_int2(w[i] != 0.0f ? nbr[i] : num_src, static_cast<int32_t>(i));
+}
+
+__global__ void __launch_bounds__(kSortThreads)
+block_transpose_count_kernel(const int32_t* __restrict__ nbr,
+                             const float* __restrict__ w,
+                             const int2* __restrict__ pairs,
+                             int32_t* __restrict__ counts, int64_t n_slots,
+                             int32_t num_src, int shift) {
+  __shared__ int32_t hist[kBuckets];
+  const int64_t tile = blockIdx.x, tiles = gridDim.x;
   const int lane = threadIdx.x & 31;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
-                        (threadIdx.x >> 5);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
-  for (int64_t row = first; row < num_dst; row += stride) {
-    const int64_t base = row * k_slots;
-    const T* g_row = g + row * feat;
-    for (int64_t c0 = 0; c0 < feat; c0 += 32 * COLS * VEC) {
-      float gv[COLS][VEC];
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int64_t c = c0 + static_cast<int64_t>(lane + 32 * j) * VEC;
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          gv[j][v] = c < feat ? to_float(g_row[c + v]) : 0.0f;
-        }
-      }
-      for (int k0 = 0; k0 < k_slots; k0 += 32) {
-        const int n = min(32, k_slots - k0);
-        int my_src = 0;
-        float my_w = 0.0f;
-        if (lane < n) {
-          my_src = nbr[base + k0 + lane];
-          my_w = w[base + k0 + lane];
-        }
-        for (int k = 0; k < n; ++k) {
-          const int src = __shfl_sync(kFullMask, my_src, k);
-          const float wk = __shfl_sync(kFullMask, my_w, k);
-          if (wk == 0.0f) continue;
-          float* dx_row = dx + static_cast<int64_t>(src) * feat;
-#pragma unroll
-          for (int j = 0; j < COLS; ++j) {
-            const int64_t c = c0 + static_cast<int64_t>(lane + 32 * j) * VEC;
-            if (c >= feat) continue;
-            if constexpr (VEC == 4) {
-              atomicAdd(reinterpret_cast<float4*>(dx_row + c),
-                        make_float4(wk * gv[j][0], wk * gv[j][1],
-                                    wk * gv[j][2], wk * gv[j][3]));
-            } else {
-              atomicAdd(dx_row + c, wk * gv[j][0]);
-            }
-          }
-        }
-      }
+  for (int d = threadIdx.x; d < kBuckets; d += kSortThreads) hist[d] = 0;
+  __syncthreads();
+  for (int j = 0; j < kTileItems; j += kSortThreads) {
+    const int64_t i = tile * kTileItems + j + threadIdx.x;
+    const int digit =
+        i < n_slots
+            ? (slot_pair(nbr, w, pairs, i, num_src).x >> shift) &
+                  (kBuckets - 1)
+            : kBuckets;
+    // one shared-memory add per digit present in the warp
+    const unsigned peers = __match_any_sync(kFullMask, digit);
+    if (digit < kBuckets && (peers & ((1u << lane) - 1u)) == 0) {
+      atomicAdd(&hist[digit], __popc(peers));
     }
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < kBuckets; d += kSortThreads) {
+    counts[d * tiles + tile] = hist[d];
+  }
+}
+
+// Warp v takes the tile's items [v * 256, (v + 1) * 256), kSortRounds
+// rounds of 32 in order, and ranks each among its earlier items of the
+// same digit (`__match_any_sync`, a running count per warp and digit in
+// shared memory); then every digit's place is the tile's start for it
+// (cums - counts) plus the earlier warps' counts, and each item is
+// written there: slot order within the tile, so the pass is stable.
+constexpr int kSortRounds = kTileItems / kSortThreads;
+
+__global__ void __launch_bounds__(kSortThreads)
+block_transpose_scatter_kernel(const int32_t* __restrict__ nbr,
+                               const float* __restrict__ w,
+                               const int2* __restrict__ pairs,
+                               const int32_t* __restrict__ counts,
+                               const int32_t* __restrict__ cums,
+                               int2* __restrict__ pairs_out,
+                               int64_t n_slots, int32_t num_src, int shift) {
+  __shared__ int32_t warp_at[kSortWarps][kBuckets];
+  const int64_t tile = blockIdx.x, tiles = gridDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int d = threadIdx.x; d < kBuckets; d += kSortThreads) {
+    for (int v = 0; v < kSortWarps; ++v) warp_at[v][d] = 0;
+  }
+  __syncthreads();
+  const unsigned below = (1u << lane) - 1u;
+  const int64_t first = tile * kTileItems + warp * (kTileItems / kSortWarps);
+  int2 item[kSortRounds];
+  int32_t rank[kSortRounds];
+  int digit[kSortRounds];
+#pragma unroll
+  for (int j = 0; j < kSortRounds; ++j) {
+    const int64_t i = first + j * 32 + lane;
+    const bool valid = i < n_slots;
+    item[j] = valid ? slot_pair(nbr, w, pairs, i, num_src) : make_int2(0, 0);
+    digit[j] = valid ? (item[j].x >> shift) & (kBuckets - 1) : kBuckets;
+    const unsigned peers = __match_any_sync(kFullMask, digit[j]);
+    const int32_t before = valid ? warp_at[warp][digit[j]] : 0;
+    rank[j] = before + __popc(peers & below);
+    __syncwarp();
+    if (valid && (peers & below) == 0) {
+      warp_at[warp][digit[j]] = before + __popc(peers);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < kBuckets; d += kSortThreads) {
+    const int64_t at = d * tiles + tile;
+    int32_t run = cums[at] - counts[at];  // exclusive: the (digit, tile) start
+    for (int v = 0; v < kSortWarps; ++v) {
+      const int32_t n = warp_at[v][d];
+      warp_at[v][d] = run;
+      run += n;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kSortRounds; ++j) {
+    if (digit[j] < kBuckets) {
+      pairs_out[warp_at[warp][digit[j]] + rank[j]] = item[j];
+    }
+  }
+}
+
+// The first i in [0, n) with a[i].x >= key (n if none).
+__device__ __forceinline__ int64_t lower_bound_key(const int2* a, int64_t n,
+                                                   int64_t key) {
+  int64_t lo = 0, hi = n;
+  while (lo < hi) {
+    const int64_t mid = lo + (hi - lo) / 2;
+    if (a[mid].x >= key) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
+}
+
+// After the sort (sorted: (key, slot) pairs in key order): entry i is slot
+// p = sorted[i].y, destination p / K with weight w[p]; rowptr_t[s] is the
+// first i whose key is >= s, so rowptr_t[num_src] counts the kept slots
+// and the dropped ones follow it.  Every element is written once.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+block_transpose_fill_kernel(const int2* __restrict__ sorted,
+                            const float* __restrict__ w,
+                            int32_t* __restrict__ col_t,
+                            float* __restrict__ w_t,
+                            int64_t* __restrict__ rowptr_t, int64_t n_slots,
+                            int k_slots, int64_t num_src) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t n = max(n_slots, num_src + 1);
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride) {
+    if (i < n_slots) {
+      const int32_t p = sorted[i].y;
+      col_t[i] = static_cast<int32_t>(p / k_slots);
+      w_t[i] = w[p];
+    }
+    if (i <= num_src) rowptr_t[i] = lower_bound_key(sorted, n_slots, i);
   }
 }
 
@@ -204,38 +310,6 @@ void launch_fwd(const void* x, const void* nbr, const void* w, void* out,
 }
 
 template <typename T>
-void launch_dx(const void* g, const void* nbr, const void* w, void* dx,
-               int64_t num_dst, int k_slots, int64_t feat,
-               cudaStream_t stream) {
-  const dim3 grid(sgnn::warp_blocks(num_dst)), block(kWarpsPerBlock * 32);
-  const T* gp = static_cast<const T*>(g);
-  const int32_t* np_ = static_cast<const int32_t*>(nbr);
-  const float* wp = static_cast<const float*>(w);
-  float* dp = static_cast<float*>(dx);
-  if (feat % 4 == 0) {
-    if (feat <= 128) {
-      gather_agg_dx_kernel<T, 1, 4><<<grid, block, 0, stream>>>(
-          gp, np_, wp, dp, num_dst, k_slots, feat);
-    } else {
-      gather_agg_dx_kernel<T, 2, 4><<<grid, block, 0, stream>>>(
-          gp, np_, wp, dp, num_dst, k_slots, feat);
-    }
-  } else if (feat <= 32) {
-    gather_agg_dx_kernel<T, 1, 1><<<grid, block, 0, stream>>>(
-        gp, np_, wp, dp, num_dst, k_slots, feat);
-  } else if (feat <= 64) {
-    gather_agg_dx_kernel<T, 2, 1><<<grid, block, 0, stream>>>(
-        gp, np_, wp, dp, num_dst, k_slots, feat);
-  } else if (feat <= 128) {
-    gather_agg_dx_kernel<T, 4, 1><<<grid, block, 0, stream>>>(
-        gp, np_, wp, dp, num_dst, k_slots, feat);
-  } else {
-    gather_agg_dx_kernel<T, 8, 1><<<grid, block, 0, stream>>>(
-        gp, np_, wp, dp, num_dst, k_slots, feat);
-  }
-}
-
-template <typename T>
 void launch_dw(const void* g, const void* x, const void* nbr, void* dw,
                int64_t num_dst, int k_slots, int64_t feat,
                cudaStream_t stream) {
@@ -249,10 +323,10 @@ void launch_dw(const void* g, const void* x, const void* nbr, void* dw,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (the dtype of x, g and out; w, dw and
-// the dx buffer are f32).  The caller checks shapes, dtypes, devices and
-// index bounds, zeroes the dx buffer, and passes num_dst, k_slots and feat
-// >= 1.  Each returns cudaGetLastError() after its launch.
+// dtype: 0 = float32, 1 = bfloat16 (the dtype of x, g, out and dx; w and
+// dw are f32).  The caller checks shapes, dtypes, devices and index bounds
+// and passes num_dst, k_slots and feat >= 1.  Each returns
+// cudaGetLastError() after its launches.
 extern "C" int sgnn_gather_agg_fwd(const void* x, const void* nbr,
                                    const void* w, void* out,
                                    long long num_dst, int k_slots,
@@ -268,20 +342,66 @@ extern "C" int sgnn_gather_agg_fwd(const void* x, const void* nbr,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int sgnn_gather_agg_bwd_dx(const void* g, const void* nbr,
-                                      const void* w, void* dx,
-                                      long long num_dst, int k_slots,
-                                      long long feat, int dtype,
-                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch_dx<float>(g, nbr, w, dx, num_dst, k_slots, feat, s);
-  } else if (dtype == 1) {
-    launch_dx<__nv_bfloat16>(g, nbr, w, dx, num_dst, k_slots, feat, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// dx's transpose: one radix pass (count, then scatter around the caller's
+// cumsum of counts) on tiles = ceil(n_slots / kTileItems) blocks, from
+// (key, slot) pairs [n_slots] int2, null in the first pass, into
+// pairs_out.  counts and cums [kBuckets * tiles] int32.
+extern "C" int sgnn_block_transpose_count(const void* nbr, const void* w,
+                                          const void* pairs, void* counts,
+                                          long long n_slots, int num_src,
+                                          int shift, long long tiles,
+                                          void* stream) {
+  block_transpose_count_kernel<<<static_cast<unsigned>(tiles), kSortThreads,
+                                 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(nbr), static_cast<const float*>(w),
+      static_cast<const int2*>(pairs), static_cast<int32_t*>(counts),
+      n_slots, num_src, shift);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sgnn_block_transpose_scatter(
+    const void* nbr, const void* w, const void* pairs, const void* counts,
+    const void* cums, void* pairs_out, long long n_slots, int num_src,
+    int shift, long long tiles, void* stream) {
+  block_transpose_scatter_kernel<<<static_cast<unsigned>(tiles), kSortThreads,
+                                   0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(nbr), static_cast<const float*>(w),
+      static_cast<const int2*>(pairs), static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(cums), static_cast<int2*>(pairs_out),
+      n_slots, num_src, shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Then the transposed block from the sorted (key, slot) pairs:
+// rowptr_t [num_src + 1] int64, col_t [n_slots] int32 destinations and
+// w_t [n_slots] f32.  n_slots = D*K >= 1.
+extern "C" int sgnn_block_transpose_fill(const void* sorted, const void* w,
+                                         void* col_t, void* w_t,
+                                         void* rowptr_t, long long n_slots,
+                                         int k_slots, long long num_src,
+                                         void* stream) {
+  const int64_t n = std::max<int64_t>(n_slots, num_src + 1);
+  const dim3 grid(sgnn::warp_blocks(n / 32 + 1));
+  block_transpose_fill_kernel<<<grid, kWarpsPerBlock * 32, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int2*>(sorted), static_cast<const float*>(w),
+      static_cast<int32_t*>(col_t), static_cast<float*>(w_t),
+      static_cast<int64_t*>(rowptr_t), n_slots, k_slots, num_src);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dx over the transposed block: csr_sum.cuh's sum of g's rows, with
+// spmm.cu's arguments (num_rows = S, max_edges = D*K, carry scratch).
+extern "C" int sgnn_gather_agg_bwd_dx(const void* g, const void* rowptr_t,
+                                      const void* col_t, const void* w_t,
+                                      void* dx, void* carry, void* carry_row,
+                                      long long num_src, long long max_edges,
+                                      long long chunk, long long feat,
+                                      int vec, int dtype, void* stream) {
+  return sgnn::csr_sum_dispatch(g, rowptr_t, col_t, w_t, dx, carry,
+                                carry_row, num_src, max_edges, chunk, feat,
+                                vec, dtype,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sgnn_gather_agg_bwd_dw(const void* g, const void* x,

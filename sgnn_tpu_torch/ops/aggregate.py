@@ -10,8 +10,13 @@ whose backward is the math of sgnn_tpu/ops/aggregate.py:60-81:
     dx[s]    = Σ_{nbr[d,k]=s} w[d,k]·g[d]
     dw[d,k]  = <g[d], x[nbr[d,k]]>        (only when w requires a gradient)
 
-Dispatch, for each of the three products: a CPU tensor goes to its plain
-PyTorch version here; a CUDA tensor launches the kernel
+On the card dx runs without atomics: `block_transpose` turns the block
+into a CSR keyed by source (zero-weight slots dropped, each source's
+entries in ascending slot order), and the CSR sum of csrc/csr_sum.cuh
+sums g's rows along it, so dx is bit-identical from run to run.
+
+Dispatch, for each of the three products and the transpose: a CPU tensor
+goes to its plain PyTorch version here; a CUDA tensor launches the kernel
 (ops/cuda/gather_agg.py) or raises.  There is no fallback between them.
 
 The GAT edge ops at the end (`scatter_src_to_edges`, `scatter_dst_to_edges`,
@@ -63,6 +68,21 @@ def check_grad_arg(g: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor) -> None:
                          f"{g.device}")
 
 
+def check_transpose_args(nbr: torch.Tensor, w: torch.Tensor,
+                         num_src: int) -> None:
+    """Raise ValueError unless (nbr, w, num_src) are what dx's transpose
+    takes: its sort keys are int32, num_src included."""
+    if (nbr.dim() != 2 or nbr.dtype != torch.int32 or w.dtype != torch.float32
+            or nbr.shape != w.shape or nbr.device != w.device
+            or not (nbr.is_contiguous() and w.is_contiguous())
+            or not 0 <= num_src < 2 ** 31 - 1):
+        raise ValueError("block_transpose: nbr and w must be contiguous [D, "
+                         "K] int32 and float32 tensors on one device and "
+                         f"num_src < 2^31 - 1, got {nbr.dtype} "
+                         f"{tuple(nbr.shape)} on {nbr.device}, {w.dtype} "
+                         f"{tuple(w.shape)} on {w.device}, {num_src}")
+
+
 # ---------------------------------------------------------------- plain ----
 def gather_aggregate_plain(x: torch.Tensor, nbr: torch.Tensor,
                            w: torch.Tensor) -> torch.Tensor:
@@ -79,14 +99,33 @@ def gather_aggregate_plain(x: torch.Tensor, nbr: torch.Tensor,
 def gather_agg_bwd_dx_plain(g: torch.Tensor, nbr: torch.Tensor,
                             w: torch.Tensor, num_src: int,
                             dtype: torch.dtype) -> torch.Tensor:
-    """Plain version of the dx kernel: one `index_add_` per slot into an
-    f32 [S, F] buffer, cast to `dtype` (x's) at the end."""
+    """Plain version of the dx kernel (the CPU path): one `index_add_` per
+    slot into an f32 [S, F] buffer, cast to `dtype` (x's) at the end."""
     dx = torch.zeros((num_src, g.shape[1]), dtype=torch.float32,
                      device=g.device)
     g32 = g.float()
     for k in range(nbr.shape[1]):
         dx.index_add_(0, nbr[:, k], g32 * w[:, k, None])
     return dx.to(dtype)
+
+
+def block_transpose_plain(nbr: torch.Tensor, w: torch.Tensor, num_src: int
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Plain version of dx's transpose: the block as a CSR keyed by source,
+    `(rowptr_t [S+1] int64, col_t [D*K] int32 destinations, w_t [D*K]
+    f32)`.  The key of slot p = d·K + k is nbr[d, k], or S when w[d, k] is
+    0 (the sampler's padding points at row 0: kept, it would make row 0 a
+    hub), and a stable sort of the keys keeps each source's entries in
+    ascending p.  The dropped slots follow rowptr_t[S], the kept count."""
+    k = nbr.shape[1]
+    keys = torch.where(w != 0, nbr, num_src).reshape(-1)
+    ordered, perm = torch.sort(keys, stable=True)
+    rowptr_t = torch.searchsorted(
+        ordered, torch.arange(num_src + 1, dtype=ordered.dtype,
+                              device=nbr.device))
+    return (rowptr_t, torch.div(perm, k, rounding_mode="floor").int(),
+            w.reshape(-1)[perm])
 
 
 def gather_agg_bwd_dw_plain(g: torch.Tensor, x: torch.Tensor,
@@ -119,6 +158,20 @@ def gather_agg_fwd(x, nbr, w):
         return cuda.gather_agg_fwd_cuda(x, nbr, w)
     check_block_args(x, nbr, w)
     return gather_aggregate_plain(x, nbr, w)
+
+
+def block_transpose(nbr, w, num_src):
+    """dx's transpose (`block_transpose_plain`): the plain version on the
+    CPU, the kernels on the card."""
+    check_transpose_args(nbr, w, num_src)
+    if nbr.device.type == "cpu":
+        return block_transpose_plain(nbr, w, num_src)
+    if nbr.device.type == "cuda":
+        from .cuda import gather_agg
+
+        return gather_agg.block_transpose_cuda(nbr, w, num_src)
+    raise ValueError(f"block_transpose runs on cpu or cuda tensors, not "
+                     f"{nbr.device}")
 
 
 def gather_agg_bwd_dx(g, nbr, w, x):
@@ -163,8 +216,8 @@ def gather_aggregate(x: torch.Tensor, nbr: torch.Tensor,
 
     x: [S, F] f32 or bf16; nbr: [D, K] int32 local source indices in
     [0, S); w: [D, K] f32 edge weights, 0 on padded slots.  Returns [D, F]
-    in x's dtype, differentiable in x and w.  On CUDA, dx goes through
-    float atomics and is not bit-deterministic from run to run."""
+    in x's dtype, differentiable in x and w.  On CUDA every product is
+    bit-identical from run to run (dx through `block_transpose`)."""
     return _GatherAggregate.apply(x, nbr, w)
 
 

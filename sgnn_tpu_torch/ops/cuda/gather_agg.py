@@ -1,10 +1,15 @@
 """Wrappers of the K1 kernels (`csrc/gather_agg.cu`).
 
-Three entry points, each launching one kernel on PyTorch's current stream:
+Four entry points, each launching its kernels on PyTorch's current stream:
 
 - `gather_agg_fwd_cuda(x, nbr, w)`      → out [D, F] in x's dtype;
-- `gather_agg_bwd_dx_cuda(g, nbr, w, x)` → dx [S, F] in x's dtype, summed
-  by f32 atomics into a zeroed f32 buffer (not bit-deterministic);
+- `block_transpose_cuda(nbr, w, S)`     → the block as a CSR keyed by
+  source, `(rowptr_t [S+1], col_t [D*K], w_t [D*K])`, zero-weight slots
+  dropped past rowptr_t[S] (a stable radix sort of the slots' keys, then
+  a fill kernel);
+- `gather_agg_bwd_dx_cuda(g, nbr, w, x)` → dx [S, F] in x's dtype: the
+  transpose, then csrc/csr_sum.cuh's sum of g's rows along it, written
+  once and bit-identical from run to run;
 - `gather_agg_bwd_dw_cuda(g, x, nbr)`    → dw [D, K] f32.
 
 Each checks device, dtype, contiguity and shapes and raises on anything
@@ -20,15 +25,26 @@ import functools
 
 import torch
 
-from ..aggregate import check_block_args, check_grad_arg
+from ..aggregate import check_block_args, check_grad_arg, check_transpose_args
 from ..segment import DTYPE_CODES
 from .build import build
+from .spmm import CSR_SUM_ARGTYPES, launch_csr_sum
+
+# dx's transpose sorts the slots' keys by a stable LSD radix sort: digits of
+# RADIX_BITS, tiles of SORT_TILE_SLOTS slots a block (csrc/gather_agg.cu's
+# kRadixBits and kTileItems)
+RADIX_BITS, SORT_TILE_SLOTS = 9, 2048
 
 _P = ctypes.c_void_p
+_I64, _I32 = ctypes.c_longlong, ctypes.c_int
+_BLOCK = [_I64, _I32, _I64, _I32, _P]   # num_dst, k_slots, feat, dtype, stream
 _ARGS = {
-    "sgnn_gather_agg_fwd": [_P] * 4,
-    "sgnn_gather_agg_bwd_dx": [_P] * 4,
-    "sgnn_gather_agg_bwd_dw": [_P] * 4,
+    "sgnn_gather_agg_fwd": [_P] * 4 + _BLOCK,
+    "sgnn_gather_agg_bwd_dw": [_P] * 4 + _BLOCK,
+    "sgnn_block_transpose_count": [_P] * 4 + [_I64, _I32, _I32, _I64, _P],
+    "sgnn_block_transpose_scatter": [_P] * 6 + [_I64, _I32, _I32, _I64, _P],
+    "sgnn_block_transpose_fill": [_P] * 5 + [_I64, _I32, _I64, _P],
+    "sgnn_gather_agg_bwd_dx": CSR_SUM_ARGTYPES,
 }
 
 
@@ -36,8 +52,7 @@ _ARGS = {
 def _entry(name: str):
     lib = build("gather_agg").lib
     fn = getattr(lib, name)
-    fn.argtypes = _ARGS[name] + [ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_longlong, ctypes.c_int, _P]
+    fn.argtypes = _ARGS[name]
     fn.restype = ctypes.c_int
     err = lib.sgnn_cuda_error_string
     err.argtypes = [ctypes.c_int]
@@ -45,12 +60,11 @@ def _entry(name: str):
     return fn, err
 
 
-def _launch(name: str, ptrs, x: torch.Tensor, num_dst: int, k_slots: int,
-            feat: int) -> None:
+def _call(name: str, stream: int, *args) -> None:
+    """Call a C entry with `args` on `stream` (of the current device);
+    raise on an error code."""
     fn, err = _entry(name)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(*ptrs, num_dst, k_slots, feat, DTYPE_CODES[x.dtype], stream)
+    rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({err(rc).decode()})")
@@ -59,6 +73,12 @@ def _launch(name: str, ptrs, x: torch.Tensor, num_dst: int, k_slots: int,
 def _require_cuda(x: torch.Tensor, who: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{who} takes CUDA tensors, got {x.device}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    """The current stream of x's device; launch inside
+    `torch.cuda.device(x.device)`."""
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def gather_agg_fwd_cuda(x: torch.Tensor, nbr: torch.Tensor,
@@ -70,28 +90,86 @@ def gather_agg_fwd_cuda(x: torch.Tensor, nbr: torch.Tensor,
     if d == 0 or feat == 0 or k == 0:
         return torch.zeros((d, feat), dtype=x.dtype, device=x.device)
     out = torch.empty((d, feat), dtype=x.dtype, device=x.device)
-    _launch("sgnn_gather_agg_fwd",
-            (x.data_ptr(), nbr.data_ptr(), w.data_ptr(), out.data_ptr()),
-            x, d, k, feat)
+    with torch.cuda.device(x.device):
+        _call("sgnn_gather_agg_fwd", _stream(x), x.data_ptr(),
+              nbr.data_ptr(), w.data_ptr(), out.data_ptr(), d, k, feat,
+              DTYPE_CODES[x.dtype])
     gather_agg_fwd_cuda.launches += 1
     return out
 
 
+def block_transpose_cuda(nbr: torch.Tensor, w: torch.Tensor, num_src: int
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The block as a CSR keyed by source on the card, the same tensors as
+    `ops/aggregate.block_transpose_plain`: a stable LSD radix sort of the
+    slots' keys, RADIX_BITS a pass (a count kernel, `torch.cumsum` of the
+    counts, a scatter kernel), then every entry and rowptr_t (a kernel)."""
+    _require_cuda(nbr, "block_transpose_cuda")
+    check_transpose_args(nbr, w, num_src)
+    with torch.cuda.device(nbr.device):
+        out = _transpose(nbr, w, num_src, _stream(nbr))
+    block_transpose_cuda.launches += int(nbr.numel() > 0)
+    return out
+
+
+def _transpose(nbr: torch.Tensor, w: torch.Tensor, num_src: int,
+               stream: int) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """block_transpose_cuda's launches, on `stream` of the current
+    device."""
+    n_slots, k = nbr.numel(), nbr.shape[1]
+    dev = nbr.device
+    rowptr_t = torch.empty(num_src + 1, dtype=torch.int64, device=dev)
+    col_t = torch.empty(n_slots, dtype=torch.int32, device=dev)
+    w_t = torch.empty(n_slots, dtype=torch.float32, device=dev)
+    if n_slots == 0:
+        return rowptr_t.zero_(), col_t, w_t
+    tiles = -(-n_slots // SORT_TILE_SLOTS)
+    # keys reach num_src: every pass sorts RADIX_BITS more of their bits
+    passes = -(-max(1, num_src.bit_length()) // RADIX_BITS)
+    # one int32 workspace: two arrays of (key, slot) pairs the passes
+    # ping-pong between, the counts and their running sums
+    n_counts = tiles << RADIX_BITS
+    work = torch.empty(4 * n_slots + 2 * n_counts, dtype=torch.int32,
+                       device=dev)
+    counts, cums = work[4 * n_slots:].view(2, n_counts)
+    pairs = (work.data_ptr(), work.data_ptr() + 8 * n_slots)
+    src = 0                # the first pass reads nbr and w
+    for step in range(passes):
+        _call("sgnn_block_transpose_count", stream, nbr.data_ptr(),
+              w.data_ptr(), src, counts.data_ptr(), n_slots, num_src,
+              step * RADIX_BITS, tiles)
+        torch.cumsum(counts, 0, out=cums)
+        _call("sgnn_block_transpose_scatter", stream, nbr.data_ptr(),
+              w.data_ptr(), src, counts.data_ptr(), cums.data_ptr(),
+              pairs[step % 2], n_slots, num_src, step * RADIX_BITS, tiles)
+        src = pairs[step % 2]
+    _call("sgnn_block_transpose_fill", stream, src, w.data_ptr(),
+          col_t.data_ptr(), w_t.data_ptr(), rowptr_t.data_ptr(), n_slots, k,
+          num_src)
+    return rowptr_t, col_t, w_t
+
+
 def gather_agg_bwd_dx_cuda(g: torch.Tensor, nbr: torch.Tensor,
                            w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """dx[s] = Σ_{nbr[d,k]=s} w[d,k]·g[d] on the card, by f32 atomics: the
-    order of the adds into one source row changes from run to run."""
+    """dx[s] = Σ_{nbr[d,k]=s} w[d,k]·g[d] on the card, without atomics:
+    `block_transpose_cuda`, then the CSR sum of g's rows along it (rows
+    with no entries written as zeros), in x's dtype, rounded once."""
     _require_cuda(x, "gather_agg_bwd_dx_cuda")
     check_block_args(x, nbr, w)
     check_grad_arg(g, x, nbr)
     (d, k), (s, feat) = nbr.shape, x.shape
-    dx = torch.zeros((s, feat), dtype=torch.float32, device=x.device)
-    if d and k and feat:
-        _launch("sgnn_gather_agg_bwd_dx",
-                (g.data_ptr(), nbr.data_ptr(), w.data_ptr(), dx.data_ptr()),
-                x, d, k, feat)
-        gather_agg_bwd_dx_cuda.launches += 1
-    return dx.to(x.dtype)
+    if not (d and k and feat and s):
+        return torch.zeros((s, feat), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = _stream(x)
+        csr_t = _transpose(nbr, w, s, stream)
+        block_transpose_cuda.launches += 1
+        dx = launch_csr_sum(
+            functools.partial(_entry, "sgnn_gather_agg_bwd_dx"),
+            "gather_agg_bwd_dx", g, *csr_t, d * k, stream)
+    gather_agg_bwd_dx_cuda.launches += 1
+    return dx
 
 
 def gather_agg_bwd_dw_cuda(g: torch.Tensor, x: torch.Tensor,
@@ -104,13 +182,15 @@ def gather_agg_bwd_dw_cuda(g: torch.Tensor, x: torch.Tensor,
     if d == 0 or k == 0 or feat == 0:
         return torch.zeros((d, k), dtype=torch.float32, device=x.device)
     dw = torch.empty((d, k), dtype=torch.float32, device=x.device)
-    _launch("sgnn_gather_agg_bwd_dw",
-            (g.data_ptr(), x.data_ptr(), nbr.data_ptr(), dw.data_ptr()),
-            x, d, k, feat)
+    with torch.cuda.device(x.device):
+        _call("sgnn_gather_agg_bwd_dw", _stream(x), g.data_ptr(),
+              x.data_ptr(), nbr.data_ptr(), dw.data_ptr(), d, k, feat,
+              DTYPE_CODES[x.dtype])
     gather_agg_bwd_dw_cuda.launches += 1
     return dw
 
 
 gather_agg_fwd_cuda.launches = 0
+block_transpose_cuda.launches = 0
 gather_agg_bwd_dx_cuda.launches = 0
 gather_agg_bwd_dw_cuda.launches = 0

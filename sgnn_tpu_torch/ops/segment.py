@@ -12,10 +12,11 @@ Dispatch: a CPU tensor goes to `spmm_csr_plain`; a CUDA tensor launches the
 kernel (ops/cuda/spmm.py) or raises.  There is no fallback between them.
 
 Training (the whole-graph engines) differentiates through `SpmmCsr`: its
-backward is K2's backward, `dx = Aᵀ·g`, the same kernel over the CSR keyed
-by source that `csr_transpose` builds once on the host — what
+backward is K2's backward, `dx = Aᵀ·g`, the same function over the CSR
+keyed by source that `csr_transpose` builds once on the host — what
 `sgnn_tpu/ops/pallas/mxu_spmm.py::_mxu_bwd` is on the TPU (the same kernel
-on the transposed plan).  The edge weights are graph constants: no
+on the transposed plan); on the card the edge-balanced sum of
+csrc/csr_sum.cuh takes its hub rows.  The edge weights are graph constants: no
 gradient reaches them, as in `_mxu_bwd`.
 """
 
@@ -34,11 +35,25 @@ PLAIN_CHUNK_EDGES = 1 << 18
 # the plain versions sum in f32 in CSR edge order, as the JAX package's CPU
 # path does; over a CSR with a row longer than this they sum in f64: the f32
 # sum of a hub row of ~1e6 terms strays by ~sqrt(n) roundings, more than the
-# kernels' segmented sums (LONG_ROW_EDGES) that the plain versions check
+# kernels' pieced sums (csr_chunk_edges, LONG_ROW_EDGES) that the plain
+# versions check
 PLAIN_F64_ROW_EDGES = 1 << 16
-# rows with more edges than this are split across warps by the kernels that
-# sum along CSR rows (csrc/spmm.cu, csrc/gat_bwd.cu's B1): the transposed
-# CSR of a skewed graph has hub rows of ~1e6 edges
+# edges per warp of the CSR sum (csrc/csr_sum.cuh: K2's backward, K1's dx),
+# `csr_chunk_edges`: a power of two near max_edges / CSR_CHUNK_WARPS within
+# [CSR_CHUNK_MIN, CSR_CHUNK_MAX], so a large CSR gets some 2^15-2^16 warps
+# and a small one the minimum.  A row with more edges is summed in pieces,
+# one per chunk it overlaps, combined in a fixed tree; the chunk depends
+# only on the edge count, so a given CSR always sums in the same order.
+# scripts/torch_csr_sum_chunks.py times 32-1024 at the main path's shapes
+# (PERF.md §6): the transposed Reddit-shaped CSR (11.9M edges) is
+# fastest at 256-512, a sampled block's transpose (2.3M and 0.25M slots)
+# at 64.
+CSR_CHUNK_MIN, CSR_CHUNK_MAX, CSR_CHUNK_WARPS = 64, 1024, 1 << 16
+# rows with more edges than this would keep one warp busy while the card
+# idles: K4's B1 (csrc/gat_bwd.cu) splits them across warps, and K2's
+# forward takes the edge-balanced sum over a CSR that has one (a warp per
+# row otherwise).  The transposed CSR of a skewed graph has hub rows of ~1e6
+# edges
 LONG_ROW_EDGES = 1024
 # dtypes of x (and of the result) that the kernels take; w is always f32
 SPMM_DTYPES = (torch.float32, torch.bfloat16)
@@ -96,6 +111,13 @@ def csr_transpose(rowptr: np.ndarray, col: np.ndarray, w: np.ndarray,
     return rowptr_t, rows[perm], np.asarray(w, np.float32)[perm]
 
 
+def csr_chunk_edges(max_edges: int) -> int:
+    """The CSR sum's edges per warp for a CSR of at most `max_edges`
+    edges."""
+    near = 1 << (max_edges // CSR_CHUNK_WARPS).bit_length()
+    return min(CSR_CHUNK_MAX, max(CSR_CHUNK_MIN, near))
+
+
 def check_spmm_args(x: torch.Tensor, rowptr: torch.Tensor, col: torch.Tensor,
                     w: torch.Tensor) -> None:
     """Raise ValueError unless the arguments are what the kernel takes."""
@@ -118,8 +140,9 @@ def check_spmm_args(x: torch.Tensor, rowptr: torch.Tensor, col: torch.Tensor,
 
 def long_row_segments(rowptr: torch.Tensor, num_edges: int
                       ) -> Tuple[torch.Tensor, int]:
-    """The split of rows longer than LONG_ROW_EDGES, on rowptr's device
-    without a host sync: `seg_ptr` [R] int64, the inclusive running count
+    """B1's split of rows longer than LONG_ROW_EDGES (ops/cuda/gat_bwd.py),
+    on rowptr's device without a host sync: `seg_ptr` [R] int64, the
+    inclusive running count
     of each row's segments of at most LONG_ROW_EDGES edges (0 for a row
     short enough for one warp), and an upper bound on its last entry, the
     number of partial rows the kernel's scratch needs."""
@@ -185,9 +208,9 @@ def spmm_csr(x: torch.Tensor, rowptr: torch.Tensor, col: torch.Tensor,
 def spmm_csr_bwd(g: torch.Tensor, rowptr_t: torch.Tensor, col_t: torch.Tensor,
                  w_t: torch.Tensor) -> torch.Tensor:
     """K2's backward, `dx = Aᵀ·g` over the transposed CSR: the plain
-    version on the CPU, the same CUDA kernel as `spmm_csr` on the card,
-    launched through a wrapper of its own (`spmm_csr_bwd_cuda`, with its
-    own launch count)."""
+    version on the CPU, the edge-balanced CSR sum on the card, launched
+    through a wrapper of its own (`spmm_csr_bwd_cuda`, with its own launch
+    count)."""
     if g.device.type == "cpu":
         check_spmm_args(g, rowptr_t, col_t, w_t)
         return spmm_csr_plain(g, rowptr_t, col_t, w_t)

@@ -130,6 +130,13 @@ class FullBatchEngine:
                  weight_kind: WeightKind, device=None) -> None:
         from .fullbatch import FullBatchTrainer
 
+        if cfg.partition_graph:
+            # the port drives one card: PARTITION_GRAPH:1 runs the
+            # single-device program, as the JAX package does with one
+            # visible device (sgnn_tpu/train/engines.py:136-155)
+            get_logger("sgnn.engine").warning(
+                "PARTITION_GRAPH:1 requested but only one device is visible "
+                "— running the single-device program")
         self.cfg = cfg
         self.base = FullBatchTrainer(cfg, dataset, family=family,
                                      weight_kind=weight_kind, halo=cfg.halo,

@@ -217,10 +217,13 @@ class FullBatchTrainer:
     from a `torch.Generator` seeded with SEED + 7919, other bits than the
     JAX package's key.
 
-    Not ported yet, raising NotImplementedError with the ROADMAP item: a
-    mesh, PARTITION_GRAPH and HALO:targeted (item 6), FEATURE_DTYPE:int8
-    and checkpoints (item 4).  `device=None` means CUDA and raises without
-    a card; `device="cpu"` runs the kernels' plain versions."""
+    PARTITION_GRAPH (through `FullBatchEngine`, which warns) and
+    HALO:targeted run the single-device program, as the JAX package does
+    on one device: HALO is kept on `.halo` and read only under a mesh.  Not
+    ported yet, raising NotImplementedError with the ROADMAP item: a mesh
+    (item 6), FEATURE_DTYPE:int8 and checkpoints (item 4).  `device=None`
+    means CUDA and raises without a card; `device="cpu"` runs the kernels'
+    plain versions."""
 
     def __init__(
         self,
@@ -234,18 +237,16 @@ class FullBatchTrainer:
         aggregator: Optional[str] = None,
         device=None,
     ) -> None:
-        if mesh is not None or cfg.partition_graph:
+        if mesh is not None:
             raise NotImplementedError(
-                "vertex-sharded whole-graph training (mesh, PARTITION_GRAPH) "
-                "is not ported yet: ROADMAP Queue 1 item 6")
+                "vertex-sharded whole-graph training (a mesh) is not ported "
+                "yet: ROADMAP Queue 1 item 6")
         halo = (halo or "all_gather").lower()
         if halo not in ("all_gather", "targeted"):
             raise ValueError(
                 f"HALO must be 'all_gather' or 'targeted', got {halo!r}")
-        if halo == "targeted":
-            raise NotImplementedError(
-                "HALO:targeted (sharded whole-graph training) is not ported "
-                "yet: ROADMAP Queue 1 item 6")
+        # read only under a mesh, as in the JAX package
+        self.halo = halo
         fd = (cfg.feature_dtype or cfg.dtype).lower()
         if fd == "int8":
             raise NotImplementedError(

@@ -16,7 +16,8 @@ from sgnn_tpu.ops.aggregate import gather_aggregate as j_gather_aggregate
 from sgnn_tpu.ops.pallas.gather_agg import pallas_gather_aggregate_fwd_impl
 
 from sgnn_tpu_torch.ops import aggregate as agg
-from sgnn_tpu_torch.ops.aggregate import gather_aggregate
+from sgnn_tpu_torch.ops.aggregate import block_transpose, gather_aggregate
+from sgnn_tpu_torch.ops.segment import LONG_ROW_EDGES, spmm_csr_plain
 
 # f32 on both sides, the same slot order: only the rounding of fused and
 # unfused multiply-adds differs (tests/test_ops.py:47, :236)
@@ -156,3 +157,64 @@ def test_gather_aggregate_grad_w():
         wm[d, k] -= eps
         num = (f(wp) - f(wm)).item() / (2 * eps)
         assert np.isclose(wg.grad[d, k].item(), num, rtol=1e-2, atol=1e-2)
+
+
+# ------------------------------------- dx's transpose (the card's dx path) --
+def _hub_block(rng, d=1000, k=5, s=300, f=9):
+    """A block with a hub source of more than LONG_ROW_EDGES slots, sources
+    with no slot, 30% zero-weight slots (some pointing at row 0, as the
+    sampler pads)."""
+    x, nbr, w = _block(rng, d, k, s, f)
+    nbr.reshape(-1)[::2] = 7      # the hub: ~1600 slots of nonzero weight
+    nbr[nbr % 10 == 3] = 4        # sources 3, 13, ...: none
+    pad = rng.random((d, k)) < 0.1
+    nbr[pad], w[pad] = 0, 0.0
+    return x, nbr, w
+
+
+def test_block_transpose_plain_matches_numpy_stable_argsort():
+    rng = np.random.default_rng(8)
+    _, nbr, w = _hub_block(rng)
+    s = 300
+    rowptr, col, wt = (t.numpy() for t in block_transpose(*_t(nbr, w), s))
+    flat_n, flat_w = nbr.reshape(-1), w.reshape(-1)
+    kept = np.flatnonzero(flat_w != 0)
+    order = kept[np.argsort(flat_n[kept], kind="stable")]
+    nnz = order.size
+    want_ptr = np.zeros(s + 1, np.int64)
+    np.cumsum(np.bincount(flat_n[kept], minlength=s), out=want_ptr[1:])
+    np.testing.assert_array_equal(rowptr, want_ptr)
+    np.testing.assert_array_equal(col[:nnz], order // nbr.shape[1])
+    np.testing.assert_array_equal(wt[:nnz], flat_w[order])
+    # zero-weight slots dropped past rowptr[S]; the hub is longer than a
+    # split row; sources with no slot have empty rows
+    assert nnz < flat_w.size and np.all(wt[nnz:] == 0)
+    assert np.diff(rowptr).max() > LONG_ROW_EDGES
+    assert np.all(np.diff(rowptr)[3::10] == 0)
+    for src in (0, 7, 150):   # each source's entries in ascending slot order
+        lo, hi = rowptr[src], rowptr[src + 1]
+        slots = order[lo:hi]
+        assert np.all(np.diff(slots) > 0)
+
+
+def test_dx_over_the_transpose_matches_jax_vjp():
+    """The card's dx is a CSR sum over the block's transpose: that sum and
+    the port's CPU dx both match jax.vjp of the JAX gather_aggregate, with
+    a hub source longer than LONG_ROW_EDGES (f32, relative max-abs: the
+    hub's ~1000-term sums are taken in three orders)."""
+    rng = np.random.default_rng(9)
+    x, nbr, w = _hub_block(rng)
+    g = rng.standard_normal((1000, x.shape[1])).astype(np.float32)
+    _, vjp = jax.vjp(lambda xx: j_gather_aggregate(xx, jnp.asarray(nbr),
+                                                   jnp.asarray(w)),
+                     jnp.asarray(x))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    tx, tnbr, tw, tg = _t(x, nbr, w, g)
+    tx.requires_grad_()
+    gather_aggregate(tx, tnbr, tw).backward(tg)
+    rowptr, col, wt = block_transpose(tnbr, tw, x.shape[0])
+    nnz = int(rowptr[-1])
+    summed = spmm_csr_plain(tg, rowptr, col[:nnz], wt[:nnz]).numpy()
+    for got in (tx.grad.numpy(), summed):
+        assert np.abs(got - ref).max() / np.abs(ref).max() <= 1e-5
+    np.testing.assert_allclose(tx.grad.numpy(), ref, **GRAD)

@@ -25,14 +25,16 @@ from sgnn_tpu_torch.ops.cuda import gather_agg as k1
 from sgnn_tpu_torch.ops.cuda import probes as prc
 from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda
 from sgnn_tpu_torch.ops.cuda.gat_bwd import gat_bwd_dst_cuda, gat_bwd_src_cuda
-from sgnn_tpu_torch.ops.cuda.spmm import spmm_csr_bwd_cuda, spmm_csr_cuda
+from sgnn_tpu_torch.ops.cuda.spmm import (
+    rows_fit_a_warp, spmm_csr_bwd_cuda, spmm_csr_cuda,
+)
 from sgnn_tpu_torch.ops.gat import (
     gat_aggregate, gat_aggregate_plain, gat_bwd_dst, gat_bwd_dst_plain,
     gat_bwd_src, gat_bwd_src_plain,
 )
 from sgnn_tpu_torch.ops.segment import (
-    LONG_ROW_EDGES, csr_from_numpy, csr_transpose, spmm_csr, spmm_csr_bwd,
-    spmm_csr_plain,
+    CSR_CHUNK_MIN, LONG_ROW_EDGES, csr_chunk_edges, csr_from_numpy,
+    csr_transpose, spmm_csr, spmm_csr_bwd, spmm_csr_plain,
 )
 from sgnn_tpu_torch.sampler.host import HostSampler
 from sgnn_tpu_torch.train import build_trainer
@@ -90,6 +92,33 @@ def test_kernel_matches_plain(cuda_device, dtype, tol, feat):
     assert ((out.float() - ref).abs().max() / ref.abs().max()).item() <= tol
     assert bool((out[[1, 2]] == 0).all())  # zero in-degree writes zeros
     assert torch.equal(out, spmm_csr(xd, *csr))  # no atomics: deterministic
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("feat", [7, 41, 128, 256])
+def test_forward_row_kernel_matches_plain(cuda_device, dtype, tol, feat):
+    """A CSR whose every row fits one warp takes the forward's row kernel
+    (`rows_fit_a_warp`); held to the plain version as above."""
+    rng = np.random.default_rng(feat + 3)
+    v = 3000
+    dst = np.sort(rng.integers(0, v, 60000)).astype(np.int32)
+    dst = dst[~np.isin(dst, [1, 2])]
+    rowptr = np.zeros(v + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=v), out=rowptr[1:])
+    col = rng.integers(0, v, dst.size).astype(np.int32)
+    w = rng.standard_normal(dst.size).astype(np.float32)
+    csr = csr_from_numpy(rowptr, col, w, v, device=cuda_device)
+    assert rows_fit_a_warp(csr.rowptr)
+    x = torch.from_numpy(rng.standard_normal((v, feat)).astype(
+        np.float32)).to(cuda_device, dtype)
+    before = spmm_csr_cuda.launches
+    out = spmm_csr(x, *csr)
+    torch.cuda.synchronize()
+    assert spmm_csr_cuda.launches == before + 1 and out.dtype == dtype
+    assert _rel(out, spmm_csr_plain(x.float(), *csr)) <= tol
+    assert bool((out[[1, 2]] == 0).all())
+    assert torch.equal(out, spmm_csr(x, *csr))
 
 
 def test_kernel_rejects_mixed_devices(cuda_device):
@@ -160,13 +189,14 @@ def test_gather_agg_kernels_match_plain(cuda_device, dtype, tol, feat, k):
         c + 1 for c in counts]
     assert out.dtype == dx.dtype == dtype and dw.dtype == torch.float32
     # against the plain versions' unrounded f32 sums of the same values
-    # (as test_kernel_matches_plain): f32 differs by summation order only
-    # (dx by atomics); bf16 by the kernel's one rounding, at most 2^-8
+    # (as test_kernel_matches_plain): f32 differs by summation order only;
+    # bf16 by the kernel's one rounding, at most 2^-8
     assert _rel(out, agg.gather_aggregate_plain(x.float(), nbr, w)) <= tol
     assert _rel(dx, agg.gather_agg_bwd_dx_plain(g, nbr, w, s,
                                                  torch.float32)) <= tol
     assert _rel(dw, agg.gather_agg_bwd_dw_plain(g, x, nbr)) <= tol
     assert torch.equal(out, agg.gather_agg_fwd(x, nbr, w))  # deterministic
+    assert torch.equal(dx, agg.gather_agg_bwd_dx(g, nbr, w, x))
 
 
 def test_gather_aggregate_grads_card_vs_cpu(cuda_device):
@@ -224,6 +254,7 @@ def test_device_trainer_epoch_launch_counts(cuda_device):
     fns = (k1.gather_agg_fwd_cuda, k1.gather_agg_bwd_dx_cuda,
            k1.gather_agg_bwd_dw_cuda)
     before = [f.launches for f in fns]
+    transposes = k1.block_transpose_cuda.launches
     loss, acc, edges = tr.train_epoch()
     acc_val = tr.evaluate(tr.val_nids)
     steps = len(tr.step_ms)
@@ -232,6 +263,7 @@ def test_device_trainer_epoch_launch_counts(cuda_device):
     assert 0.0 <= acc <= 1.0 and 0.0 <= acc_val <= 1.0
     assert [f.launches - b for f, b in zip(fns, before)] == [
         2 * steps + 2 * evals, 2 * steps, 0]
+    assert k1.block_transpose_cuda.launches - transposes == 2 * steps
     tr.fused_epoch = False            # a sync after every step: same counts
     before = [f.launches for f in fns]
     tr.train_epoch()
@@ -370,6 +402,108 @@ def test_spmm_bwd_kernel_matches_plain(cuda_device, dtype, tol, feat):
     assert dx.dtype == dtype and dx.shape == (v, feat)
     assert _rel(dx, spmm_csr_plain(g.float(), *csr_t)) <= tol
     assert torch.equal(dx, spmm_csr_bwd(g, *csr_t))   # deterministic
+
+
+# ------------------------------------------ the CSR sum's chunk edges ----
+def _chunk_edge_csr(rng, v_src, small):
+    """Row lengths around the CSR sum's chunks (c = CSR_CHUNK_MIN, the
+    chunk of a CSR this small, `csr_chunk_edges`): a row
+    ending exactly at a chunk edge, rows with no edges there, a long row
+    (3c + 5) then 40 empty rows inside a chunk that holds only those and
+    two long rows' pieces, a long row starting mid-chunk (7c - 3), rows of
+    c - 1, c + 1 and c edges, a hub of 40c + 11 edges, a last chunk cut
+    short and trailing empty rows; `small`: E < one chunk."""
+    c = CSR_CHUNK_MIN
+    deg = ([3, 0, 2, 0] if small else
+           [c, 0, 0, 3 * c + 5] + [0] * 40 + [7 * c - 3, 1, c - 1, c + 1, c]
+           + list(rng.integers(0, 60, 300)) + [40 * c + 11]
+           + list(rng.integers(0, 3, 200)) + [0] * 5)
+    if sum(deg) % c == 0:
+        deg[-6] += 1
+    rowptr = np.zeros(len(deg) + 1, np.int64)
+    rowptr[1:] = np.cumsum(deg)
+    col = rng.integers(0, v_src, rowptr[-1]).astype(np.int32)
+    w = rng.standard_normal(rowptr[-1]).astype(np.float32)
+    return rowptr, col, w, np.asarray(deg)
+
+
+@pytest.mark.parametrize("small", [False, True],
+                         ids=["chunk_edges", "under_one_chunk"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("feat", [7, 41, 128, 256])
+def test_csr_sum_chunk_edges_match_plain(cuda_device, small, dtype, tol,
+                                         feat):
+    """K2's backward at the chunk edges, and the forward on the same CSR
+    (whose hub sends it to the same sum, csrc/csr_sum.cuh), against the
+    plain version's unrounded f32 sum; bit-identical on repeat; rows with
+    no edges zero; each wrapper counts its launches."""
+    rng = np.random.default_rng(feat + 31 * small)
+    rowptr, col, w, deg = _chunk_edge_csr(rng, 500, small)
+    assert csr_chunk_edges(int(rowptr[-1])) == CSR_CHUNK_MIN
+    assert small == (rowptr[-1] < CSR_CHUNK_MIN)
+    assert small == rows_fit_a_warp(torch.from_numpy(rowptr))
+    csr = csr_from_numpy(rowptr, col, w, 500, device=cuda_device)
+    x = torch.from_numpy(rng.standard_normal((500, feat)).astype(
+        np.float32)).to(cuda_device, dtype)
+    ref = spmm_csr_plain(x.float(), *csr)
+    empty = torch.from_numpy(np.flatnonzero(deg == 0)).to(cuda_device)
+    for fn in (spmm_csr_cuda, spmm_csr_bwd_cuda):
+        before = fn.launches
+        out, again = fn(x, *csr), fn(x, *csr)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        assert out.dtype == dtype and out.shape == (deg.size, feat)
+        assert _rel(out, ref) <= tol
+        assert torch.equal(out, again)
+        assert bool((out[empty] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("feat", [7, 41, 128, 256])
+def test_gather_agg_dx_over_the_transpose(cuda_device, dtype, tol, feat):
+    """K1's dx: the card's transpose equals the plain one bit for bit, and
+    dx, at transposed rows of exactly c, c + 1, 2c and 40c + 11 entries
+    (c = CSR_CHUNK_MIN, the chunk at D*K = 30000), sources with no slot and
+    zero-weight padding
+    pointing at row 0, matches the plain version and repeats bit for bit."""
+    c = CSR_CHUNK_MIN
+    rng = np.random.default_rng(feat + 5)
+    d, k, s = 3000, 10, 2000
+    assert csr_chunk_edges(d * k) == c
+    x, nbr, w, g = _block(rng, d, k, s, feat)
+    flat_n, flat_w = nbr.view(-1), w.view(-1)
+    flat_n[(flat_n >= 100) & (flat_n < 200)] = 4   # sources without a slot
+    slots = torch.from_numpy(rng.permutation(d * k))
+    at = 0
+    for src, n in ((5, 40 * c + 11), (9, c), (11, c + 1), (13, 2 * c)):
+        flat_n[(flat_n == src) & (flat_w != 0)] = 4
+        pick = slots[at:at + n]
+        flat_n[pick], flat_w[pick] = src, 0.5 + torch.rand(n)
+        at += n
+    flat_n[flat_w == 0] = 0                        # the sampler's padding
+    dev = [t.to(cuda_device) for t in (x, nbr, w, g)]
+    xd, gd = dev[0].to(dtype), dev[3].to(dtype)
+    csr_t = agg.block_transpose(dev[1], dev[2], s)
+    for got, want in zip(csr_t, agg.block_transpose(nbr, w, s)):
+        assert torch.equal(got.cpu(), want)
+    lengths = csr_t[0].diff().cpu()
+    assert [int(lengths[i]) for i in (5, 9, 11, 13)] == [40 * c + 11, c,
+                                                          c + 1, 2 * c]
+    before = (k1.block_transpose_cuda.launches,
+              k1.gather_agg_bwd_dx_cuda.launches)
+    dx = agg.gather_agg_bwd_dx(gd, dev[1], dev[2], xd)
+    again = agg.gather_agg_bwd_dx(gd, dev[1], dev[2], xd)
+    torch.cuda.synchronize()
+    assert (k1.block_transpose_cuda.launches,
+            k1.gather_agg_bwd_dx_cuda.launches) == (before[0] + 2,
+                                                   before[1] + 2)
+    assert dx.dtype == dtype and dx.shape == (s, feat)
+    assert _rel(dx, agg.gather_agg_bwd_dx_plain(gd, dev[1], dev[2], s,
+                                                torch.float32)) <= tol
+    assert torch.equal(dx, again)
+    assert bool((dx[100:200] == 0).all())
 
 
 # K4's tables against the plain versions, as chip_smoke.py's kernel_k4

@@ -5,17 +5,19 @@ segment sum (`spmm_coo_fwd_sorted`) and the one-hot Pallas kernel
 runs it).  On the CPU `spmm_csr` is its plain PyTorch version; the CUDA
 kernel's own tests are in test_torch_port_cuda.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from sgnn_tpu.ops.pallas.mxu_spmm import build_mxu_spmm_plan, mxu_spmm_fwd
-from sgnn_tpu.ops.segment import spmm_coo_fwd_sorted
+from sgnn_tpu.ops.segment import spmm_coo, spmm_coo_fwd_sorted
 
-from sgnn_tpu_torch.ops.cuda.spmm import spmm_csr_cuda
+from sgnn_tpu_torch.ops.cuda.spmm import rows_fit_a_warp, spmm_csr_cuda
 from sgnn_tpu_torch.ops.segment import (
-    csr_from_numpy, spmm_csr, spmm_csr_plain,
+    LONG_ROW_EDGES, SpmmCsr, csr_chunk_edges, csr_from_numpy, csr_transpose,
+    spmm_csr, spmm_csr_plain,
 )
 
 # the tiny one-hot kernel geometry of tests/test_mxu_spmm.py:22-23
@@ -154,3 +156,46 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         spmm_csr_cuda(x, torch.tensor([0, 1, 2]),
                       torch.tensor([0, 1], dtype=torch.int32), torch.ones(2))
     assert spmm_csr_cuda.launches == before
+
+
+@pytest.mark.parametrize("feat", [7, 41])
+def test_spmm_csr_backward_matches_spmm_coo_vjp_with_a_hub(feat):
+    """K2's backward (SpmmCsr over the transposed CSR) against the VJP of
+    the JAX package's spmm_coo, on a graph whose source 5 takes every 4th
+    edge: a transposed row of over LONG_ROW_EDGES edges, many of the card's
+    chunks (`csr_chunk_edges`); some sources have no out-edges."""
+    rng = np.random.default_rng(12 + feat)
+    v = 900
+    src, dst, w, rowptr = _csc_graph(rng, v, 8000, skew=True)
+    src[::4] = 5
+    src[src % 17 == 2] = 1
+    x = rng.standard_normal((v, feat)).astype(np.float32)
+    c = rng.standard_normal((v, feat)).astype(np.float32)
+    rowptr_t, col_t, w_t = csr_transpose(rowptr, src, w, v)
+    assert np.diff(rowptr_t).max() > max(LONG_ROW_EDGES,
+                                         4 * csr_chunk_edges(src.size))
+    _, vjp = jax.vjp(lambda t: spmm_coo(t, jnp.asarray(src), jnp.asarray(dst),
+                                        jnp.asarray(w), v), jnp.asarray(x))
+    ref = np.asarray(vjp(jnp.asarray(c))[0])
+    xt = torch.from_numpy(x).requires_grad_()
+    csr = csr_from_numpy(rowptr, src, w, v, device="cpu")
+    csr_t = csr_from_numpy(rowptr_t, col_t, w_t, v, device="cpu")
+    SpmmCsr.apply(xt, *csr, *csr_t).backward(torch.from_numpy(c))
+    got = xt.grad.numpy()
+    # f32, sums in other orders (the hub's ~2000 terms): the repo's f32 op
+    # tolerance as max |Δ| / max |ref|
+    assert np.abs(got - ref).max() / np.abs(ref).max() <= 1e-5
+    assert np.all(got[2::17] == 0)      # sources with no out-edges
+
+
+def test_forward_kernel_choice_is_made_once_per_csr():
+    """The card's forward runs a warp per row when every row has at most
+    LONG_ROW_EDGES edges, else the edge-balanced sum; the check is made
+    once per CSR and kept on its rowptr tensor (torch ops: checked here on
+    CPU tensors)."""
+    assert rows_fit_a_warp(torch.tensor([0, 3, 3, LONG_ROW_EDGES + 3]))
+    rowptr = torch.tensor([0, 5, LONG_ROW_EDGES + 6, LONG_ROW_EDGES + 6])
+    assert not rows_fit_a_warp(rowptr)
+    rowptr[-1] = 0                       # not looked at again
+    assert not rows_fit_a_warp(rowptr)
+    assert rows_fit_a_warp(torch.tensor([0]))
