@@ -31,8 +31,9 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                {(1,7), (1,41), (1,128), (2,256), (4,128), (8,64), (16,256)}
                (the last: column tiles of 8 heads, two per row), f32 and
                bf16, with the score halves of some source rows raised past
-               the ±60 clip; bit-identical on repeat; then at the
-               Reddit-shaped GAT
+               the ±60 clip; bit-identical on repeat; each case names its
+               column path (vector: 4 adjacent columns a lane in one load;
+               scalar); then at the Reddit-shaped GAT
                serving shapes (F=128 at H=1 and 4, F=41 at H=1, f32 and
                bf16) held to plain and timed beside plain, a composition of
                torch ops (scores, `torch.sparse.mm`, z; H=1, f32: no single
@@ -83,7 +84,9 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
 12. kernel_k4 — K4's two passes (`gat_bwd_src_cuda` B1, `gat_bwd_dst_cuda`
                B2) against their plain versions on K3's grid (clipped
                edges, rows with no in-edges and sources with no out-edges),
-               f32 and bf16 ht, bit-identical on repeat; then at the
+               f32 and bf16 ht, bit-identical on repeat; B1 at a source of
+               2·10^5 out-edges with 64, 256 and 1024 edges a warp (the
+               chunk printed with the hub's chunk count); then at the
                Reddit shapes (F=128 H=4, F=128 H=1, F=41 H=1, f32) timed
                beside plain and the bound, with the backward of K3's plain
                version under autograd (H=1) timed as a yardstick;
@@ -258,7 +261,8 @@ def main() -> int:
     from sgnn_tpu_torch.ops import aggregate as agg
     from sgnn_tpu_torch.ops.cuda import gather_agg as k1
     from sgnn_tpu_torch.ops.cuda.build import build_all
-    from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda
+    from sgnn_tpu_torch.ops.cuda import gat_bwd as k4
+    from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda, vector_columns
     from sgnn_tpu_torch.ops.cuda.gat_bwd import (
         gat_bwd_dst_cuda, gat_bwd_src_cuda,
     )
@@ -269,7 +273,9 @@ def main() -> int:
     )
     from sgnn_tpu_torch.ops import probes as pr
     from sgnn_tpu_torch.ops.cuda import probes as probe_k
-    from sgnn_tpu_torch.ops.segment import csr_transpose, spmm_csr_plain
+    from sgnn_tpu_torch.ops.segment import (
+        csr_chunk_edges, csr_transpose, spmm_csr_plain,
+    )
     from sgnn_tpu_torch.nn.functional import nll_loss_masked
     from sgnn_tpu_torch.train.fullbatch import build_coo
     from sgnn_tpu_torch.sampler.blocks import WeightKind
@@ -617,6 +623,8 @@ def main() -> int:
             zerr = ((z - ref_z).abs() / ref_z.abs().clamp_min(F32_TINY)
                     ).max().item()
             k3_checks.append({"H": heads, "F": feat, "dtype": key,
+                              "columns": ("vector" if vector_columns(
+                                  ht, heads) else "scalar"),
                               "S": n_src, "D": n_dst, "E": n_e,
                               "clipped_share": clipped, "rel_err": err,
                               "z_rel_err": zerr, "tol": TOL[key]})
@@ -677,6 +685,8 @@ def main() -> int:
             bound_s = max(once / hbm, flops / F32_FLOPS_PER_S)
             k3_shapes.append({
                 "F": feat, "H": heads, "dtype": key, "V": v, "E": e,
+                "columns": ("vector" if vector_columns(ht, heads)
+                            else "scalar"),
                 "max_abs_err": (got.float() - ref.float()).abs().max().item(),
                 "rel_err": err, "tol": TOL[key],
                 "ms": time_ms(lambda: gat_aggregate_cuda(
@@ -1161,6 +1171,46 @@ def main() -> int:
                     "K4 is not deterministic")
             del ref_dht, ref_dts, ref_dtd
 
+    # B1's walk at 64, 256 and 1024 edges a warp (the wrapper's chunk,
+    # ops/segment.csr_chunk_edges, replaced for the case): a source with
+    # 2*10^5 out-edges, its pieces in many chunks combined by the fixed
+    # tree, against the plain version (f64 over the hub row)
+    b1_hub = []
+    picked = k4.csr_chunk_edges
+    rowptr_, col_ = skewed_rows(20000, 20000, 17)
+    col_[torch.randperm(col_.numel(), generator=gen)[:200000]] = 7
+    r_h, c_h, _ = transposed(rowptr_, col_, torch.ones(col_.numel()), 20000)
+    hub_len = int(r_h.diff().max())
+    for heads, feat in ((GAT_TRAIN_HEADS, 128), (1, 41)):
+        ht = torch.randn(20000, feat, generator=gen).to(dev)
+        ts, td = k3_tables(ht, torch.randn(20000, feat, generator=gen)
+                           .to(dev), heads, K3_SCORE_STD)
+        ts[::K3_CLIP_EVERY] += K3_CLIP_RAISE
+        gz = torch.randn(20000, feat, generator=gen).to(dev)
+        rz = torch.randn(20000, heads, generator=gen).to(dev)
+        b1 = (ht, ts, gz, td, rz, r_h, c_h, heads)
+        ref_dht, ref_dts = gat_bwd_src_plain(*b1)
+        for chunk in (64, 256, 1024):
+            k4.csr_chunk_edges = lambda _, c=chunk: c
+            try:
+                dht, dts = gat_bwd_src_cuda(*b1)
+                again = gat_bwd_src_cuda(*b1)
+                torch.cuda.synchronize()
+            finally:
+                k4.csr_chunk_edges = picked
+            errs = [rel_err(dht, ref_dht), rel_err(dts, ref_dts)]
+            b1_hub.append({"H": heads, "F": feat, "chunk_edges": chunk,
+                           "E": col_.numel(), "hub_edges": hub_len,
+                           "hub_chunks": -(-hub_len // chunk),
+                           "rel_err": errs,
+                           "tol": [TOL["float32"], K4_TABLE_TOL]})
+            require(errs[0] <= TOL["float32"] and errs[1] <= K4_TABLE_TOL,
+                    f"B1 vs plain at a {hub_len}-edge hub, {chunk} edges a "
+                    f"warp, H={heads} F={feat}: {errs}")
+            require(torch.equal(dht, again[0]) and torch.equal(dts, again[1]),
+                    "B1 at the hub is not deterministic")
+        del ref_dht, ref_dts, dht, dts, again
+
     k4_shapes = []
     for feat, heads in ((128, 4), (128, 1), (41, 1)):
         ht = torch.randn(v, feat, generator=gen).to(dev)
@@ -1200,6 +1250,8 @@ def main() -> int:
             k4_shapes.append({
                 "name": kname, "F": feat, "H": heads, "dtype": "float32",
                 "V": v, "E": e,
+                "chunk_edges": (csr_chunk_edges(e) if kname == "gat_bwd_src"
+                                else None),
                 "max_row": max_row,
                 "max_abs_err": max((a - r).abs().max().item()
                                    for a, r in zip(got_i, ref_i)),
@@ -1213,7 +1265,7 @@ def main() -> int:
                              else "operations"),
                 "gather_bound_ms": (nbytes + e * feat * 4) / hbm * 1e3})
         del got, ref
-    emit({"phase": "kernel_k4", "checks": k4_checks,
+    emit({"phase": "kernel_k4", "checks": k4_checks, "b1_hub": b1_hub,
           "training_shapes": k4_shapes,
           "library": "none: no single PyTorch call computes K4; "
                      "composition_bwd_ms times the backward of K3's plain "

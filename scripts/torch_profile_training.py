@@ -47,17 +47,20 @@ from sgnn_tpu_torch.data.synthetic import reddit_like_dataset  # noqa: E402
 from sgnn_tpu_torch.train import build_trainer  # noqa: E402
 
 
-# the port's kernels, by a substring of their names in the trace: K1's
+# the port's kernels, by substrings of their names in the trace: K1's
 # forward (and dw), dx's transpose (its radix passes and fill) and its CSR
-# sum (csr_sum.cuh's three kernels, in whole-graph training K2's backward);
-# K2's forward (a warp per row on the Reddit-shaped CSR); B1 includes the
-# kernels that split and combine long rows
-SAMPLED_KERNELS = {"k1_fwd": "gather_agg", "k1_dx_sum": "sgnn::csr_",
-                   "k1_dx_transpose": "block_transpose"}
-FULL_KERNELS = {"k2_fwd": "spmm_csr_kernel", "k2_bwd": "sgnn::csr_",
-                "k3": "gat_kernel<",
-                "k4_b1": "namespace)::gat_bwd_src_",
-                "k4_b2": "namespace)::gat_bwd_dst_"}
+# sum (csr_sum.cuh's walk with SumPolicy and its fix-up, in whole-graph
+# training K2's backward); K2's forward (a warp per row on the
+# Reddit-shaped CSR); K3; B1 (the walk with SrcPolicy and its fix-up); B2.
+# The fix-up's first level (csr_carry_group_kernel) is shared by K2's
+# backward and B1, which never run in one engine
+SUM_WALK = ("SumPolicy", "RowStore", "csr_carry_group")
+SAMPLED_KERNELS = {"k1_fwd": ("gather_agg",), "k1_dx_sum": SUM_WALK,
+                   "k1_dx_transpose": ("block_transpose",)}
+FULL_KERNELS = {"k2_fwd": ("spmm_csr_kernel",), "k2_bwd": SUM_WALK,
+                "k3": ("gat_kernel<",),
+                "k4_b1": ("SrcPolicy", "SrcStore", "csr_carry_group"),
+                "k4_b2": ("gat_bwd_dst_",)}
 
 
 def traced(label, fn, table_file, kernels, **extra):
@@ -79,7 +82,8 @@ def traced(label, fn, table_file, kernels, **extra):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     kernel_ms = {k: sum(e.self_device_time_total for e in events
-                        if pat in e.key) / 1e3 for k, pat in kernels.items()}
+                        if any(p in e.key for p in pats)) / 1e3
+                 for k, pats in kernels.items()}
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     table_file.write(f"== {label}: wall {wall_ms:.3f} ms\n")
     table_file.write(prof.key_averages().table(

@@ -1,9 +1,15 @@
-// The edge-balanced, deterministic CSR sum that K2 (spmm.cu: the serving
-// and whole-graph forward over the CSR, K2's backward over its transpose)
-// and K1's dx (gather_agg.cu, over a per-batch transpose of the block)
-// share:
+// The edge-balanced, deterministic CSR walk that K2 (spmm.cu: the serving
+// and whole-graph forward over the CSR, K2's backward over its transpose),
+// K1's dx (gather_agg.cu, over a per-batch transpose of the block) and
+// K4's B1 (gat_bwd.cu, over the transposed CSR) share.  What a walk sums
+// is a policy (csr_walk's note lists its calls): SumPolicy, K2's and K1
+// dx's, is
 //
 //     out[r, :] = sum over e in [rowptr[r], rowptr[r+1]) of w[e] * x[col[e], :]
+//
+// and B1's (gat_bwd.cu) stages per-edge attention weights, adds two sums
+// and reduces a dot product per kUnroll edges.  The notes below speak of
+// SumPolicy; B1's carries F + H columns.
 //
 // What bounds it on an H100: device-memory bytes (2*E*F flops on
 // E*8 + 8*(R+1) + (S + R)*F*b bytes when every input is read once).  What
@@ -171,36 +177,6 @@ __device__ __forceinline__ void store_tile(T* __restrict__ dst,
   }
 }
 
-// The f32 sum of edges [beg, end) in edge order, one column tile, into
-// t (a long row's piece).
-template <typename T, int COLS, int VEC>
-__device__ __forceinline__ void sum_piece(const T* __restrict__ x,
-                                          const int32_t* __restrict__ col,
-                                          const float* __restrict__ w,
-                                          int64_t beg, int64_t end,
-                                          int64_t feat, int64_t c0, int lane,
-                                          Tile<COLS, VEC>& t) {
-  t.zero();
-  for (int64_t e0 = beg; e0 < end; e0 += 32) {
-    const int n = static_cast<int>(min(static_cast<int64_t>(32), end - e0));
-    int my_col = 0;
-    float my_w = 0.0f;
-    if (lane < n) {
-      my_col = col[e0 + lane];
-      my_w = w[e0 + lane];
-    }
-    for (int k = 0; k < n; k += kUnroll) {
-      float v[kUnroll][COLS][VEC];
-      float wk[kUnroll];
-      load_rows<T, COLS, VEC>(x, my_col, my_w, k, n, feat, c0, lane, v, wk);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (k + u < n) fma_row<COLS, VEC>(t, wk[u], v[u]);
-      }
-    }
-  }
-}
-
 // The first r in [0, n) with a[r] >= key (n if none), a nondecreasing.
 // The warp searches together: each round every lane tests one of 32
 // evenly spaced pivots and a ballot keeps the one span that holds the
@@ -237,11 +213,12 @@ __device__ __forceinline__ int64_t csr_chunks(const int64_t* rowptr,
 }
 
 // The window of row ends a warp streams with: lane i holds the end of row
-// win + i.
+// win + i (past the last row, the largest int64, so the window stays
+// nondecreasing for edge_row's search).
 __device__ __forceinline__ void load_ends(const int64_t* __restrict__ rowptr,
                                           int64_t num_rows, int64_t win,
                                           int lane, int64_t& my_end) {
-  my_end = win + lane < num_rows ? rowptr[win + lane + 1] : 0;
+  my_end = win + lane < num_rows ? rowptr[win + lane + 1] : INT64_MAX;
 }
 
 // next_row's rare path, out of line so that the unrolled edge loop stays
@@ -276,20 +253,92 @@ __device__ __forceinline__ int64_t next_row(const int64_t* __restrict__ rowptr,
   return nr;
 }
 
-template <typename T, int COLS, int VEC>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_chunk_kernel(const T* __restrict__ x, const int64_t* __restrict__ rowptr,
-                 const int32_t* __restrict__ col, const float* __restrict__ w,
-                 T* __restrict__ out, float* __restrict__ carry,
-                 int32_t* __restrict__ carry_row, int64_t num_rows,
-                 int64_t chunk, int64_t feat) {
+// The row of edge e, for a window of edges that starts in row r: the
+// first row r' >= r that ends past e, searched among the window of row
+// ends (lane i holds the end of row win + i, r in [win, win + 32)) with
+// lanes as pivots, or in rowptr past the window (a run of rows with no
+// edges).  Every lane passes its own e; warp-uniform (the shuffles need
+// all 32 lanes).
+__device__ __forceinline__ int64_t edge_row(const int64_t* __restrict__ rowptr,
+                                            int64_t r, int64_t r_stop,
+                                            int64_t win, int64_t my_end,
+                                            int64_t e) {
+  int lo = static_cast<int>(r - win), hi = 32;  // the answer's lane: [lo, hi]
+#pragma unroll
+  for (int it = 0; it < 6; ++it) {
+    const int mid = min((lo + hi) >> 1, 31);
+    const int64_t m = __shfl_sync(kFullMask, my_end, mid);
+    if (lo < hi) {
+      if (m > e) {
+        hi = mid;
+      } else {
+        lo = mid + 1;
+      }
+    }
+  }
+  if (lo < 32) return win + lo;
+  int64_t a = win + 32, b = r_stop;
+  while (a < b) {
+    const int64_t mid = a + (b - a) / 2;
+    if (rowptr[mid + 1] > e) {
+      b = mid;
+    } else {
+      a = mid + 1;
+    }
+  }
+  return a;
+}
+
+// What a walk sums, as a policy P (SumPolicy below is K2's and K1 dx's
+// weighted row sum; gat_bwd.cu's B1 is another).  Every call is
+// warp-uniform.
+//   P::kNeedsRow      stage() is given the row of its lane's edge
+//   P::Acc, P::Edge   a lane's sums of one row (or piece) in the tile, and
+//                     what it staged for one edge of the window
+//   P::Rows           kUnroll edges' loads
+//   P::Shared, bind() per-warp shared memory, bound once by the kernel
+//   width(), tile()   columns, and columns a pass over the chunk
+//   begin_tile(c0)    start a column tile
+//   begin_row(t, r)   start row r's sums (r = -1: past the last row)
+//   stage(e, live, r) lane i stages edge e of the window (live: e is one)
+//   load(m, k, n, v)  the window's edges k..k+kUnroll-1 (< n) loaded
+//   add(t, m, v, u, k) edge k+u added
+//   flush(t)          after each kUnroll edges
+//   store_row(t, r)   row r complete; store_piece(t, slot) a long row's
+//                     piece into its carry slot; zero_row(r) r has no edge
+// The sum of edges [beg, end) of row `row` in edge order, one column tile,
+// into t (a long row's piece).
+template <class P>
+__device__ __forceinline__ void walk_piece(P& p, int64_t row, int64_t beg,
+                                           int64_t end, int lane,
+                                           typename P::Acc& t) {
+  p.begin_row(t, row, lane);
+  for (int64_t e0 = beg; e0 < end; e0 += 32) {
+    const int n = static_cast<int>(min(static_cast<int64_t>(32), end - e0));
+    const typename P::Edge m = p.stage(e0 + lane, lane < n, row, lane);
+    for (int k = 0; k < n; k += kUnroll) {
+      typename P::Rows v;
+      p.load(m, k, n, lane, v);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (k + u < n) p.add(t, m, v, u, k);
+      }
+      p.flush(t, lane);
+    }
+  }
+}
+
+template <class P>
+__device__ __forceinline__ void csr_walk(P& p,
+                                         const int64_t* __restrict__ rowptr,
+                                         int32_t* __restrict__ carry_row,
+                                         int64_t num_rows, int64_t chunk) {
   const int lane = threadIdx.x & 31;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
                         (threadIdx.x >> 5);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
   const int64_t num_edges = rowptr[num_rows];
   const int64_t n_chunks = csr_chunks(rowptr, num_rows, chunk);
-  constexpr int kTileCols = 32 * COLS * VEC;
   // every branch below depends only on the chunk, a row or a broadcast
   // value: warp-uniform, so the full-mask shuffles see all 32 lanes
   for (int64_t c = first; c < n_chunks; c += stride) {
@@ -316,19 +365,16 @@ csr_chunk_kernel(const T* __restrict__ x, const int64_t* __restrict__ rowptr,
       r_stop = rl - 1;
       if (rowptr[rl - 1] > e0) row1 = rl - 1;
     }
-    for (int64_t c0 = 0; c0 < feat; c0 += kTileCols) {
-      Tile<COLS, VEC> t;
+    for (int64_t c0 = 0; c0 < p.width(); c0 += p.tile()) {
+      p.begin_tile(c0, lane);
+      typename P::Acc t;
       if (row0 >= 0) {
-        sum_piece<T, COLS, VEC>(x, col, w, e0, min(rowptr[row0 + 1], e1),
-                                feat, c0, lane, t);
-        store_tile<float, COLS, VEC>(carry + (2 * c) * feat, t, feat, c0,
-                                     lane);
+        walk_piece(p, row0, e0, min(rowptr[row0 + 1], e1), lane, t);
+        p.store_piece(t, 2 * c, lane);
       }
       if (row1 >= 0) {
-        sum_piece<T, COLS, VEC>(x, col, w, rowptr[row1], e1, feat, c0, lane,
-                                t);
-        store_tile<float, COLS, VEC>(carry + (2 * c + 1) * feat, t, feat, c0,
-                                     lane);
+        walk_piece(p, row1, rowptr[row1], e1, lane, t);
+        p.store_piece(t, 2 * c + 1, lane);
       }
       // the short rows of [rs, r_stop) that have edges, streamed over
       // their edges (rows with no edges are the zero loop's, below)
@@ -342,36 +388,36 @@ csr_chunk_kernel(const T* __restrict__ x, const int64_t* __restrict__ rowptr,
       int64_t r_end =
           r < r_stop ? __shfl_sync(kFullMask, my_end, static_cast<int>(r - win))
                      : -1;
-      t.zero();
+      p.begin_row(t, r < r_stop ? r : -1, lane);
       for (; pos < end; pos += 32) {
         const int n = static_cast<int>(min(static_cast<int64_t>(32),
                                            end - pos));
-        int my_col = 0;
-        float my_w = 0.0f;
-        if (lane < n) {
-          my_col = col[pos + lane];
-          my_w = w[pos + lane];
+        int64_t my_row = r;
+        if constexpr (P::kNeedsRow) {
+          my_row = edge_row(rowptr, r, r_stop, win, my_end,
+                            min(pos + lane, end - 1));
         }
+        const typename P::Edge m = p.stage(pos + lane, lane < n, my_row,
+                                           lane);
         for (int k = 0; k < n; k += kUnroll) {
-          float v[kUnroll][COLS][VEC];
-          float wk[kUnroll];
-          load_rows<T, COLS, VEC>(x, my_col, my_w, k, n, feat, c0, lane, v,
-                                  wk);
+          typename P::Rows v;
+          p.load(m, k, n, lane, v);
 #pragma unroll
           for (int u = 0; u < kUnroll; ++u) {
             if (k + u < n) {
-              fma_row<COLS, VEC>(t, wk[u], v[u]);
+              p.add(t, m, v, u, k);
               if (pos + k + u + 1 == r_end) {  // row r is complete
-                store_tile<T, COLS, VEC>(out + r * feat, t, feat, c0, lane);
-                t.zero();
+                p.store_row(t, r, lane);
                 r = next_row(rowptr, num_rows, r_stop, r + 1, r_end, lane,
                              win, my_end);
                 r_end = r < r_stop ? __shfl_sync(kFullMask, my_end,
                                                  static_cast<int>(r - win))
                                    : -1;
+                p.begin_row(t, r < r_stop ? r : -1, lane);
               }
             }
           }
+          p.flush(t, lane);
         }
       }
     }
@@ -391,11 +437,97 @@ csr_chunk_kernel(const T* __restrict__ x, const int64_t* __restrict__ rowptr,
     while (m != 0) {
       const int b = __ffs(m) - 1;
       m &= m - 1;
-      T* dst = out + (g * 32 + b) * feat;
-      for (int64_t f = lane; f < feat; f += 32) dst[f] = from_float<T>(0.0f);
+      p.zero_row(g * 32 + b, lane);
     }
   }
 }
+
+// The walk as one kernel: p holds the policy's arguments, and a policy
+// with per-warp shared memory gets its warp's P::Shared through bind().
+template <class P>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_walk_kernel(P p, const int64_t* __restrict__ rowptr,
+                int32_t* __restrict__ carry_row, int64_t num_rows,
+                int64_t chunk) {
+  __shared__ typename P::Shared shared[kWarpsPerBlock];
+  p.bind(shared[threadIdx.x >> 5]);
+  csr_walk(p, rowptr, carry_row, num_rows, chunk);
+}
+
+// K2's and K1 dx's sum: out[r] = sum of w[e] * x[col[e]] over row r, out
+// in x's dtype, the carry [slots, feat] f32.
+template <typename T, int COLS, int VEC>
+struct SumPolicy {
+  static constexpr bool kNeedsRow = false;
+  struct Shared {};
+  using Acc = Tile<COLS, VEC>;
+  struct Edge {
+    int col;
+    float w;
+  };
+  struct Rows {
+    float v[kUnroll][COLS][VEC];
+    float wk[kUnroll];
+  };
+
+  const T* __restrict__ x;
+  const int32_t* __restrict__ col;
+  const float* __restrict__ w;
+  T* __restrict__ out;
+  float* __restrict__ carry;
+  int64_t feat;
+  int64_t c0;
+
+  __device__ __forceinline__ void bind(Shared&) {}
+  __device__ __forceinline__ int64_t width() const { return feat; }
+  __device__ __forceinline__ int64_t tile() const { return 32 * COLS * VEC; }
+  __device__ __forceinline__ void begin_tile(int64_t c, int) { c0 = c; }
+  __device__ __forceinline__ void begin_row(Acc& t, int64_t, int) {
+    t.zero();
+  }
+  __device__ __forceinline__ Edge stage(int64_t e, bool live, int64_t, int) {
+    Edge m{0, 0.0f};
+    if (live) {
+      m.col = col[e];
+      m.w = w[e];
+    }
+    return m;
+  }
+  __device__ __forceinline__ void load(const Edge& m, int k, int n, int lane,
+                                       Rows& v) const {
+    load_rows<T, COLS, VEC>(x, m.col, m.w, k, n, feat, c0, lane, v.v, v.wk);
+  }
+  __device__ __forceinline__ void add(Acc& t, const Edge&, const Rows& v,
+                                      int u, int) const {
+    fma_row<COLS, VEC>(t, v.wk[u], v.v[u]);
+  }
+  __device__ __forceinline__ void flush(Acc&, int) const {}
+  __device__ __forceinline__ void store_row(const Acc& t, int64_t r,
+                                            int lane) const {
+    store_tile<T, COLS, VEC>(out + r * feat, t, feat, c0, lane);
+  }
+  __device__ __forceinline__ void store_piece(const Acc& t, int64_t slot,
+                                              int lane) const {
+    store_tile<float, COLS, VEC>(carry + slot * feat, t, feat, c0, lane);
+  }
+  __device__ __forceinline__ void zero_row(int64_t r, int lane) const {
+    T* dst = out + r * feat;
+    for (int64_t f = lane; f < feat; f += 32) dst[f] = from_float<T>(0.0f);
+  }
+};
+
+// SumPolicy's fix-up store: a finished long row, VEC columns at c.
+template <typename T>
+struct RowStore {
+  T* __restrict__ out;
+  int64_t feat;
+
+  template <int VEC>
+  __device__ __forceinline__ void store(int64_t r, int64_t c,
+                                        const float (&v)[VEC]) const {
+    store_cols<T, VEC>(out + r * feat + c, v);
+  }
+};
 
 // Where a long row's pieces lie: chunk c0 = rowptr[r] / chunk holds the
 // first, in slot 0 if the row starts at the chunk's first edge, else in
@@ -480,14 +612,14 @@ csr_carry_group_kernel(const int64_t* __restrict__ rowptr,
 }
 
 // Second level: in the chunk holding a long row's last edge, the row's
-// runs summed in order and the row stored once.
-template <typename T, int COLS, int VEC>
+// runs summed in order and the row stored once, through the walk's
+// store: s.store(r, c, v) takes VEC columns at c < pitch.
+template <class S, int COLS, int VEC>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_carry_finish_kernel(const int64_t* __restrict__ rowptr,
+csr_carry_finish_kernel(S s, const int64_t* __restrict__ rowptr,
                         const float* __restrict__ carry,
                         const int32_t* __restrict__ carry_row,
-                        T* __restrict__ out, int64_t num_rows, int64_t chunk,
-                        int64_t feat) {
+                        int64_t num_rows, int64_t chunk, int64_t pitch) {
   const int lane = threadIdx.x & 31;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
                         (threadIdx.x >> 5);
@@ -500,14 +632,38 @@ csr_carry_finish_kernel(const int64_t* __restrict__ rowptr,
     if ((re - 1) / chunk != c) continue;  // not the row's last chunk
     const int64_t c0 = rb / chunk;
     const int64_t s0 = rb == c0 * chunk ? 0 : 1;
-    for (int64_t c0col = 0; c0col < feat; c0col += 32 * COLS * VEC) {
+    for (int64_t c0col = 0; c0col < pitch; c0col += 32 * COLS * VEC) {
       Tile<COLS, VEC> t;
       t.zero();
-      add_pieces<COLS, VEC>(carry, c0, c, kCarryGroup, c0, s0, feat, c0col,
+      add_pieces<COLS, VEC>(carry, c0, c, kCarryGroup, c0, s0, pitch, c0col,
                             lane, t);
-      store_tile<T, COLS, VEC>(out + r * feat, t, feat, c0col, lane);
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) {
+        const int64_t col = col_of(c0col, lane, j, VEC);
+        if (col < pitch) s.template store<VEC>(r, col, t.acc[j]);
+      }
     }
   }
+}
+
+// The walk's three kernels on `stream`: the walk over the chunks (a warp
+// a chunk, or per 32 rows of the zero loop if there are more), then the
+// two levels of the fix-up over the carry ([2 * max_chunks, pitch] f32,
+// COLS and VEC as the walk's when the walk's store sums them).
+template <class P, class S, int COLS, int VEC>
+void csr_walk_launch(const P& p, const S& s, const int64_t* rowptr,
+                     float* carry, int32_t* carry_row, int64_t num_rows,
+                     int64_t max_chunks, int64_t chunk, int64_t pitch,
+                     cudaStream_t stream) {
+  const dim3 grid(warp_blocks(max_chunks)), block(kWarpsPerBlock * 32);
+  const dim3 main_grid(
+      warp_blocks(std::max<int64_t>(max_chunks, (num_rows + 31) / 32)));
+  csr_walk_kernel<P><<<main_grid, block, 0, stream>>>(p, rowptr, carry_row,
+                                                      num_rows, chunk);
+  csr_carry_group_kernel<COLS, VEC><<<grid, block, 0, stream>>>(
+      rowptr, carry, carry_row, num_rows, chunk, pitch);
+  csr_carry_finish_kernel<S, COLS, VEC><<<grid, block, 0, stream>>>(
+      s, rowptr, carry, carry_row, num_rows, chunk, pitch);
 }
 
 template <typename T, int COLS, int VEC>
@@ -515,16 +671,10 @@ void csr_sum_cols(const T* x, const int64_t* rowptr, const int32_t* col,
                   const float* w, T* out, float* carry, int32_t* carry_row,
                   int64_t num_rows, int64_t max_chunks, int64_t chunk,
                   int64_t feat, cudaStream_t stream) {
-  const dim3 grid(warp_blocks(max_chunks)), block(kWarpsPerBlock * 32);
-  // a warp per chunk, or per 32 rows of the zero loop if there are more
-  const dim3 main_grid(
-      warp_blocks(std::max<int64_t>(max_chunks, (num_rows + 31) / 32)));
-  csr_chunk_kernel<T, COLS, VEC><<<main_grid, block, 0, stream>>>(
-      x, rowptr, col, w, out, carry, carry_row, num_rows, chunk, feat);
-  csr_carry_group_kernel<COLS, VEC><<<grid, block, 0, stream>>>(
-      rowptr, carry, carry_row, num_rows, chunk, feat);
-  csr_carry_finish_kernel<T, COLS, VEC><<<grid, block, 0, stream>>>(
-      rowptr, carry, carry_row, out, num_rows, chunk, feat);
+  const SumPolicy<T, COLS, VEC> p{x, col, w, out, carry, feat, 0};
+  csr_walk_launch<SumPolicy<T, COLS, VEC>, RowStore<T>, COLS, VEC>(
+      p, RowStore<T>{out, feat}, rowptr, carry, carry_row, num_rows,
+      max_chunks, chunk, feat, stream);
 }
 
 // Launch the three kernels for x of type T.  max_edges >= rowptr[num_rows]

@@ -7,9 +7,12 @@ the CSR and returns `dtd [D, H]`, all f32 (ops/gat.py has the function).
 Both run on PyTorch's current stream, check device, dtype, contiguity and
 shapes, and raise on anything the kernels do not take, heads wider than
 256 columns included; index bounds are the caller's to check, once, on the
-host.  B1 splits source rows longer than LONG_ROW_EDGES across warps
-(`ops/segment.long_row_segments`).  Each wrapper's `.launches` counts its
-calls that launch the kernels.
+host.  B1 is csr_sum.cuh's edge-balanced walk over the transposed CSR
+(`ops/segment.csr_chunk_edges` edges a warp, hub sources in pieces
+combined by its fixed tree; dts's dot product reduced once per four edges
+with vector columns, once an edge with scalar ones); B2 a warp a
+destination row.  Each wrapper's `.launches` counts its calls that launch
+the kernels.
 """
 
 from __future__ import annotations
@@ -21,8 +24,9 @@ from typing import Tuple
 import torch
 
 from ..gat import check_gat_bwd_args
-from ..segment import DTYPE_CODES, LONG_ROW_EDGES, long_row_segments
+from ..segment import DTYPE_CODES, csr_chunk_edges
 from .build import build
+from .gat import vector_columns
 
 # the widest head the kernels take: 32 lanes x 8 columns (csrc/gat_bwd.cu)
 MAX_HEAD_COLS = 256
@@ -33,7 +37,9 @@ def _entry():
     lib = build("gat_bwd").lib
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     src = lib.sgnn_gat_bwd_src
-    src.argtypes = [ptr] * 12 + [i64, i64, i32, i64, i64, i32, ptr]
+    # ht, ts, gz, td, rz, rowptr_t, col_t, dht, dts, carry, carry_row;
+    # num_rows, max_edges, chunk, feat; heads; pitch; vec, dtype; stream
+    src.argtypes = [ptr] * 11 + [i64] * 4 + [i32, i64, i32, i32, ptr]
     src.restype = ctypes.c_int
     dst = lib.sgnn_gat_bwd_dst
     dst.argtypes = [ptr] * 8 + [i64, i64, i32, i32, ptr]
@@ -74,18 +80,22 @@ def gat_bwd_src_cuda(ht: torch.Tensor, ts: torch.Tensor, gz: torch.Tensor,
     if num_rows == 0:
         return dht, dts
     src, _, err = _entry()
+    num_edges = col_t.numel()
+    chunk = csr_chunk_edges(num_edges)
+    slots = 2 * max(1, -(-num_edges // chunk))
+    # K3's vector columns, with Gz aligned too; the carry's rows (dht_agg's
+    # F columns, then dts's H) keep that alignment
+    vec = vector_columns(ht, heads) and gz.data_ptr() % 16 == 0
+    pitch = -(-(feat + heads) // 4) * 4 if vec else feat + heads
     with torch.cuda.device(ht.device):
-        seg_ptr, max_seg = long_row_segments(rowptr_t, col_t.numel())
-        part_dht = torch.empty((max_seg, feat), dtype=torch.float32,
-                               device=ht.device)
-        part_dts = torch.empty((max_seg, heads), dtype=torch.float32,
-                               device=ht.device)
+        carry = torch.empty(slots * (pitch + 1), dtype=torch.float32,
+                            device=ht.device)
         stream = torch.cuda.current_stream(ht.device).cuda_stream
         rc = src(ht.data_ptr(), ts.data_ptr(), gz.data_ptr(), td.data_ptr(),
                  rz.data_ptr(), rowptr_t.data_ptr(), col_t.data_ptr(),
-                 dht.data_ptr(), dts.data_ptr(), seg_ptr.data_ptr(),
-                 part_dht.data_ptr(), part_dts.data_ptr(), num_rows, feat,
-                 heads, LONG_ROW_EDGES, max_seg, DTYPE_CODES[ht.dtype],
+                 dht.data_ptr(), dts.data_ptr(), carry.data_ptr(),
+                 carry.data_ptr() + 4 * slots * pitch, num_rows, num_edges,
+                 chunk, feat, heads, pitch, int(vec), DTYPE_CODES[ht.dtype],
                  stream)
     _raise("gat_bwd_src", rc, err)
     gat_bwd_src_cuda.launches += 1

@@ -35,13 +35,12 @@ PLAIN_CHUNK_EDGES = 1 << 18
 # the plain versions sum in f32 in CSR edge order, as the JAX package's CPU
 # path does; over a CSR with a row longer than this they sum in f64: the f32
 # sum of a hub row of ~1e6 terms strays by ~sqrt(n) roundings, more than the
-# kernels' pieced sums (csr_chunk_edges, LONG_ROW_EDGES) that the plain
-# versions check
+# kernels' pieced sums (csr_chunk_edges) that the plain versions check
 PLAIN_F64_ROW_EDGES = 1 << 16
-# edges per warp of the CSR sum (csrc/csr_sum.cuh: K2's backward, K1's dx),
-# `csr_chunk_edges`: a power of two near max_edges / CSR_CHUNK_WARPS within
-# [CSR_CHUNK_MIN, CSR_CHUNK_MAX], so a large CSR gets some 2^15-2^16 warps
-# and a small one the minimum.  A row with more edges is summed in pieces,
+# edges per warp of the CSR walk (csrc/csr_sum.cuh: K2's backward, K1's
+# dx, K4's B1), `csr_chunk_edges`: a power of two near max_edges /
+# CSR_CHUNK_WARPS within [CSR_CHUNK_MIN, CSR_CHUNK_MAX], so a large CSR
+# gets some 2^15-2^16 warps and a small one the minimum.  A row with more edges is summed in pieces,
 # one per chunk it overlaps, combined in a fixed tree; the chunk depends
 # only on the edge count, so a given CSR always sums in the same order.
 # scripts/torch_csr_sum_chunks.py times 32-1024 at the main path's shapes
@@ -50,10 +49,9 @@ PLAIN_F64_ROW_EDGES = 1 << 16
 # at 64.
 CSR_CHUNK_MIN, CSR_CHUNK_MAX, CSR_CHUNK_WARPS = 64, 1024, 1 << 16
 # rows with more edges than this would keep one warp busy while the card
-# idles: K4's B1 (csrc/gat_bwd.cu) splits them across warps, and K2's
-# forward takes the edge-balanced sum over a CSR that has one (a warp per
-# row otherwise).  The transposed CSR of a skewed graph has hub rows of ~1e6
-# edges
+# idles: K2's forward takes the edge-balanced sum over a CSR that has one
+# (a warp per row otherwise).  The transposed CSR of a skewed graph has hub
+# rows of ~1e6 edges
 LONG_ROW_EDGES = 1024
 # dtypes of x (and of the result) that the kernels take; w is always f32
 SPMM_DTYPES = (torch.float32, torch.bfloat16)
@@ -136,20 +134,6 @@ def check_spmm_args(x: torch.Tensor, rowptr: torch.Tensor, col: torch.Tensor,
         raise ValueError("spmm_csr: rowptr needs num_rows+1 entries and col "
                          f"and w one per edge, got {rowptr.numel()}, "
                          f"{col.numel()}, {w.numel()}")
-
-
-def long_row_segments(rowptr: torch.Tensor, num_edges: int
-                      ) -> Tuple[torch.Tensor, int]:
-    """B1's split of rows longer than LONG_ROW_EDGES (ops/cuda/gat_bwd.py),
-    on rowptr's device without a host sync: `seg_ptr` [R] int64, the
-    inclusive running count
-    of each row's segments of at most LONG_ROW_EDGES edges (0 for a row
-    short enough for one warp), and an upper bound on its last entry, the
-    number of partial rows the kernel's scratch needs."""
-    deg = rowptr[1:] - rowptr[:-1]
-    n_seg = torch.where(deg > LONG_ROW_EDGES,
-                        (deg + LONG_ROW_EDGES - 1) // LONG_ROW_EDGES, 0)
-    return torch.cumsum(n_seg, 0), 2 * num_edges // LONG_ROW_EDGES + 1
 
 
 def plain_sum_dtype(rowptr: torch.Tensor) -> torch.dtype:

@@ -23,7 +23,7 @@ from sgnn_tpu_torch.ops import aggregate as agg
 from sgnn_tpu_torch.ops import probes as pr
 from sgnn_tpu_torch.ops.cuda import gather_agg as k1
 from sgnn_tpu_torch.ops.cuda import probes as prc
-from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda
+from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda, vector_columns
 from sgnn_tpu_torch.ops.cuda.gat_bwd import gat_bwd_dst_cuda, gat_bwd_src_cuda
 from sgnn_tpu_torch.ops.cuda.spmm import (
     rows_fit_a_warp, spmm_csr_bwd_cuda, spmm_csr_cuda,
@@ -338,6 +338,51 @@ def test_gat_kernel_rejects_bad_args(cuda_device):
         gat_aggregate_cuda(ht, ts, td, rowptr, col, 3)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("heads,feat,aligned,vector", [
+    (1, 7, True, False), (1, 41, True, False), (1, 128, True, True),
+    (1, 128, False, False), (4, 128, True, True), (2, 256, True, True),
+    (16, 256, True, True), (3, 30, True, False)])
+def test_gat_kernel_row_tails_and_columns(cuda_device, dtype, tol, heads,
+                                          feat, aligned, vector):
+    """K3 on rows of every length 0-33 (each tail of the kUnroll rows in
+    flight and of a 32-edge window) and a few of 40-200, with vector
+    columns (4 a lane) where F and the head are multiples of 4 and ht is
+    aligned, else scalar ones; H=16 at F=256 spans two column tiles; held
+    to the plain version's unrounded f32 result, bit-identical on repeat,
+    rows with no edges zero."""
+    rng = np.random.default_rng(feat * 7 + heads + aligned)
+    deg = np.concatenate([np.tile(np.arange(34), 20),
+                          rng.integers(40, 200, 30)])
+    deg = deg[rng.permutation(deg.size)]
+    v_src = 1500
+    rowptr = np.zeros(deg.size + 1, np.int64)
+    rowptr[1:] = np.cumsum(deg)
+    col = rng.integers(0, v_src, rowptr[-1]).astype(np.int32)
+    ts = (rng.standard_normal((v_src, heads)) * 2.0).astype(np.float32)
+    ts[::97] += 80.0                        # past the +60 clip
+    td = (rng.standard_normal((deg.size, heads)) * 2.0).astype(np.float32)
+    flat = torch.from_numpy(rng.standard_normal(v_src * feat + 1).astype(
+        np.float32)).to(cuda_device, dtype)
+    # a view one element in: contiguous, but not 16-byte aligned
+    ht = flat[:-1].view(v_src, feat) if aligned else flat[1:].view(v_src,
+                                                                   feat)
+    args = [ht] + [torch.from_numpy(a).to(cuda_device)
+                   for a in (ts, td, rowptr, col)] + [heads]
+    assert vector_columns(ht, heads) == vector
+    h, z = gat_aggregate_cuda(*args)
+    again = gat_aggregate_cuda(*args)
+    torch.cuda.synchronize()
+    ref_h, ref_z = gat_aggregate_plain(ht.float(), *args[1:])
+    assert h.dtype == dtype and h.shape == (deg.size, feat)
+    assert _rel(h, ref_h) <= tol
+    assert ((z - ref_z).abs() / ref_z.clamp_min(1e-30)).max().item() <= 1e-5
+    empty = torch.from_numpy(np.flatnonzero(deg == 0)).to(cuda_device)
+    assert bool((h[empty] == 0).all()) and bool((z[empty] == 0).all())
+    assert torch.equal(h, again[0]) and torch.equal(z, again[1])
+
+
 @pytest.mark.parametrize("heads", [1, 4])
 def test_gat_server_on_card_matches_cpu(cuda_device, heads):
     ds = random_graph_dataset(500, 8, 32, 5, seed=7)
@@ -517,7 +562,7 @@ K4_TABLE_TOL = 1e-5
                                         (16, 256)])
 def test_gat_bwd_kernels_match_plain(cuda_device, dtype, tol, heads, feat):
     """B1 and B2 against their plain versions on the same CUDA tensors:
-    skewed rows, a hub source (a B1 row split across warps), rows with no
+    skewed rows, a hub source (a B1 row in the walk's pieces), rows with no
     edges, clipped scores; (2, 48) and (3, 30) put heads off the lane
     groups (one head per tile)."""
     rng = np.random.default_rng(heads * 1000 + feat + 7)
@@ -553,6 +598,60 @@ def test_gat_bwd_kernels_match_plain(cuda_device, dtype, tol, heads, feat):
     assert torch.equal(dht, again[0]) and torch.equal(dts, again[1])
     assert torch.equal(dtd, gat_bwd_dst(ht, ts, gz, td, rz, rowptr, col,
                                         heads))
+
+
+def _hub_source_inputs(rng, v, e, feat, heads, hub_edges):
+    """K4's inputs over a dst-sorted CSR whose source 5 takes `hub_edges`
+    edges (a transposed row spanning many of the walk's chunks), whose
+    sources 3 mod 17 have no out-edges, with clipped scores; and the
+    transposed CSR."""
+    ht, ts, td, rowptr, col = _gat_inputs(rng, v, v, e, feat, heads,
+                                          zero_rows=[1, 2])
+    col = col.numpy()
+    col = np.where(col % 17 == 3, col - 1, col)
+    col[rng.choice(col.size, size=hub_edges, replace=False)] = 5
+    gz = rng.standard_normal((v, feat)).astype(np.float32)
+    rz = rng.standard_normal((v, heads)).astype(np.float32)
+    csr_t = csr_transpose(rowptr.numpy(), col, np.ones(col.size, np.float32),
+                          v)
+    return ht, ts, torch.from_numpy(gz), td, torch.from_numpy(rz), csr_t
+
+
+@pytest.mark.parametrize("chunk", [64, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,feat", [(1, 41), (4, 128), (8, 64)])
+def test_gat_bwd_src_walk_matches_plain(cuda_device, monkeypatch, chunk,
+                                        dtype, heads, feat):
+    """B1, csr_sum.cuh's edge-balanced walk with one dot product a row,
+    at 64 and 1024 edges a warp: a hub source of 10^5 edges in pieces
+    combined by the fixed tree, sources with no out-edges (zeros), clipped
+    scores, f32 and bf16 ht, scalar (F=41) and vector columns; held to the
+    plain version (f64 over the hub row) at 1e-5, bit-identical on
+    repeat."""
+    from sgnn_tpu_torch.ops.cuda import gat_bwd as k4
+
+    monkeypatch.setattr(k4, "csr_chunk_edges", lambda _: chunk)
+    rng = np.random.default_rng(heads * 100 + feat + chunk)
+    ht, ts, gz, td, rz, csr_t = _hub_source_inputs(
+        rng, 3000, 260000, feat, heads, 100000)
+    ht, ts, gz, td, rz = (t.to(cuda_device) for t in (ht, ts, gz, td, rz))
+    ht = ht.to(dtype)
+    rowptr_t, col_t, _ = (torch.from_numpy(a).to(cuda_device) for a in csr_t)
+    lengths = rowptr_t.diff()
+    assert int(lengths[5]) >= 100000 and int(lengths[5]) > 40 * chunk
+    args = (ht, ts, gz, td, rz, rowptr_t, col_t, heads)
+    before = gat_bwd_src_cuda.launches
+    dht, dts = gat_bwd_src_cuda(*args)
+    again = gat_bwd_src_cuda(*args)
+    torch.cuda.synchronize()
+    assert gat_bwd_src_cuda.launches == before + 2
+    ref_dht, ref_dts = gat_bwd_src_plain(ht.float(), *args[1:])
+    assert _rel(dht, ref_dht) <= 1e-5
+    assert _rel(dts, ref_dts) <= K4_TABLE_TOL
+    empty = torch.nonzero(lengths == 0).flatten()
+    assert empty.numel() > 100
+    assert bool((dht[empty] == 0).all()) and bool((dts[empty] == 0).all())
+    assert torch.equal(dht, again[0]) and torch.equal(dts, again[1])
 
 
 @pytest.mark.parametrize("family,aggregator,heads", [

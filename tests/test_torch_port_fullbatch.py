@@ -19,6 +19,7 @@ Inputs are made with numpy from a seed; weights cross by
 """
 
 import dataclasses
+import importlib.util
 import logging
 import os
 
@@ -52,7 +53,8 @@ from sgnn_tpu_torch.ops.gat import (
 )
 from sgnn_tpu_torch.ops.reductions import segment_extreme
 from sgnn_tpu_torch.ops.segment import (
-    SpmmCsr, csr_from_numpy, csr_transpose, spmm_csr_plain,
+    PLAIN_F64_ROW_EDGES, SpmmCsr, csr_from_numpy, csr_transpose,
+    spmm_csr_plain,
 )
 from sgnn_tpu_torch.sampler.blocks import WeightKind
 from sgnn_tpu_torch.train import build_trainer, run_engine
@@ -309,6 +311,63 @@ def test_k4_matches_pallas_interpret(heads, f):
         assert _rel(a, b) < K4_BF16, name
         cos = (a * b).sum() / (np.linalg.norm(a) * np.linalg.norm(b))
         assert cos > K4_COS, (name, cos)
+
+
+def _b1_script():
+    """scripts/torch_b1_identity_error.py: the hub cases and B1's dts in
+    the kernel's summation order."""
+    path = os.path.join(os.path.dirname(__file__), "..", "scripts",
+                        "torch_b1_identity_error.py")
+    spec = importlib.util.spec_from_file_location("b1_identity", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+def test_b1_dts_matches_jax_reference(heads):
+    """B1's dts on a graph whose source 5 has 70,000 out-edges (past
+    PLAIN_F64_ROW_EDGES), with clipped scores and Gz, rz from a cotangent.
+    The algebra: the one-dot-product identity dts = <Σ c·Gz[d], ht[s]> −
+    Σ c·rz[d] over whole pieces, in f64, against jax.grad of the reference
+    formulation (as test_k4_matches_jax_reference) w.r.t. the score table
+    ts, also in f64 (in f32 the reference's own 70,000-term sums stray
+    past the bound on such a hub).  The kernel's arithmetic: its two f32 forms in the
+    walk's order (pieces, then the fixed tree), a dot product an edge
+    (scalar columns) and the identity over each 4 edges (vector columns),
+    against the plain version on the same f32 inputs.  (In f32 the
+    identity over whole pieces strays past 1e-5 on such graphs: the
+    script's row_rel_err.)"""
+    b1 = _b1_script()
+    case = b1.hub_case(6, heads)
+    ht, ts, td, rowptr, src, dst, cot = case
+    v, f = ht.shape
+    fh = f // heads
+    assert (ts[src] + td[dst] > ATT_CLIP).any()
+
+    def loss_ref(ht_, ts_, td_):
+        h3 = ht_.reshape(v, heads, fh)
+        sc = jax.nn.leaky_relu(ts_[src] + td_[dst], 0.2)
+        u = jnp.exp(jnp.clip(sc, -60.0, 60.0))
+        z = jax.ops.segment_sum(u, dst, num_segments=v)
+        agg = jax.ops.segment_sum(h3[src] * u[:, :, None], dst,
+                                  num_segments=v)
+        h = (agg / jnp.maximum(z, 1e-30)[:, :, None]).reshape(v, f)
+        return jnp.sum(h * cot)
+
+    with jax.enable_x64(True):
+        ref = np.asarray(jax.grad(loss_ref, argnums=1)(
+            *(jnp.asarray(a, jnp.float64) for a in (ht, ts, td))))
+    args64 = b1.b1_operands(*case, heads, dtype=torch.float64)
+    assert int(args64[5].diff().max()) > PLAIN_F64_ROW_EDGES
+    identity = b1.walk_order_dts(*args64, heads, form="row")
+    assert _rel(identity, ref) <= RTOL
+    args = b1.b1_operands(*case, heads)
+    plain = gat_bwd_src(*args, heads)[1]
+    for form in ("edge", "unroll"):
+        got = b1.walk_order_dts(*args, heads, form=form)
+        assert got.dtype == torch.float32
+        assert _rel(got, plain) <= RTOL, form
 
 
 def test_k4_dispatch_rejects_bad_args():
