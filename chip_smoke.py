@@ -9,12 +9,19 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
 1. build     — nvcc time per kernel, and the card's name and power limit;
 2. kernel    — `spmm_csr` (the kernel) against `spmm_csr_plain` on the same
                CUDA tensors, on skewed random CSR graphs at F in {7, 41, 128,
-               256}, f32 and bf16; then, at the Reddit-shaped serving shapes
-               (F=128 and 41, f32 and bf16), the kernel held to the plain
-               version at the same tolerances and timed beside it, one
-               library call (`torch.sparse.mm`, timed here only, never called
-               by the port) and the bound (bytes over HBM bandwidth, flops
-               over f32 rate);
+               256}, f32 and bf16 (hub rows: the edge-balanced sum); then
+               the row kernel on rows of 0, 1, 31, 32, 33 and 1000 edges
+               at F in {7, 41, 64, 128, 256, 602}, f32 and bf16, x aligned
+               and one element off (each case names its layout: vector or
+               scalar columns, half-warps on alternate edges or a whole
+               warp), bit-identical on repeat; then, at the Reddit-shaped
+               serving shapes (F=128 and 41, f32 and bf16), the kernel held
+               to the plain version at the same tolerances, bit-identical
+               on repeat, timed beside it, one library call
+               (`torch.sparse.mm`, timed here only, never called by the
+               port) and the bound (bytes over HBM bandwidth, flops over
+               f32 rate), with its layout and its registers and local
+               (spill) bytes a thread, read from the loaded kernel;
 3. kernel_k1 — K1's three kernels (`gather_agg_fwd`, `_bwd_dx`, `_bwd_dw`)
                against their plain versions at K in {1, 10, 25}, F in {7, 41,
                128, 602}, f32 and bf16, D not a multiple of 8, zero-weight
@@ -84,12 +91,19 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
 12. kernel_k4 — K4's two passes (`gat_bwd_src_cuda` B1, `gat_bwd_dst_cuda`
                B2) against their plain versions on K3's grid (clipped
                edges, rows with no in-edges and sources with no out-edges),
-               f32 and bf16 ht, bit-identical on repeat; B1 at a source of
-               2·10^5 out-edges with 64, 256 and 1024 edges a warp (the
-               chunk printed with the hub's chunk count); then at the
-               Reddit shapes (F=128 H=4, F=128 H=1, F=41 H=1, f32) timed
-               beside plain and the bound, with the backward of K3's plain
-               version under autograd (H=1) timed as a yardstick;
+               f32 and bf16 ht, bit-identical on repeat; B2 again on K3's
+               grid with rows of 0, 1, 31, 32, 33 and 1000 in-edges, ht
+               and Gz aligned and one element off, a source whose raised
+               score dominates its destinations (Gz, rz from a cotangent
+               through the forward), each case naming its layout (vector
+               or scalar columns), bit-identical on repeat; B1 at a
+               source of 2·10^5 out-edges with 64, 256 and 1024 edges a
+               warp (the chunk printed with the hub's chunk count); then
+               at the Reddit shapes (F=128 H=4, F=128 H=1, F=41 H=1,
+               f32), bit-identical on repeat, timed beside plain and the
+               bound (B2 with its layout, registers and local bytes),
+               with the backward of K3's plain version under autograd
+               (H=1) timed as a yardstick;
 13. train_full — GCNFULLBATCH, GSFULLBATCH and GATFULLBATCH (heads 4),
                602-128-41, lr 0.01: the first epoch's loss and every
                weight's and attention vector's gradient on the card held to
@@ -118,7 +132,9 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
 15. kernels  — one line listing every kernel with its launches on its main
                path (serving for `spmm_csr`, train_device for K1,
                serving_gat for K3, train_full for K2's backward and K4,
-               kernel_probes for the probes), its error and its times.
+               kernel_probes for the probes), its error and its times
+               (`spmm_csr` and `gat_bwd_dst` also their layouts and
+               registers and local bytes at the main path's shapes).
 
 Every main path (phases 5-10, 13 and 14) starts with every launch count set to
 0 and reads them all at its end.  Then the card's name and power limit as
@@ -200,6 +216,13 @@ GAT_SERVE_HEADS, GAT_TRAIN_HEADS, GAT_ATTN_SCALE = (1, 4), 4, 0.1
 K3_GRID = ((1, 7), (1, 41), (1, 128), (2, 256), (4, 128), (8, 64),
            (16, 256))
 K3_SCORE_STD, K3_CLIP_EVERY, K3_CLIP_RAISE = 2.0, 97, 80.0
+# rows of these lengths reach every tail of a 32-edge window, of the four
+# rows in flight and of K2's half-warps on alternate edges; K2's row kernel
+# is held to its plain version at these widths (every layout: half-warps
+# to F = 64, vector columns where F % 4 == 0 and x is aligned, column
+# tiles past 128 or 256)
+ROW_LENGTHS = (0, 1, 31, 32, 33, 1000)
+K2_ROW_FEATS = (7, 41, 64, 128, 256, 602)
 # K4's score-table gradients (dts, dtd) against their plain versions,
 # relative max-abs, f32: each sums q_e = u·lrelu'·(t_e − rz), whose two
 # terms cancel, so the f32 roundings of t_e (an F-term dot product summed
@@ -264,12 +287,15 @@ def main() -> int:
     from sgnn_tpu_torch.ops.cuda import gat_bwd as k4
     from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda, vector_columns
     from sgnn_tpu_torch.ops.cuda.gat_bwd import (
-        gat_bwd_dst_cuda, gat_bwd_src_cuda,
+        dst_layout, gat_bwd_dst_cuda, gat_bwd_src_cuda,
     )
-    from sgnn_tpu_torch.ops.cuda.spmm import spmm_csr_bwd_cuda, spmm_csr_cuda
+    from sgnn_tpu_torch.ops.cuda.spmm import (
+        forward_layout, spmm_csr_bwd_cuda, spmm_csr_cuda,
+    )
     from sgnn_tpu_torch.ops.gat import (
         ATT_CLIP, F32_TINY, NEG_SLOPE, GatAggregate, gat_aggregate_plain,
-        gat_bwd_dst_plain, gat_bwd_src_plain, pack_score_tables,
+        gat_bwd_dst_plain, gat_bwd_operands, gat_bwd_src_plain,
+        pack_score_tables,
     )
     from sgnn_tpu_torch.ops import probes as pr
     from sgnn_tpu_torch.ops.cuda import probes as probe_k
@@ -328,6 +354,43 @@ def main() -> int:
         rows, f32 or bf16) widened to f32: the same values, and the plain
         version then returns its f32 sum unrounded."""
         return (x.float(), *rest)
+
+    def placed(n_rows, feat, dtype, aligned):
+        """Random [n_rows, feat] rows of `dtype` on the card, 16-byte
+        aligned or a view one element past an aligned address."""
+        flat = torch.randn(n_rows * feat + 1, generator=gen).to(dev, dtype)
+        return (flat[:-1] if aligned else flat[1:]).view(n_rows, feat)
+
+    def row_tail_csr(v_src):
+        """A CSR with 4 rows of each of ROW_LENGTHS edges and 60 of 2-199,
+        in random order: (lengths, rowptr, col) on the card."""
+        deg = torch.cat([torch.tensor(ROW_LENGTHS).repeat_interleave(4),
+                         torch.randint(2, 200, (60,), generator=gen)])
+        deg = deg[torch.randperm(deg.numel(), generator=gen)]
+        rowptr_ = torch.zeros(deg.numel() + 1, dtype=torch.int64)
+        rowptr_[1:] = deg.cumsum(0)
+        col_ = torch.randint(0, v_src, (int(rowptr_[-1]),), generator=gen,
+                             dtype=torch.int32)
+        return deg.to(dev), rowptr_.to(dev), col_.to(dev)
+
+    def k2_layout(x):
+        lay = forward_layout(x)
+        return lay, (f"{'vector' if lay['vec'] == 4 else 'scalar'} columns, "
+                     + ("half-warps on alternate edges" if lay["lanes"] == 16
+                        else "a whole warp"))
+
+    def b2_layout(ht, gz, heads):
+        lay = dst_layout(ht, gz, heads)
+        return lay, (f"{'vector' if lay['vec'] == 4 else 'scalar'} columns, "
+                     "one reduction per 4 edges (identity)")
+
+    def resources(name, lay):
+        """The kernel instance's registers and local (spill) bytes a
+        thread, read from the loaded module in this run."""
+        got = {"registers": lay["registers"],
+               "local_bytes": lay["local_bytes"]}
+        require(got["registers"] > 0, f"{name}: no register count ({got})")
+        return got
 
     # every kernel's launch counter: each main path starts from zeros
     counted = {"spmm_csr": spmm_csr_cuda,
@@ -396,6 +459,33 @@ def main() -> int:
                     "zero-in-degree rows are not zero")
             require(torch.equal(out, again), "kernel is not deterministic")
 
+    # the row kernel (every row fits a warp) in each of its layouts, on
+    # rows of every length in ROW_LENGTHS
+    row_checks = []
+    deg, r_rowptr, r_col = row_tail_csr(1500)
+    r_w = torch.randn(r_col.numel(), generator=gen).to(dev)
+    for feat in K2_ROW_FEATS:
+        for dt in (torch.float32, torch.bfloat16):
+            for aligned in (True, False):
+                x = placed(1500, feat, dt, aligned)
+                out = spmm_csr_cuda(x, r_rowptr, r_col, r_w)
+                again = spmm_csr_cuda(x, r_rowptr, r_col, r_w)
+                torch.cuda.synchronize()
+                err = rel_err(out, spmm_csr_plain(x.float(), r_rowptr, r_col,
+                                                  r_w))
+                key = str(dt).removeprefix("torch.")
+                lay, how = k2_layout(x)
+                row_checks.append({"F": feat, "dtype": key,
+                                   "aligned": aligned, "layout": how,
+                                   "rel_err": err, "tol": TOL[key]})
+                require(err <= TOL[key], f"row kernel vs plain F={feat} {key} "
+                                         f"({how}): {err} > {TOL[key]}")
+                require(bool((out[deg == 0] == 0).all()),
+                        f"row kernel F={feat} {key}: empty rows not zero")
+                require(torch.equal(out, again),
+                        f"row kernel F={feat} {key} ({how}) is not "
+                        "deterministic")
+
     t0 = time.perf_counter()
     ds = reddit_like_dataset(seed=0, scale=1.0)
     adj = Adjacency.from_edges(ds.edges, ds.num_vertices)
@@ -411,12 +501,17 @@ def main() -> int:
             x = torch.randn(v, feat, generator=gen).to(dev, dt)
             b = x.element_size()
             out = spmm_csr_cuda(x, rowptr, col, w)
+            again = spmm_csr_cuda(x, rowptr, col, w)
             ref = spmm_csr_plain(x.float(), rowptr, col, w)
             err_abs = (out.float() - ref.float()).abs().max().item()
             err = rel_err(out, ref)
             key = str(dt).removeprefix("torch.")
             require(err <= TOL[key], f"kernel vs plain at the serving shape "
                                      f"F={feat} {key}: {err} > {TOL[key]}")
+            require(torch.equal(out, again), "kernel at the serving shape "
+                                             f"F={feat} {key} is not "
+                                             "deterministic")
+            lay, how = k2_layout(x)
             del ref
             ms = time_ms(lambda: spmm_csr_cuda(x, rowptr, col, w), 20)
             plain_ms = time_ms(lambda: spmm_csr_plain(x, rowptr, col, w), 3)
@@ -429,7 +524,8 @@ def main() -> int:
             flops = 2 * e * feat
             bound_ms = max(once / hbm, flops / F32_FLOPS_PER_S) * 1e3
             timings.append({
-                "F": feat, "dtype": key, "V": v, "E": e,
+                "F": feat, "dtype": key, "V": v, "E": e, "layout": how,
+                "registers": resources(f"spmm_csr F={feat} {key}", lay),
                 "max_abs_err": err_abs, "rel_err": err, "tol": TOL[key],
                 "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
@@ -438,7 +534,8 @@ def main() -> int:
                              else "operations"),
                 "gather_bound_ms": gathered / hbm * 1e3,
                 "pct_of_bound": 100.0 * bound_ms / ms})
-    emit({"phase": "kernel", "checks": checks, "reddit_shapes": timings,
+    emit({"phase": "kernel", "checks": checks, "row_checks": row_checks,
+          "reddit_shapes": timings,
           "hbm_bytes_per_s": hbm, "data_build_s": data_s})
 
     # ---- 3. K1 kernels against their plain versions -----------------------
@@ -1171,6 +1268,51 @@ def main() -> int:
                     "K4 is not deterministic")
             del ref_dht, ref_dts, ref_dtd
 
+    # B2 in each of its layouts on rows of every length in ROW_LENGTHS,
+    # clipped scores, and a source (11) whose raised score dominates its
+    # destinations' attention, so t_e ~ rz[d] there and the identity's two
+    # sums nearly cancel; Gz and rz from a cotangent through the forward,
+    # as training makes them
+    b2_checks = []
+    deg, r_rowptr, r_col = row_tail_csr(1500)
+    hub_row = int(torch.nonzero(deg == 33)[0])
+    r_col[int(r_rowptr[hub_row]):int(r_rowptr[hub_row]) + 3] = 11
+    for heads, feat in K3_GRID:
+        for dt in (torch.float32, torch.bfloat16):
+            for aligned in (True, False):
+                ht = placed(1500, feat, dt, aligned)
+                ts = (torch.randn(1500, heads, generator=gen) * 2.0).to(dev)
+                ts[::K3_CLIP_EVERY] += K3_CLIP_RAISE
+                ts[11] = 12.0
+                td = (torch.randn(deg.numel(), heads, generator=gen)
+                      * 2.0).to(dev)
+                h, z = gat_aggregate_plain(ht.float(), ts, td, r_rowptr,
+                                           r_col, heads)
+                gz, rz = gat_bwd_operands(
+                    torch.randn(deg.numel(), feat, generator=gen).to(dev),
+                    h, z, heads)
+                gz_p = placed(deg.numel(), feat, torch.float32, aligned)
+                gz_p.copy_(gz)
+                b2 = (ht, ts, gz_p, td, rz, r_rowptr, r_col, heads)
+                dtd = gat_bwd_dst_cuda(*b2)
+                again = gat_bwd_dst_cuda(*b2)
+                torch.cuda.synchronize()
+                err = rel_err(dtd, gat_bwd_dst_plain(*exact_ref(*b2)))
+                key = str(dt).removeprefix("torch.")
+                lay, how = b2_layout(ht, gz_p, heads)
+                b2_checks.append({"H": heads, "F": feat, "dtype": key,
+                                  "aligned": aligned, "layout": how,
+                                  "rel_err": err, "tol": K4_TABLE_TOL})
+                require(err <= K4_TABLE_TOL,
+                        f"B2 vs plain H={heads} F={feat} {key} ({how}): "
+                        f"{err}")
+                require(bool((dtd[deg == 0] == 0).all()),
+                        f"B2 H={heads} F={feat} {key}: empty rows not zero")
+                require(torch.equal(dtd, again), f"B2 H={heads} F={feat} "
+                                                 f"{key} ({how}) is not "
+                                                 "deterministic")
+                del h, z, gz, gz_p, rz, dtd, again
+
     # B1's walk at 64, 256 and 1024 edges a warp (the wrapper's chunk,
     # ops/segment.csr_chunk_edges, replaced for the case): a source with
     # 2*10^5 out-edges, its pieces in many chunks combined by the fixed
@@ -1220,12 +1362,18 @@ def main() -> int:
         b1 = (ht, ts, gz, td, rz, r_t, c_t, heads)
         b2 = (ht, ts, gz, td, rz, g_rowptr, g_col, heads)
         got = (*gat_bwd_src_cuda(*b1), gat_bwd_dst_cuda(*b2))
+        again = (*gat_bwd_src_cuda(*b1), gat_bwd_dst_cuda(*b2))
         ref = (*gat_bwd_src_plain(*b1), gat_bwd_dst_plain(*b2))
         torch.cuda.synchronize()
         errs = [rel_err(a, r) for a, r in zip(got, ref)]
         require(errs[0] <= TOL["float32"] and max(errs[1:]) <= K4_TABLE_TOL,
                 f"K4 vs plain at the training shape F={feat} H={heads}: "
                 f"{errs}")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"K4 at the training shape F={feat} H={heads} is not "
+                "deterministic")
+        del again
+        lay, how = b2_layout(ht, gz, heads)
         comp_ms = None
         if heads == 1:
             # a yardstick only (no single PyTorch call computes K4): the
@@ -1250,6 +1398,10 @@ def main() -> int:
             k4_shapes.append({
                 "name": kname, "F": feat, "H": heads, "dtype": "float32",
                 "V": v, "E": e,
+                "layout": how if kname == "gat_bwd_dst" else None,
+                "registers": (resources(f"gat_bwd_dst F={feat} H={heads}",
+                                        lay)
+                              if kname == "gat_bwd_dst" else None),
                 "chunk_edges": (csr_chunk_edges(e) if kname == "gat_bwd_src"
                                 else None),
                 "max_row": max_row,
@@ -1265,7 +1417,8 @@ def main() -> int:
                              else "operations"),
                 "gather_bound_ms": (nbytes + e * feat * 4) / hbm * 1e3})
         del got, ref
-    emit({"phase": "kernel_k4", "checks": k4_checks, "b1_hub": b1_hub,
+    emit({"phase": "kernel_k4", "checks": k4_checks, "b2_rows": b2_checks,
+          "b1_hub": b1_hub,
           "training_shapes": k4_shapes,
           "library": "none: no single PyTorch call computes K4; "
                      "composition_bwd_ms times the backward of K3's plain "
@@ -1623,6 +1776,8 @@ def main() -> int:
                     "sgnn_tpu/ops/pallas/mxu_spmm.py:316", launches,
                     f"one f32 logprobs pass: F=128 + F=41 on the {v}-vertex, "
                     f"{e}-edge graph")]
+    kernels[0].update(layouts=[t["layout"] for t in per_pass],
+                      registers=[t["registers"] for t in per_pass])
     for kname, replaces, n, note in (
             ("gather_agg_fwd", "sgnn_tpu/ops/pallas/gather_agg.py:43",
              dev_launches[0], ""),
@@ -1673,6 +1828,9 @@ def main() -> int:
         k4_line["composition_ms"] = total(
             [t for t in k4_shapes if t["name"] == kname and t["H"] == 1],
             "composition_bwd_ms")
+        if kname == "gat_bwd_dst":
+            k4_line.update(layouts=[t["layout"] for t in rows],
+                           registers=[t["registers"] for t in rows])
         kernels.append(k4_line)
     for kname, rows, source, replaces, what in (
             ("probe_gather_sum", gather_rows, "probe_gather.cu",

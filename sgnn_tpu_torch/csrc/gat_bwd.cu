@@ -62,20 +62,35 @@
 //    the head width are multiples of 4 (F = 128), else one a load (F =
 //    41); a column tile is whole heads, each on an aligned power-of-two
 //    group of lanes, or one head reduced over the whole warp.
-// B2, one warp per DESTINATION row (in-degrees stay short), keeps its
-// first design:
-//  * kWarpsPerBlock rows per block, a grid-stride loop over rows; each
-//    lane owns C contiguous columns (C in 1, 2, 4, 8, picked from the
-//    tile width), loaded as 16-byte vectors where the rows are aligned, so
-//    one head's columns sit on an aligned group of fh/C lanes (a power of
-//    two) and t_e reduces with __shfl_xor_sync in log2(fh/C) steps, for
-//    every head of the tile at once; a column tile is whole heads, at most
-//    kMaxTileHeads and 256 columns, or one head reduced over the whole
-//    warp where the heads are off the lane groups; heads wider than 256
-//    columns are refused (the wrapper raises);
-//  * 32 edges at a time, lane k computes edge k's u*lrelu'*[clip] once
-//    for each head of the tile into a per-warp shared buffer; B2 keeps
-//    Gz[d], td[d] and rz[d] in registers and gathers ht[s].
+// B2, one warp per DESTINATION row (the CSR keyed by destination has no
+// row over 1024 edges, and a warp per row beats the walk there, as K2's
+// forward).  Its first design loaded one source row at a time and reduced
+// t_e over the head's lanes for every edge, 21-33x its bound.  Now K3's
+// structure (gat.cu) with B1's identity:
+//  * B1's column tiling (plan_tiling): a tile is whole heads, at most
+//    kMaxTileHeads and 256 columns, each on an aligned power-of-two group
+//    of lanes, or one head reduced over the whole warp; heads wider than
+//    256 columns are refused (the wrapper raises); 4 adjacent columns a
+//    lane as one 16-byte (f32) or 8-byte (bf16) load where F and the head
+//    width are multiples of 4 and ht and gz are aligned (F = 128), else
+//    one column a load, lanes striding by 32 (F = 41);
+//  * 32 edges at a time: lane k stages edge k's source and its c = u *
+//    lrelu'(score) * [|lr| <= 60] for each head of the tile once, in a
+//    per-warp shared buffer (staged sources measured faster than
+//    shuffled ones); Gz[d], rz[d] and td[d] stay in registers; then
+//    kUnroll source rows are loaded before their FMAs;
+//  * Gz[d] and rz[d] are fixed along the row, so the q of the kUnroll
+//    edges between two flushes sum to <Gz[d], sum c ht[s]>_h - rz[d,h] *
+//    sum c: per edge a lane adds VEC columns of c * ht[s] and one c, and
+//    the head's lanes reduce one dot product per kUnroll edges.  Never
+//    over a window or a row: there the f32 form strays past the 1e-5
+//    bound where a dominant source makes t_e ~ rz[d]
+//    (scripts/torch_b2_identity_error.py, PERF.md).  A reduction an edge
+//    (t = <Gz[d], ht[s]>_h reduced and q = c * (t - rz) added an edge, as
+//    the first design) measured slower with both layouts
+//    (scripts/torch_row_kernel_variants.py);
+//  * a register cap by layout: 48 a thread with scalar columns, 64 with
+//    vector ones, each the fastest measured.
 // Both: sums are f32 and each output is written once (dts/dtd by the
 // lane holding the head's first column): deterministic, bit-identical
 // from run to run.  ht is f32 or bf16; Gz, rz, the tables and the outputs
@@ -111,51 +126,6 @@ __device__ __forceinline__ void edge_weights(float score, float& u,
   c = fabsf(lr) <= kClip ? u * slope : 0.0f;
 }
 
-// This lane's n (<= C) columns of a row as f32, zeros past n; 16-byte
-// loads when `vec` (row and tile aligned) and the lane holds all C.
-template <int C>
-__device__ __forceinline__ void load_cols(const float* p, int n, bool vec,
-                                          float (&v)[C]) {
-  if constexpr (C % 4 == 0) {
-    if (vec && n == C) {
-#pragma unroll
-      for (int j = 0; j < C; j += 4) {
-        const float4 q = *reinterpret_cast<const float4*>(p + j);
-        v[j] = q.x;
-        v[j + 1] = q.y;
-        v[j + 2] = q.z;
-        v[j + 3] = q.w;
-      }
-      return;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < C; ++j) v[j] = j < n ? p[j] : 0.0f;
-}
-
-template <int C>
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* p, int n,
-                                          bool vec, float (&v)[C]) {
-  if constexpr (C % 8 == 0) {
-    if (vec && n == C) {
-#pragma unroll
-      for (int j = 0; j < C; j += 8) {
-        const uint4 q = *reinterpret_cast<const uint4*>(p + j);
-        const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float2 f = __bfloat1622float2(b[k]);
-          v[j + 2 * k] = f.x;
-          v[j + 2 * k + 1] = f.y;
-        }
-      }
-      return;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < C; ++j) v[j] = j < n ? to_float(p[j]) : 0.0f;
-}
-
 // Sum over an aligned group of `group` lanes (a power of two <= 32); every
 // lane of the group ends with the group's sum.
 __device__ __forceinline__ float group_sum(float p, int group) {
@@ -165,24 +135,30 @@ __device__ __forceinline__ float group_sum(float p, int group) {
   return p;
 }
 
-// Where this lane sits in a column tile of `n_heads` heads of width fh,
-// starting at head h0.
-struct LaneCols {
-  int64_t c0;  // the tile's first column
-  int lc0;     // this lane's first column within the tile
-  int ncols;   // how many of its C columns lie in the tile
-  int head;    // the head of its columns, within the tile
+// K4's column tiling, both passes: a tile is whole heads, at most
+// kMaxTileHeads and kMaxTileCols columns, each head on an aligned
+// power-of-two group of fh / vec lanes; where they are not (fh / vec not
+// a power of two) a tile is one head and the whole warp reduces.  A lane
+// holds `cols` groups of `vec` columns (col_of).  False for heads wider
+// than kMaxTileCols.
+struct Tiling {
+  int64_t tw;  // columns of a tile
+  int group;   // lanes of one head; 32 when a tile is one head
+  int cols;    // column groups a lane
 };
 
-template <int C>
-__device__ __forceinline__ LaneCols lane_cols(int lane, int h0, int n_heads,
-                                              int fh) {
-  LaneCols lc;
-  lc.c0 = static_cast<int64_t>(h0) * fh;
-  lc.lc0 = lane * C;
-  lc.ncols = max(0, min(C, n_heads * fh - lc.lc0));
-  lc.head = min(lc.lc0 / fh, n_heads - 1);
-  return lc;
+bool plan_tiling(int64_t feat, int heads, int vec, Tiling* t) {
+  const int64_t fh = feat / heads;
+  if (fh > kMaxTileCols) return false;
+  int64_t nh = std::min<int64_t>(
+      {static_cast<int64_t>(heads), int64_t{kMaxTileHeads}, kMaxTileCols / fh});
+  const int64_t lanes = fh / vec;
+  if (nh > 1 && (lanes > 32 || (lanes & (lanes - 1)) != 0)) nh = 1;
+  t->tw = nh * fh;
+  t->group = nh == 1 ? 32 : static_cast<int>(lanes);
+  t->cols = 1;
+  while (32 * t->cols * vec < t->tw) t->cols *= 2;
+  return true;
 }
 
 // B1: what csr_sum.cuh's walk sums over the transposed CSR (rows are
@@ -456,19 +432,9 @@ int launch_src(const void* ht, const void* ts, const void* gz,
                void* carry_row, int64_t num_rows, int64_t max_edges,
                int64_t chunk, int64_t feat, int heads, int64_t pitch,
                cudaStream_t stream) {
-  // a tile is whole heads, at most kMaxTileHeads and 256 columns, each
-  // head on an aligned power-of-two group of lanes; where they are not
-  // (fh / VEC not a power of two) a tile is one head and the whole warp
-  // reduces
+  Tiling t;
+  plan_tiling(feat, heads, VEC, &t);
   const int fh = static_cast<int>(feat / heads);
-  int64_t nh = std::min<int64_t>({static_cast<int64_t>(heads),
-                                  int64_t{kMaxTileHeads}, kMaxTileCols / fh});
-  const int lanes = fh / VEC;
-  if (nh > 1 && (lanes > 32 || (lanes & (lanes - 1)) != 0)) nh = 1;
-  const int64_t tw = nh * fh;
-  const int group = nh == 1 ? 32 : lanes;
-  int cols = 1;
-  while (32 * cols * VEC < tw) cols *= 2;
   const int64_t max_chunks =
       std::max<int64_t>(1, (max_edges + chunk - 1) / chunk);
   const int64_t* rp = static_cast<const int64_t*>(rowptr);
@@ -480,16 +446,16 @@ int launch_src(const void* ht, const void* ts, const void* gz,
           static_cast<const float*>(gz), static_cast<const float*>(td),      \
           static_cast<const float*>(rz), static_cast<const int32_t*>(col),   \
           static_cast<float*>(dht), static_cast<float*>(dts),                \
-          static_cast<float*>(carry), feat, heads, fh, tw, group, pitch},    \
+          static_cast<float*>(carry), feat, heads, fh, t.tw, t.group, pitch},\
       rp, kr, num_rows, max_chunks, chunk, stream)
   if constexpr (VEC == 4) {
-    if (cols == 1) {
+    if (t.cols == 1) {
       SGNN_B1(1);
     } else {
       SGNN_B1(2);
     }
   } else {
-    switch (cols) {
+    switch (t.cols) {
       case 1: SGNN_B1(1); break;
       case 2: SGNN_B1(2); break;
       case 4: SGNN_B1(4); break;
@@ -500,150 +466,192 @@ int launch_src(const void* ht, const void* ts, const void* gz,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int C>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+bool args_ok(long long feat, int heads) {
+  return heads >= 1 && feat >= 1 && feat % heads == 0 &&
+         feat / heads <= kMaxTileCols;
+}
+
+// B2 over destination row `row`, one column tile [c0, c0 + tw) of whole
+// heads a pass: per edge a lane adds c * ht[s] (VEC columns) and c, and
+// the head's lanes reduce one dot product a kUnroll edges (the header's
+// identity).  A register cap by layout: 48 a thread with scalar columns
+// (5 blocks an SM), 64 with vector ones (4).  Every branch is
+// warp-uniform, so the full-mask shuffles and __syncwarp see all 32 lanes.
+template <typename T, int COLS, int VEC>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, VEC == 4 ? 4 : 5)
 gat_bwd_dst_kernel(const T* __restrict__ ht, const float* __restrict__ ts,
                    const float* __restrict__ gz, const float* __restrict__ td,
                    const float* __restrict__ rz,
                    const int64_t* __restrict__ rowptr,
                    const int32_t* __restrict__ col, float* __restrict__ dtd,
-                   int64_t num_rows, int64_t feat, int heads, int tile_heads,
-                   int group, bool vec_ht, bool vec_gz) {
+                   int64_t num_rows, int64_t feat, int heads, int64_t tw,
+                   int group) {
+  // a window's c [head][edge] and sources, a buffer per warp
   __shared__ float c_smem[kWarpsPerBlock][kMaxTileHeads * kStride];
+  __shared__ int src_smem[kWarpsPerBlock][32];
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float* cs = c_smem[warp];
-  const int fh = static_cast<int>(feat / heads);
-  const int64_t first =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp;
+  float* cs = c_smem[threadIdx.x >> 5];
+  int* ss = src_smem[threadIdx.x >> 5];
+  const int64_t fh = feat / heads;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
+                        (threadIdx.x >> 5);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
   for (int64_t row = first; row < num_rows; row += stride) {
     const int64_t beg = rowptr[row];
     const int64_t end = rowptr[row + 1];
-    for (int h0 = 0; h0 < heads; h0 += tile_heads) {
-      const int n_heads = min(tile_heads, heads - h0);
-      const LaneCols lc = lane_cols<C>(lane, h0, n_heads, fh);
-      float g[C];
-      load_cols<C>(gz + row * feat + lc.c0 + lc.lc0, lc.ncols, vec_gz, g);
+    for (int64_t c0 = 0; c0 < feat; c0 += tw) {
+      const int64_t c_end = min(c0 + tw, feat);
+      const int h_first = static_cast<int>(c0 / fh);
+      const int n_th = static_cast<int>((c_end - 1) / fh) - h_first + 1;
+      // every column group of the lane in one head: sums of group 0 only
+      const bool one = COLS == 1 || n_th == 1;
+      int hd[COLS], slot[COLS];
+      float g[COLS][VEC], r[COLS], acc[COLS][VEC], csum[COLS], q[COLS];
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) {
+        const int64_t cc = col_of(c0, lane, j, VEC);
+        hd[j] = cc < c_end ? static_cast<int>(cc / fh) - h_first : -1;
+        slot[j] = max(hd[j], 0) * kStride;
+        r[j] = csum[j] = q[j] = 0.0f;
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) g[j][v] = acc[j][v] = 0.0f;
+        if (hd[j] >= 0) {
+          sgnn::load_cols<float, VEC>(gz + row * feat + cc, g[j]);
+          r[j] = rz[row * heads + h_first + hd[j]];
+        }
+      }
       float td_tile[kMaxTileHeads];
 #pragma unroll
       for (int i = 0; i < kMaxTileHeads; ++i) {
-        td_tile[i] = i < n_heads ? td[row * heads + h0 + i] : 0.0f;
+        td_tile[i] = i < n_th ? td[row * heads + h_first + i] : 0.0f;
       }
-      const float my_rz = rz[row * heads + h0 + lc.head];
-      float accq = 0.0f;
       for (int64_t e0 = beg; e0 < end; e0 += 32) {
         const int n = static_cast<int>(min(static_cast<int64_t>(32), end - e0));
         const int my_src = lane < n ? col[e0 + lane] : 0;
         if (lane < n) {
-          const int64_t off = static_cast<int64_t>(my_src) * heads + h0;
+          const float* tsr =
+              ts + static_cast<int64_t>(my_src) * heads + h_first;
 #pragma unroll
           for (int i = 0; i < kMaxTileHeads; ++i) {
-            if (i < n_heads) {
+            if (i < n_th) {
               float u, c;
-              edge_weights(ts[off + i] + td_tile[i], u, c);
+              edge_weights(tsr[i] + td_tile[i], u, c);
               cs[i * kStride + lane] = c;
             }
           }
         }
+        ss[lane] = my_src;
         __syncwarp();
-        for (int k = 0; k < n; ++k) {
-          const int s = __shfl_sync(kFullMask, my_src, k);
-          float x[C];
-          load_cols<C>(ht + static_cast<int64_t>(s) * feat + lc.c0 + lc.lc0,
-                       lc.ncols, vec_ht, x);
-          float p = 0.0f;
+        for (int k = 0; k < n; k += kUnroll) {
+          float x[kUnroll][COLS][VEC];
 #pragma unroll
-          for (int j = 0; j < C; ++j) p = fmaf(x[j], g[j], p);
-          p = group_sum(p, group);
-          accq = fmaf(cs[lc.head * kStride + k], p - my_rz, accq);
+          for (int u = 0; u < kUnroll; ++u) {
+            const T* x_row =
+                ht + static_cast<int64_t>(ss[(k + u) & 31]) * feat;
+#pragma unroll
+            for (int j = 0; j < COLS; ++j) {
+              if (k + u < n && hd[j] >= 0) {
+                sgnn::load_cols<T, VEC>(x_row + col_of(c0, lane, j, VEC),
+                                        x[u][j]);
+              } else {
+#pragma unroll
+                for (int v = 0; v < VEC; ++v) x[u][j][v] = 0.0f;
+              }
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            if (k + u >= n) break;
+#pragma unroll
+            for (int j = 0; j < COLS; ++j) {
+              const float c = cs[slot[one ? 0 : j] + k + u];
+              if (!one || j == 0) csum[j] += c;
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) {
+                acc[j][v] = fmaf(c, x[u][j][v], acc[j][v]);
+              }
+            }
+          }
+          // q += <Gz, sum c ht>_h - rz * sum c over these kUnroll edges
+          float p[COLS];
+#pragma unroll
+          for (int j = 0; j < COLS; ++j) {
+            p[j] = 0.0f;
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) {
+              p[j] = fmaf(acc[j][v], g[j][v], p[j]);
+              acc[j][v] = 0.0f;
+            }
+          }
+          if (one) {
+            float pp = p[0];
+#pragma unroll
+            for (int j = 1; j < COLS; ++j) pp += p[j];
+            q[0] += group_sum(pp, group) - r[0] * csum[0];
+          } else {
+#pragma unroll
+            for (int j = 0; j < COLS; ++j) {
+              q[j] += group_sum(p[j], group) - r[j] * csum[j];
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < COLS; ++j) csum[j] = 0.0f;
         }
-        __syncwarp();  // reads done before the next chunk's writes
+        __syncwarp();  // reads done before the next window's writes
       }
-      if (lc.ncols > 0 && lc.lc0 % fh == 0) {
-        dtd[row * heads + h0 + lc.head] = accq;
+      // dtd of each head of the tile, from the lane holding its first column
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) {
+        if (hd[j] >= 0 && col_of(c0, lane, j, VEC) % fh == 0) {
+          dtd[row * heads + h_first + hd[j]] = q[one ? 0 : j];
+        }
       }
     }
   }
 }
 
-// The column tiling of F = heads * fh: heads per tile, columns per lane
-// (C) and the lane-group width of one head.  Returns false for heads wider
-// than kMaxTileCols.
-struct Tiling {
-  int tile_heads;
-  int cols;
-  int group;
-};
-
-int cols_for(int64_t width) {
-  int c = 1;
-  while (32 * c < width) c *= 2;
-  return c;
-}
-
-bool plan_tiling(int64_t feat, int heads, Tiling* t) {
-  const int64_t fh = feat / heads;
-  if (fh > kMaxTileCols) return false;
-  int n = static_cast<int>(std::min<int64_t>(
-      {static_cast<int64_t>(heads), int64_t{kMaxTileHeads},
-       kMaxTileCols / fh}));
-  int c = cols_for(n * fh);
-  if (n > 1) {
-    const int64_t lanes = fh / c;
-    if (fh % c != 0 || (lanes & (lanes - 1)) != 0) {
-      n = 1;  // heads off the lane groups: one head per tile, whole warp
-      c = cols_for(fh);
-    }
-  }
-  t->tile_heads = n;
-  t->cols = c;
-  t->group = n == 1 ? 32 : static_cast<int>(fh / c);
-  return true;
-}
-
-// 16-byte loads of a lane's C columns need the base, the row pitch, the
-// tile pitch and the lane's C columns all on 16-byte boundaries.
-bool vec_ok(const void* p, int64_t feat, const Tiling& t, int64_t fh,
-            int elem) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && feat * elem % 16 == 0 &&
-         t.tile_heads * fh * elem % 16 == 0 && t.cols * elem % 16 == 0;
+// B2's columns: 4 adjacent a lane where F and the head width are
+// multiples of 4 and ht and gz are 16-byte aligned, else 1.
+int dst_vec(const void* ht, const void* gz, int64_t feat, int heads) {
+  return feat % 4 == 0 && (feat / heads) % 4 == 0 &&
+                 reinterpret_cast<uintptr_t>(ht) % 16 == 0 &&
+                 reinterpret_cast<uintptr_t>(gz) % 16 == 0
+             ? 4
+             : 1;
 }
 
 template <typename T>
-int launch_dst(const void* ht, const void* ts, const void* gz,
-               const void* td, const void* rz, const void* rowptr,
-               const void* col, void* dtd, int64_t num_rows, int64_t feat,
-               int heads, cudaStream_t stream) {
-  Tiling t;
-  if (!plan_tiling(feat, heads, &t)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+using DstKernel = void (*)(const T*, const float*, const float*, const float*,
+                           const float*, const int64_t*, const int32_t*,
+                           float*, int64_t, int64_t, int, int64_t, int);
+
+// gat_bwd_dst_kernel's instance for a layout.
+template <typename T>
+DstKernel<T> dst_kernel(int vec, const Tiling& t) {
+  if (vec == 4) {
+    return t.cols == 1 ? gat_bwd_dst_kernel<T, 1, 4>
+                       : gat_bwd_dst_kernel<T, 2, 4>;
   }
-  const int64_t fh = feat / heads;
-  const bool vht = vec_ok(ht, feat, t, fh, sizeof(T));
-  const bool vgz = vec_ok(gz, feat, t, fh, sizeof(float));
-  const dim3 grid(sgnn::warp_blocks(num_rows)), block(kWarpsPerBlock * 32);
-#define SGNN_B2(C)                                                           \
-  gat_bwd_dst_kernel<T, C><<<grid, block, 0, stream>>>(                      \
-      static_cast<const T*>(ht), static_cast<const float*>(ts),              \
-      static_cast<const float*>(gz), static_cast<const float*>(td),          \
-      static_cast<const float*>(rz), static_cast<const int64_t*>(rowptr),    \
-      static_cast<const int32_t*>(col), static_cast<float*>(dtd), num_rows,  \
-      feat, heads, t.tile_heads, t.group, vht, vgz)
   switch (t.cols) {
-    case 1: SGNN_B2(1); break;
-    case 2: SGNN_B2(2); break;
-    case 4: SGNN_B2(4); break;
-    case 8: SGNN_B2(8); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 1: return gat_bwd_dst_kernel<T, 1, 1>;
+    case 2: return gat_bwd_dst_kernel<T, 2, 1>;
+    case 4: return gat_bwd_dst_kernel<T, 4, 1>;
+    default: return gat_bwd_dst_kernel<T, 8, 1>;
   }
-#undef SGNN_B2
-  return static_cast<int>(cudaGetLastError());
 }
 
-bool args_ok(long long feat, int heads) {
-  return heads >= 1 && feat >= 1 && feat % heads == 0 &&
-         feat / heads <= kMaxTileCols;
+template <typename T>
+void launch_dst(const void* ht, const void* ts, const void* gz,
+                const void* td, const void* rz, const void* rowptr,
+                const void* col, void* dtd, int64_t num_rows, int64_t feat,
+                int heads, int vec, const Tiling& t, cudaStream_t stream) {
+  dst_kernel<T>(vec, t)
+      <<<sgnn::warp_blocks(num_rows), kWarpsPerBlock * 32, 0, stream>>>(
+          static_cast<const T*>(ht), static_cast<const float*>(ts),
+          static_cast<const float*>(gz), static_cast<const float*>(td),
+          static_cast<const float*>(rz), static_cast<const int64_t*>(rowptr),
+          static_cast<const int32_t*>(col), static_cast<float*>(dtd),
+          num_rows, feat, heads, t.tw, t.group);
 }
 
 }  // namespace
@@ -692,24 +700,58 @@ extern "C" int sgnn_gat_bwd_src(const void* ht, const void* ts,
 
 // B2 over the CSR (rows = destinations, col = sources): writes dtd
 // [num_rows, heads], a warp a destination row (in-degrees stay short).
-// Arguments as sgnn_gat_bwd_src's, without the walk's.
+// Arguments as sgnn_gat_bwd_src's, without the walk's; the columns (vector
+// or scalar) follow ht's and gz's alignment.
 extern "C" int sgnn_gat_bwd_dst(const void* ht, const void* ts,
                                 const void* gz, const void* td,
                                 const void* rz, const void* rowptr,
                                 const void* col, void* dtd,
                                 long long num_rows, long long feat, int heads,
                                 int dtype, void* stream) {
+  const int vec = dst_vec(ht, gz, feat, heads);
+  Tiling t;
+  if (!args_ok(feat, heads) || !plan_tiling(feat, heads, vec, &t)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!args_ok(feat, heads)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
-    return launch_dst<float>(ht, ts, gz, td, rz, rowptr, col, dtd, num_rows,
-                             feat, heads, s);
+    launch_dst<float>(ht, ts, gz, td, rz, rowptr, col, dtd, num_rows, feat,
+                      heads, vec, t, s);
+  } else if (dtype == 1) {
+    launch_dst<__nv_bfloat16>(ht, ts, gz, td, rz, rowptr, col, dtd, num_rows,
+                              feat, heads, vec, t, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    return launch_dst<__nv_bfloat16>(ht, ts, gz, td, rz, rowptr, col, dtd,
-                                     num_rows, feat, heads, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2's layout for these ht and gz (and ht's dtype): columns a load (4 or
+// 1), column groups a lane, lanes of a head's reduction, and that
+// instance's registers and local memory (spills) a thread as the loaded
+// module reports them (cudaFuncGetAttributes).  Returns
+// cudaErrorInvalidValue for arguments sgnn_gat_bwd_dst refuses, else the
+// attribute query's error code.
+extern "C" int sgnn_gat_bwd_dst_layout(const void* ht, const void* gz,
+                                       long long feat, int heads, int dtype,
+                                       int* vec, int* cols, int* group,
+                                       int* registers, int* local_bytes) {
+  Tiling t;
+  if (!args_ok(feat, heads)) return static_cast<int>(cudaErrorInvalidValue);
+  *vec = dst_vec(ht, gz, feat, heads);
+  plan_tiling(feat, heads, *vec, &t);
+  *cols = t.cols;
+  *group = t.group;
+  cudaFuncAttributes a{};
+  cudaError_t rc = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    rc = cudaFuncGetAttributes(&a, dst_kernel<float>(*vec, t));
+  } else if (dtype == 1) {
+    rc = cudaFuncGetAttributes(&a, dst_kernel<__nv_bfloat16>(*vec, t));
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  *registers = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return static_cast<int>(rc);
 }
 
 extern "C" const char* sgnn_cuda_error_string(int code) {

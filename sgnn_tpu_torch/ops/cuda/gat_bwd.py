@@ -11,8 +11,9 @@ host.  B1 is csr_sum.cuh's edge-balanced walk over the transposed CSR
 (`ops/segment.csr_chunk_edges` edges a warp, hub sources in pieces
 combined by its fixed tree; dts's dot product reduced once per four edges
 with vector columns, once an edge with scalar ones); B2 a warp a
-destination row.  Each wrapper's `.launches` counts its calls that launch
-the kernels.
+destination row, four source rows in flight (`dst_layout` says its
+columns and its reduction).  Each wrapper's `.launches` counts its calls
+that launch the kernels.
 """
 
 from __future__ import annotations
@@ -44,10 +45,13 @@ def _entry():
     dst = lib.sgnn_gat_bwd_dst
     dst.argtypes = [ptr] * 8 + [i64, i64, i32, i32, ptr]
     dst.restype = ctypes.c_int
+    lay = lib.sgnn_gat_bwd_dst_layout
+    lay.argtypes = [ptr, ptr, i64, i32, i32] + [ctypes.POINTER(i32)] * 5
+    lay.restype = ctypes.c_int
     err = lib.sgnn_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return src, dst, err
+    return src, dst, lay, err
 
 
 def _check(name, ht, ts, gz, td, rz, rowptr, col, heads, rows_are_sources):
@@ -79,7 +83,7 @@ def gat_bwd_src_cuda(ht: torch.Tensor, ts: torch.Tensor, gz: torch.Tensor,
                       device=ht.device)
     if num_rows == 0:
         return dht, dts
-    src, _, err = _entry()
+    src, _, _, err = _entry()
     num_edges = col_t.numel()
     chunk = csr_chunk_edges(num_edges)
     slots = 2 * max(1, -(-num_edges // chunk))
@@ -112,7 +116,7 @@ def gat_bwd_dst_cuda(ht: torch.Tensor, ts: torch.Tensor, gz: torch.Tensor,
                       device=ht.device)
     if num_rows == 0:
         return dtd
-    _, dst, err = _entry()
+    _, dst, _, err = _entry()
     with torch.cuda.device(ht.device):
         stream = torch.cuda.current_stream(ht.device).cuda_stream
         rc = dst(ht.data_ptr(), ts.data_ptr(), gz.data_ptr(), td.data_ptr(),
@@ -122,6 +126,22 @@ def gat_bwd_dst_cuda(ht: torch.Tensor, ts: torch.Tensor, gz: torch.Tensor,
     _raise("gat_bwd_dst", rc, err)
     gat_bwd_dst_cuda.launches += 1
     return dtd
+
+
+def dst_layout(ht: torch.Tensor, gz: torch.Tensor, heads: int) -> dict:
+    """B2's layout for these operands (`csrc/gat_bwd.cu`): `vec` columns a
+    load (4 where F and F / heads are multiples of 4 and ht and gz are
+    16-byte aligned, else 1), `cols` column groups a lane, `group` lanes of
+    a head's reduction; and the `registers` and `local_bytes` (spills) a
+    thread of that kernel instance, as the loaded module reports them."""
+    got = [ctypes.c_int() for _ in range(5)]
+    _, _, lay, err = _entry()
+    with torch.cuda.device(ht.device):
+        rc = lay(ht.data_ptr(), gz.data_ptr(), ht.shape[1], heads,
+                 DTYPE_CODES[ht.dtype], *(ctypes.byref(g) for g in got))
+    _raise("gat_bwd_dst_layout", rc, err)
+    return dict(zip(("vec", "cols", "group", "registers", "local_bytes"),
+                    (g.value for g in got)))
 
 
 gat_bwd_src_cuda.launches = 0

@@ -3,7 +3,8 @@
 `spmm_csr_cuda(x, rowptr, col, w)` launches the forward on PyTorch's
 current stream and returns `out[d] = Σ_{e∈row d} w_e·x[col_e]` in x's
 dtype: a warp per row when every row has at most LONG_ROW_EDGES edges
-(`rows_fit_a_warp`, worked out once per CSR), else the edge-balanced sum of
+(`rows_fit_a_warp`, worked out once per CSR; `forward_layout` says how the
+row kernel lays out x's columns), else the edge-balanced sum of
 `csrc/csr_sum.cuh`.  `spmm_csr_bwd_cuda(g, rowptr_t, col_t, w_t)` is K2's
 backward, `dx = Aᵀ·g` over the transposed CSR (`ops/segment.
 csr_transpose`), whose hub rows that sum takes: every warp the same number
@@ -39,9 +40,14 @@ CSR_SUM_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4
 def _entry(name: str):
     lib = build("spmm").lib
     fn = getattr(lib, name)
-    fn.argtypes = (CSR_SUM_ARGTYPES if name == "sgnn_spmm_csr_sum" else
-                   [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = {
+        "sgnn_spmm_csr_sum": CSR_SUM_ARGTYPES,
+        "sgnn_spmm_csr": ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
+                          + [ctypes.c_int, ctypes.c_void_p]),
+        "sgnn_spmm_csr_layout": ([ctypes.c_void_p, ctypes.c_longlong,
+                                  ctypes.c_int]
+                                 + [ctypes.POINTER(ctypes.c_int)] * 5),
+    }[name]
     fn.restype = ctypes.c_int
     err = lib.sgnn_cuda_error_string
     err.argtypes = [ctypes.c_int]
@@ -60,6 +66,24 @@ def rows_fit_a_warp(rowptr: torch.Tensor) -> bool:
             (rowptr[1:] - rowptr[:-1]).max()) <= LONG_ROW_EDGES)
         rowptr._sgnn_rows_fit_a_warp = fits
     return fits
+
+
+def forward_layout(x: torch.Tensor) -> dict:
+    """How the row kernel (`csrc/spmm.cu` `row_layout`) lays out x's
+    columns: `lanes` a group (16: two half-warps on alternate edges),
+    `cols` column groups a lane, `vec` columns a load (4: one 16-/8-byte
+    vector where F % 4 == 0 and x is 16-byte aligned; 1: scalar); and the
+    `registers` and `local_bytes` (spills) a thread of that kernel
+    instance, as the loaded module reports them."""
+    got = [ctypes.c_int() for _ in range(5)]
+    fn, err = _entry("sgnn_spmm_csr_layout")
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), x.shape[1], DTYPE_CODES[x.dtype],
+                *(ctypes.byref(g) for g in got))
+    if rc != 0:
+        raise RuntimeError(f"spmm_csr_layout failed: {err(rc).decode()}")
+    return dict(zip(("lanes", "cols", "vec", "registers", "local_bytes"),
+                    (g.value for g in got)))
 
 
 _sum_entry = functools.partial(_entry, "sgnn_spmm_csr_sum")

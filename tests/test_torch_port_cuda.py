@@ -24,13 +24,15 @@ from sgnn_tpu_torch.ops import probes as pr
 from sgnn_tpu_torch.ops.cuda import gather_agg as k1
 from sgnn_tpu_torch.ops.cuda import probes as prc
 from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda, vector_columns
-from sgnn_tpu_torch.ops.cuda.gat_bwd import gat_bwd_dst_cuda, gat_bwd_src_cuda
+from sgnn_tpu_torch.ops.cuda.gat_bwd import (
+    dst_layout, gat_bwd_dst_cuda, gat_bwd_src_cuda,
+)
 from sgnn_tpu_torch.ops.cuda.spmm import (
-    rows_fit_a_warp, spmm_csr_bwd_cuda, spmm_csr_cuda,
+    forward_layout, rows_fit_a_warp, spmm_csr_bwd_cuda, spmm_csr_cuda,
 )
 from sgnn_tpu_torch.ops.gat import (
     gat_aggregate, gat_aggregate_plain, gat_bwd_dst, gat_bwd_dst_plain,
-    gat_bwd_src, gat_bwd_src_plain,
+    gat_bwd_operands, gat_bwd_src, gat_bwd_src_plain,
 )
 from sgnn_tpu_torch.ops.segment import (
     CSR_CHUNK_MIN, LONG_ROW_EDGES, csr_chunk_edges, csr_from_numpy,
@@ -119,6 +121,64 @@ def test_forward_row_kernel_matches_plain(cuda_device, dtype, tol, feat):
     assert _rel(out, spmm_csr_plain(x.float(), *csr)) <= tol
     assert bool((out[[1, 2]] == 0).all())
     assert torch.equal(out, spmm_csr(x, *csr))
+
+
+# rows of these lengths reach every tail of a 32-edge window, of the four
+# rows in flight and of the half-warps' alternate edges
+ROW_LENGTHS = (0, 1, 31, 32, 33, 1000)
+
+
+def _row_tail_csr(rng, v_src):
+    """A CSR with rows of each of ROW_LENGTHS edges (4 each) and 60 rows of
+    2-199, in random order: (lengths, rowptr, col)."""
+    deg = np.concatenate([np.repeat(ROW_LENGTHS, 4), rng.integers(2, 200, 60)])
+    deg = deg[rng.permutation(deg.size)]
+    rowptr = np.zeros(deg.size + 1, np.int64)
+    rowptr[1:] = np.cumsum(deg)
+    return deg, rowptr, rng.integers(0, v_src, rowptr[-1]).astype(np.int32)
+
+
+def _placed(a, dtype, device, aligned):
+    """a as a contiguous tensor of `dtype` on `device`, 16-byte aligned or
+    a view one element past an aligned address."""
+    flat = torch.from_numpy(np.append(a.ravel(), np.float32(0))).to(
+        device, dtype)
+    return (flat[:-1] if aligned else flat[1:]).view(a.shape)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("feat", [7, 41, 64, 128, 256, 602])
+def test_forward_row_kernel_rows_and_layouts(cuda_device, aligned, dtype,
+                                             tol, feat):
+    """K2's row kernel on rows of 0, 1, 31, 32, 33 and 1000 edges: vector
+    columns (4 a load) where F % 4 == 0 and x is aligned, else scalar;
+    half-warps on alternate edges for F <= 64; held to the plain version's
+    unrounded f32 sum, rows with no edges zero, bit-identical on repeat."""
+    rng = np.random.default_rng(feat * 5 + aligned)
+    deg, rowptr, col = _row_tail_csr(rng, 1500)
+    csr = csr_from_numpy(rowptr, col,
+                         rng.standard_normal(col.size).astype(np.float32),
+                         1500, device=cuda_device)
+    assert rows_fit_a_warp(csr.rowptr)
+    x = _placed(rng.standard_normal((1500, feat)).astype(np.float32), dtype,
+                cuda_device, aligned)
+    layout = forward_layout(x)
+    assert layout["vec"] == (4 if feat % 4 == 0 and aligned else 1)
+    assert layout["lanes"] == (16 if feat <= 64 else 32)
+    assert 16 * layout["cols"] * layout["vec"] >= min(feat, 64)
+    assert 0 < layout["registers"] <= 48     # the cap: 5 blocks an SM
+    before = spmm_csr_cuda.launches
+    out = spmm_csr_cuda(x, *csr)
+    again = spmm_csr_cuda(x, *csr)
+    torch.cuda.synchronize()
+    assert spmm_csr_cuda.launches == before + 2
+    assert out.dtype == dtype and out.shape == (deg.size, feat)
+    assert _rel(out, spmm_csr_plain(x.float(), *csr)) <= tol
+    empty = torch.from_numpy(np.flatnonzero(deg == 0)).to(cuda_device)
+    assert bool((out[empty] == 0).all())
+    assert torch.equal(out, again)
 
 
 def test_kernel_rejects_mixed_devices(cuda_device):
@@ -598,6 +658,84 @@ def test_gat_bwd_kernels_match_plain(cuda_device, dtype, tol, heads, feat):
     assert torch.equal(dht, again[0]) and torch.equal(dts, again[1])
     assert torch.equal(dtd, gat_bwd_dst(ht, ts, gz, td, rz, rowptr, col,
                                         heads))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,feat", [(1, 7), (1, 41), (1, 128), (2, 256),
+                                        (4, 128), (8, 64), (16, 256)])
+def test_gat_bwd_dst_rows_and_layouts(cuda_device, aligned, dtype, heads,
+                                      feat):
+    """B2 on rows of 0, 1, 31, 32, 33 and 1000 in-edges, clipped scores,
+    and a source whose raised score dominates its destinations' attention
+    (t_e ~ rz[d] there, where the identity's two sums nearly cancel), with
+    Gz and rz from a cotangent through the forward as training makes them:
+    vector columns where F and the head are multiples of 4 and ht and gz
+    are aligned, else scalar; held to the plain version at 1e-5, rows with
+    no edges zero, bit-identical on repeat."""
+    rng = np.random.default_rng(heads * 100 + feat + aligned)
+    v_src = 1500
+    deg, rowptr, col = _row_tail_csr(rng, v_src)
+    hub_row = int(np.flatnonzero(deg == 33)[0])
+    col[rowptr[hub_row]:rowptr[hub_row] + 3] = 11
+    ts = (rng.standard_normal((v_src, heads)) * 2.0).astype(np.float32)
+    ts[::97] += 80.0                       # past the +60 clip
+    ts[11] = 12.0                          # u ~ e^12: source 11 dominates
+    td = (rng.standard_normal((deg.size, heads)) * 2.0).astype(np.float32)
+    ht = _placed(rng.standard_normal((v_src, feat)).astype(np.float32),
+                 dtype, cuda_device, aligned)
+    ts, td, rowptr, col = (torch.from_numpy(a).to(cuda_device)
+                           for a in (ts, td, rowptr, col))
+    h, z = gat_aggregate_plain(ht.float(), ts, td, rowptr, col, heads)
+    cot = torch.from_numpy(rng.standard_normal((deg.size, feat)).astype(
+        np.float32)).to(cuda_device)
+    gz, rz = gat_bwd_operands(cot, h, z, heads)
+    gz = _placed(gz.cpu().numpy(), torch.float32, cuda_device, aligned)
+    layout = dst_layout(ht, gz, heads)
+    assert layout["vec"] == (4 if feat % 4 == 0 and (feat // heads) % 4 == 0
+                             and aligned else 1)
+    # the cap by layout: 4 blocks an SM with vector columns, else 5
+    assert 0 < layout["registers"] <= (64 if layout["vec"] == 4 else 48)
+    args = (ht, ts, gz, td, rz, rowptr, col, heads)
+    before = gat_bwd_dst_cuda.launches
+    dtd = gat_bwd_dst_cuda(*args)
+    again = gat_bwd_dst_cuda(*args)
+    torch.cuda.synchronize()
+    assert gat_bwd_dst_cuda.launches == before + 2
+    assert _rel(dtd, gat_bwd_dst_plain(ht.float(), *args[1:])) <= K4_TABLE_TOL
+    empty = torch.from_numpy(np.flatnonzero(deg == 0)).to(cuda_device)
+    assert bool((dtd[empty] == 0).all())
+    assert torch.equal(dtd, again)
+
+
+@pytest.mark.parametrize("heads,feat,dtype", [(3, 30, torch.bfloat16),
+                                              (1, 41, torch.float32),
+                                              (4, 128, torch.float32)])
+def test_gat_bwd_dst_repeats_bit_for_bit(cuda_device, heads, feat, dtype):
+    """B2 launched 300 times on one input of 20,000 destination rows of
+    0-199 in-edges, clipped scores: every result equals the first bit for
+    bit.  Each 32-edge window's c and sources are staged in a per-warp
+    shared buffer between two __syncwarp; a lane writing the next
+    window's before another lane has read this one's would show as a
+    launch that differs.  (3, 30) takes one head a tile with scalar
+    columns, (1, 41) scalar columns, (4, 128) vector columns."""
+    rng = np.random.default_rng(heads * 10 + feat)
+    v = 20000
+    rowptr = np.zeros(v + 1, np.int64)
+    np.cumsum(rng.integers(0, 200, v), out=rowptr[1:])
+    col = rng.integers(0, v, int(rowptr[-1])).astype(np.int32)
+    ts = (rng.standard_normal((v, heads)) * 2.0).astype(np.float32)
+    ts[::97] += 80.0
+    ht, gz = rng.standard_normal((2, v, feat)).astype(np.float32)
+    td, rz = (rng.standard_normal((2, v, heads)) * 2.0).astype(np.float32)
+    ht, ts, gz, td, rz, rowptr, col = (
+        torch.from_numpy(a).to(cuda_device)
+        for a in (ht, ts, gz, td, rz, rowptr, col))
+    args = (ht.to(dtype), ts, gz, td, rz, rowptr, col, heads)
+    first = gat_bwd_dst_cuda(*args)
+    same = sum(bool(torch.equal(first, gat_bwd_dst_cuda(*args)))
+               for _ in range(300))
+    assert same == 300
 
 
 def _hub_source_inputs(rng, v, e, feat, heads, hub_edges):

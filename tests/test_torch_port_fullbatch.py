@@ -313,12 +313,13 @@ def test_k4_matches_pallas_interpret(heads, f):
         assert cos > K4_COS, (name, cos)
 
 
-def _b1_script():
-    """scripts/torch_b1_identity_error.py: the hub cases and B1's dts in
-    the kernel's summation order."""
+def _script(name):
+    """scripts/<name>.py as a module: torch_b1_identity_error (the hub
+    cases and B1's dts in the kernel's summation order) or
+    torch_b2_identity_error (B2's operands and dtd in its order)."""
     path = os.path.join(os.path.dirname(__file__), "..", "scripts",
-                        "torch_b1_identity_error.py")
-    spec = importlib.util.spec_from_file_location("b1_identity", path)
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -338,7 +339,7 @@ def test_b1_dts_matches_jax_reference(heads):
     against the plain version on the same f32 inputs.  (In f32 the
     identity over whole pieces strays past 1e-5 on such graphs: the
     script's row_rel_err.)"""
-    b1 = _b1_script()
+    b1 = _script("torch_b1_identity_error")
     case = b1.hub_case(6, heads)
     ht, ts, td, rowptr, src, dst, cot = case
     v, f = ht.shape
@@ -366,6 +367,50 @@ def test_b1_dts_matches_jax_reference(heads):
     plain = gat_bwd_src(*args, heads)[1]
     for form in ("edge", "unroll"):
         got = b1.walk_order_dts(*args, heads, form=form)
+        assert got.dtype == torch.float32
+        assert _rel(got, plain) <= RTOL, form
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+def test_b2_dtd_matches_jax_reference(heads):
+    """B2's dtd on the B1 test's graph (source 5 holds 70,000 of the
+    90,000 edges, so it dominates each destination's attention and t_e ~
+    rz[d] on its edges), with clipped scores and Gz, rz from a cotangent.
+    The algebra: the identity dtd = <Gz[d], Σ c·ht[s]> − rz[d]·Σ c over
+    whole rows, in f64, against jax.grad of the reference formulation
+    w.r.t. the score table td, also in f64.  The kernel's arithmetic: its
+    f32 forms in a destination row's edge order, the identity over each 4
+    edges (the kernel) and a dot product an edge, against the plain
+    version on the same f32 inputs.  (In f32 the identity over whole rows
+    strays up to 1.09e-5 on these graphs: the script's row_rel_err.)"""
+    b2 = _script("torch_b2_identity_error")
+    case = b2.hub_case(6, heads)
+    ht, ts, td, rowptr, src, dst, cot = case
+    v, f = ht.shape
+    fh = f // heads
+    assert (ts[src] + td[dst] > ATT_CLIP).any()
+
+    def loss_ref(ht_, ts_, td_):
+        h3 = ht_.reshape(v, heads, fh)
+        sc = jax.nn.leaky_relu(ts_[src] + td_[dst], 0.2)
+        u = jnp.exp(jnp.clip(sc, -60.0, 60.0))
+        z = jax.ops.segment_sum(u, dst, num_segments=v)
+        agg = jax.ops.segment_sum(h3[src] * u[:, :, None], dst,
+                                  num_segments=v)
+        h = (agg / jnp.maximum(z, 1e-30)[:, :, None]).reshape(v, f)
+        return jnp.sum(h * cot)
+
+    with jax.enable_x64(True):
+        ref = np.asarray(jax.grad(loss_ref, argnums=2)(
+            *(jnp.asarray(a, jnp.float64) for a in (ht, ts, td))))
+    args64 = b2.b2_operands(*case, heads, dtype=torch.float64)
+    assert float((args64[6] == 5).double().mean()) > 0.7
+    identity = b2.row_order_dtd(*args64, heads, form="row")
+    assert _rel(identity, ref) <= RTOL
+    args = b2.b2_operands(*case, heads)
+    plain = gat_bwd_dst(*args, heads)
+    for form in ("unroll", "edge"):
+        got = b2.row_order_dtd(*args, heads, form=form)
         assert got.dtype == torch.float32
         assert _rel(got, plain) <= RTOL, form
 
