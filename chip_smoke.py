@@ -129,15 +129,54 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                kernel beside its plain version and one library call timed
                the same way, the bound, and P-T's ns/edge beside K2
                forward's;
-15. kernels  — one line listing every kernel with its launches on its main
+15. serving_extras — on the same graph, GCN 602-128-41 (seed-0 weights)
+               and GAT heads 4 (serving_gat's attention): int8 residency
+               (`InferenceServer(dtype="int8")`): its feature bytes (a
+               quarter of f32's), pass time beside the f32 pass, exactly 2
+               K2 (K3) launches a pass, log-probs held to the port's CPU
+               int8 pass at 1e-4, argmax agreement with the f32 pass above
+               0.97, queries of 8/64/512 vertices held to the whole-graph
+               rows; then chunked `layerwise_inference(whole_graph=False,
+               chunk_size=65536)`, 4 chunks: exactly 8 K2 (GCN) or 8 K3
+               (GAT) launches, held to the whole-graph pass at 1e-4, pass
+               time, host-staging share and peak device memory beside the
+               whole-graph pass's (lower); `whole_graph=None` choosing the
+               whole-graph pass at this size and the chunked one under a
+               budget of half the estimate;
+16. train_extras — int8 GSSAMPLEALLGPU (602-128-41 / 25-10 / 10000, drop
+               0.5): one epoch and evaluate, finite and falling losses,
+               K1's launches as in train_device, median step time beside
+               the f32 one, feature bytes; int8 GCNFULLBATCH: the first
+               epoch's loss held to the port's CPU at scale 0.25, drop 0
+               (1e-5), then 5 epochs at scale 1.0, finite and falling
+               losses, exactly 4 K2 forward and 2 backward launches an
+               epoch, median epoch time beside the f32 one, the epochs'
+               peak device memory above the trainer's state; resume on the
+               card (GSSAMPLEALLGPU): 2 epochs straight against 1 epoch,
+               save, restore into a new trainer, 1 more, parameters held
+               at 1e-4 relative (bit identity printed), the seconds and
+               bytes of a save and a restore;
+17. cli      — `python -m sgnn_tpu_torch` in subprocesses on the shipped
+               Cora configs: gs_cora_sample.cfg for 2 epochs with
+               checkpoints and a report, resumed to 3 (one more epoch),
+               then `--infer` (predictions [2708, 7], rows summing to 1);
+               gcn_cora_fullbatch.cfg with `--exact-eval --profile` (a
+               trace written); gat_cora_sample.cfg with `--exact-eval`;
+               gcn_cora_sample.cfg exiting non-zero and naming ROADMAP
+               item 5; each run's accuracies and wall time;
+18. kernels  — one line listing every kernel with its launches on its main
                path (serving for `spmm_csr`, train_device for K1,
                serving_gat for K3, train_full for K2's backward and K4,
-               kernel_probes for the probes), its error and its times
-               (`spmm_csr` and `gat_bwd_dst` also their layouts and
-               registers and local bytes at the main path's shapes).
+               kernel_probes for the probes) and, for K2, K3 and K1, on
+               the paths of phases 15-16 (`launches_by_path`), its error
+               and its times (`spmm_csr` and `gat_bwd_dst` also their
+               layouts and registers and local bytes at the main path's
+               shapes).
 
-Every main path (phases 5-10, 13 and 14) starts with every launch count set to
-0 and reads them all at its end.  Then the card's name and power limit as
+Every main path (phases 5-10, 13 and 14, and the int8 serving, chunked
+serving, int8 sampled and int8 whole-graph paths of phases 15-16) starts
+with every launch count set to 0 and reads them all at its end; the CLI
+runs in other processes, whose counts this one cannot read.  Then the card's name and power limit as
 nvidia-smi prints them, and last `{"ok": true, "device": {...}}`.  Any
 failed check raises and the script exits non-zero; nothing falls back to
 the CPU or to a plain version.  With no CUDA device it exits 1 and prints
@@ -149,7 +188,9 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -242,6 +283,15 @@ FULL_EXACT_SCALE, FULL_EPOCHS = 0.25, 5
 # (tests/test_mxu_spmm.py:57): a one-ulp difference in expf can flip
 # bf16(u); its z 1e-5.  P-S moves data and must be bit-identical.
 PROBE_F32_TOL, PROBE_BF16_TOL = 1e-5, 5e-3
+# int8 residency against f32: argmax agreement above the JAX package's
+# bound (tests/test_quant.py:241); per-column rounding moves each feature
+# by at most half a level, which flips the class of a vertex whose top two
+# log-probs lie that close
+INT8_ARGMAX_AGREE = 0.97
+# chunked layerwise_inference's destination rows a chunk: the JAX
+# package's default, four chunks on the Reddit-shaped graph
+CHUNK_ROWS = 65536
+ROOT = pathlib.Path(__file__).resolve().parent
 
 
 def emit(obj) -> None:
@@ -307,11 +357,15 @@ def main() -> int:
     from sgnn_tpu_torch.sampler.blocks import WeightKind
     from sgnn_tpu_torch.sampler.device import device_sample_batch
     from sgnn_tpu_torch.train import build_trainer
-    from sgnn_tpu_torch.train.inference import InferenceServer
+    from sgnn_tpu_torch.train.checkpoint import CheckpointManager
+    from sgnn_tpu_torch.train.inference import (
+        InferenceServer, layerwise_inference, whole_graph_bytes,
+    )
+    from sgnn_tpu_torch.utils.profiling import memory_budget
     from sgnn_tpu_torch.train.trainer import (
         host_batch_to_device, loss_and_grads,
     )
-    from sgnn_tpu_torch.utils.timing import cuda_graph_ms
+    from sgnn_tpu_torch.utils.timing import PhaseTimer, cuda_graph_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
     torch.backends.cudnn.allow_tf32 = False
@@ -841,6 +895,7 @@ def main() -> int:
             f"bf16 vs f32 pass: {bf16_err} > {BF16_SERVE_ATOL}")
     agree = float(np.mean(bfull.argmax(1) == full.argmax(1)))
     del bsrv, blogp
+    serving_pass_ms = statistics.median(pass_s[1:]) * 1e3
     emit({"phase": "serving", "model": "gcn 602-128-41",
           "graph": {"V": v, "E": e}, "f32_pass_ms": pass_s[0] * 1e3,
           "f32_pass_ms_median_last3": statistics.median(pass_s[1:]) * 1e3,
@@ -878,6 +933,7 @@ def main() -> int:
     emit({"phase": "queries", "max_abs_diff": q_err, "tol": SERVE_ATOL,
           "p50_ms": {str(s): statistics.median(t) * 1e3
                      for s, t in lat.items()}})
+    gcn_full, f32_feature_bytes = full, srv.feature_bytes
     del srv, logp
 
     # ---- 7. GAT serving at full width (main path, counted) -----------------
@@ -887,7 +943,7 @@ def main() -> int:
         (torch.randn(a.shape, generator=attn_gen) * GAT_ATTN_SCALE).to(dev)
         for a in gat_params.attn))
     reset_counts()
-    gat_serving = []
+    gat_serving, gat_fulls, gat_pass_ms = [], {}, {}
     for heads in GAT_SERVE_HEADS:
         gsrv = InferenceServer(gat_params, "gat", adj, ds.features,
                                heads=heads, device=dev)
@@ -904,7 +960,7 @@ def main() -> int:
                     and now["spmm_csr"] == before["spmm_csr"],
                     f"GAT logprobs() launched {now} after {before}: "
                     "expected 2 K3 and no SpMM")
-        full = logp.cpu().numpy()
+        full = gat_fulls[heads] = logp.cpu().numpy()
         require(full.shape == (v, 41) and bool(np.isfinite(full).all()),
                 f"GAT log-probs shape {full.shape} or non-finite values")
         t0 = time.perf_counter()
@@ -948,6 +1004,7 @@ def main() -> int:
         require(sampled.shape == (512, 41)
                 and bool(np.isfinite(sampled).all()),
                 "GAT fanout query shape or values")
+        gat_pass_ms[heads] = statistics.median(pass_s[1:]) * 1e3
         gat_serving.append({
             "heads": heads, "f32_pass_ms": pass_s[0] * 1e3,
             "f32_pass_ms_median_last3": statistics.median(pass_s[1:]) * 1e3,
@@ -1048,7 +1105,9 @@ def main() -> int:
             and gat_aggregate_cuda.launches == 0,
             f"epoch + evaluate launched {counts()}")
     transpose_launches = k1.block_transpose_cuda.launches
-    med_step_ms = statistics.median(dev_trainer.step_ms[1:])
+    med_step_ms = f32_step_ms = statistics.median(dev_trainer.step_ms[1:])
+    f32_train_feature_bytes = (dev_trainer.dev_features.numel()
+                               * dev_trainer.dev_features.element_size())
     emit({"phase": "train_device", "engine": "GSSAMPLEALLGPU",
           "model": "sage 602-128-41", "fanout": TRAIN_FANOUT,
           "batch": TRAIN_BATCH, "src_pads": list(dev_trainer.src_pads),
@@ -1751,7 +1810,341 @@ def main() -> int:
                     "(utils.timing.cuda_graph_ms); launches count the "
                     "replays' kernel runs"})
 
-    # ---- 15. kernels -------------------------------------------------------
+    # ---- 15. serving extras (two main paths, counted) ---------------------
+    extras_t0 = time.perf_counter()
+    # (a) int8 residency: GCN, and GAT heads 4 with serving_gat's attention
+    reset_counts()
+    int8_rows = []
+    for family, p, heads, f32_full in (
+            ("gcn", params, 1, gcn_full),
+            ("gat", gat_params, GAT_TRAIN_HEADS, gat_fulls[GAT_TRAIN_HEADS])):
+        kname = "gat_aggregate" if family == "gat" else "spmm_csr"
+        isrv = InferenceServer(p, family, adj, ds.features, heads=heads,
+                               dtype="int8", device=dev)
+        require(isrv.feature_bytes * 4 == f32_feature_bytes,
+                f"int8 residency holds {isrv.feature_bytes} feature bytes, "
+                f"f32 {f32_feature_bytes}")
+        pass_s = []
+        for _ in range(4):
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logp8 = isrv.logprobs(as_numpy=False)
+            torch.cuda.synchronize()
+            pass_s.append(time.perf_counter() - t0)
+            now = counts()
+            got = {n: now[n] - before[n] for n in now if now[n] != before[n]}
+            require(got == {kname: 2},
+                    f"int8 {family} logprobs() launched {got}")
+        full8 = logp8.cpu().numpy()
+        require(full8.shape == (v, 41) and bool(np.isfinite(full8).all()),
+                f"int8 {family} log-probs shape or non-finite values")
+        t0 = time.perf_counter()
+        cpu8 = InferenceServer(p.to("cpu"), family, adj, ds.features,
+                               heads=heads, dtype="int8",
+                               device="cpu").logprobs()
+        cpu_s = time.perf_counter() - t0
+        cpu_err = float(np.abs(full8 - cpu8).max())
+        require(cpu_err <= SERVE_ATOL,
+                f"int8 {family} card vs CPU pass: {cpu_err}")
+        agree = float(np.mean(full8.argmax(1) == f32_full.argmax(1)))
+        require(agree > INT8_ARGMAX_AGREE,
+                f"int8 {family} argmax agreement with f32 {agree}")
+        q_err = 0.0
+        for size in (8, 64, 512):
+            for _ in range(3):
+                nids = rng.choice(v, size=size, replace=False)
+                before = counts()[kname]
+                got = isrv.query(nids)
+                require(counts()[kname] - before == 2,
+                        f"int8 {family} query() did not launch twice")
+                q_err = max(q_err, float(np.abs(got - full8[nids]).max()))
+        require(q_err <= SERVE_ATOL,
+                f"int8 {family} query vs whole-graph rows: {q_err}")
+        int8_rows.append({
+            "model": f"{family} 602-128-41", "heads": heads,
+            "feature_bytes": isrv.feature_bytes,
+            "f32_feature_bytes": f32_feature_bytes,
+            "pass_ms_median_last3": statistics.median(pass_s[1:]) * 1e3,
+            "f32_pass_ms_median_last3": (
+                serving_pass_ms if family == "gcn"
+                else gat_pass_ms[GAT_TRAIN_HEADS]),
+            "cpu_pass_max_abs_diff": cpu_err, "host_cpu_pass_s": cpu_s,
+            "argmax_agreement_with_f32": agree,
+            "query_max_abs_diff": q_err})
+        del isrv, logp8
+    int8_serve_counts = counts()
+    require(int8_serve_counts["spmm_csr"] > 0
+            and int8_serve_counts["gat_aggregate"] > 0
+            and sum(int8_serve_counts.values())
+            == int8_serve_counts["spmm_csr"]
+            + int8_serve_counts["gat_aggregate"],
+            f"int8 serving launched {int8_serve_counts}")
+    # (b) chunked layerwise_inference against the whole-graph pass
+    chunk_rows, chunk_counts = [], {}
+    n_chunks = -(-v // CHUNK_ROWS)
+    for family, p, heads in (("gcn", params, 1),
+                             ("gat", gat_params, GAT_TRAIN_HEADS)):
+        kname = "gat_aggregate" if family == "gat" else "spmm_csr"
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        whole = layerwise_inference(p, family, adj, ds.features, heads=heads,
+                                    whole_graph=True, device=dev)
+        whole_s = time.perf_counter() - t0
+        whole_peak = torch.cuda.max_memory_allocated() - base_bytes
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        timers = PhaseTimer()
+        t0 = time.perf_counter()
+        chunked = layerwise_inference(p, family, adj, ds.features,
+                                      heads=heads, whole_graph=False,
+                                      chunk_size=CHUNK_ROWS, timers=timers,
+                                      device=dev)
+        chunk_s = time.perf_counter() - t0
+        chunk_peak = torch.cuda.max_memory_allocated() - base_bytes
+        got = {n: c for n, c in counts().items() if c}
+        chunk_counts[family] = got
+        require(got == {kname: 2 * n_chunks},
+                f"chunked {family} launched {got}, expected "
+                f"{2 * n_chunks} {kname}")
+        err = float(np.abs(chunked - whole).max())
+        require(chunked.shape == (v, 41) and err <= SERVE_ATOL,
+                f"chunked {family} vs whole-graph pass: {err}")
+        require(chunk_peak < whole_peak,
+                f"chunked {family} peaked at {chunk_peak} bytes, the "
+                f"whole-graph pass at {whole_peak}")
+        chunk_rows.append({
+            "model": f"{family} 602-128-41", "heads": heads,
+            "chunk_size": CHUNK_ROWS, "chunks": n_chunks,
+            "launches": got, "max_abs_diff_vs_whole": err,
+            "pass_s": chunk_s, "whole_graph_pass_s": whole_s,
+            "phase_s": dict(timers.totals),
+            "host_staging_share": timers.totals["stage"] / chunk_s,
+            "peak_bytes_above_base": chunk_peak,
+            "whole_graph_peak_bytes_above_base": whole_peak,
+            "base_bytes": base_bytes})
+        del whole, chunked
+    # (c) the automatic choice: whole-graph at this size on the card, chunked
+    # under a budget below the estimate
+    est = whole_graph_bytes(params, "gcn", adj, ds.features.shape[1])
+    auto = {}
+    for budget in (None, est // 2):
+        reset_counts()
+        layerwise_inference(params, "gcn", adj, ds.features,
+                            chunk_size=CHUNK_ROWS, hbm_budget_bytes=budget,
+                            device=dev)
+        auto["card" if budget is None else "half_estimate"] = {
+            "budget_bytes": memory_budget(dev, budget),
+            "spmm_launches": spmm_csr_cuda.launches}
+    require(auto["card"]["spmm_launches"] == 2
+            and auto["half_estimate"]["spmm_launches"] == 2 * n_chunks,
+            f"whole_graph=None chose {auto} (estimate {est} bytes)")
+    emit({"phase": "serving_extras", "int8": int8_rows,
+          "int8_launches": int8_serve_counts, "chunked": chunk_rows,
+          "auto_choice": {"whole_graph_estimate_bytes": est, **auto},
+          "tol": SERVE_ATOL, "argmax_floor": INT8_ARGMAX_AGREE,
+          "phase_s": time.perf_counter() - extras_t0})
+
+    # ---- 16. training extras (int8 paths counted; resume) -----------------
+    extras_t0 = time.perf_counter()
+    # (a) int8 GSSAMPLEALLGPU, one epoch and evaluate
+    int8_cfg = dataclasses.replace(dev_cfg, feature_dtype="int8")
+    int8_trainer = build_trainer(int8_cfg, ds)
+    require(int8_trainer.dev_features.dtype == torch.int8,
+            "FEATURE_DTYPE:int8 did not store int8 features")
+    int8_feature_bytes = (int8_trainer.dev_features.numel()
+                          * int8_trainer.dev_features.element_size())
+    require(int8_feature_bytes * 4 == f32_train_feature_bytes,
+            f"int8 trainer holds {int8_feature_bytes} feature bytes")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr_loss, tr_acc, edges = int8_trainer.train_epoch()
+    epoch_s = time.perf_counter() - t0
+    val_acc = int8_trainer.evaluate(int8_trainer.val_nids)
+    int8_train_counts = counts()
+    steps = len(int8_trainer.step_ms)
+    eval_batches = -(-int8_trainer.val_nids.size // TRAIN_BATCH)
+    losses = int8_trainer.step_losses
+    require(all(np.isfinite(losses)) and np.isfinite(tr_loss),
+            f"non-finite int8 training loss: {losses}")
+    require(float(np.mean(losses[-4:])) < losses[0],
+            f"int8 loss did not fall: first {losses[0]}, last 4 {losses[-4:]}")
+    require([int8_train_counts[k] for k in (
+        "gather_agg_fwd", "gather_agg_bwd_dx", "gather_agg_bwd_dw",
+        "block_transpose")] == [2 * steps + 2 * eval_batches, 2 * steps, 0,
+                                2 * steps]
+            and sum(int8_train_counts.values()) == 6 * steps
+            + 2 * eval_batches,
+            f"int8 epoch + evaluate launched {int8_train_counts}")
+    int8_train = {
+        "engine": "GSSAMPLEALLGPU", "feature_dtype": "int8",
+        "model": "sage 602-128-41", "fanout": TRAIN_FANOUT,
+        "batch": TRAIN_BATCH, "steps": steps, "losses": losses,
+        "step_ms_median_after_first": statistics.median(
+            int8_trainer.step_ms[1:]),
+        "f32_step_ms_median_after_first": f32_step_ms,
+        "epoch_s": epoch_s, "edges_per_epoch": edges,
+        "train_acc": tr_acc, "val_acc": val_acc,
+        "feature_bytes": int8_feature_bytes,
+        "f32_feature_bytes": f32_train_feature_bytes,
+        "overflow": int8_trainer.last_overflow,
+        "launches": int8_train_counts}
+    del int8_trainer
+    # (b) int8 GCNFULLBATCH: the first epoch's loss against the CPU at scale
+    # 0.25, drop 0; then 5 epochs at scale 1.0, drop 0.5
+    small = reddit_like_dataset(seed=0, scale=FULL_EXACT_SCALE)
+    cfg8 = dataclasses.replace(
+        full_cfg("GCNFULLBATCH", 1, small.num_vertices, 0.0),
+        feature_dtype="int8")
+    card_loss = build_trainer(cfg8, small).base.train_epoch()[0]
+    t0 = time.perf_counter()
+    cpu_loss = build_trainer(cfg8, small, device="cpu").base.train_epoch()[0]
+    cpu_s = time.perf_counter() - t0
+    loss_diff = abs(card_loss - cpu_loss)
+    require(loss_diff <= TRAIN_LOSS_ATOL,
+            f"int8 GCNFULLBATCH card vs CPU first loss: {loss_diff}")
+    del small
+    base8 = build_trainer(dataclasses.replace(
+        full_cfg("GCNFULLBATCH", 1, ds.num_vertices, 0.5),
+        feature_dtype="int8"), ds).base
+    require(base8.x.dtype == torch.int8, "int8 GCNFULLBATCH x is not int8")
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hist = []
+    for _ in range(FULL_EPOCHS):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, tr_acc, va_acc, te_acc = base8.train_epoch()
+        torch.cuda.synchronize()
+        hist.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                     "train": tr_acc, "val": va_acc, "test": te_acc})
+        now = counts()
+        got = {n: now[n] - before[n] for n in now if now[n] != before[n]}
+        require(got == {"spmm_csr": 4, "spmm_csr_bwd": 2},
+                f"int8 GCNFULLBATCH epoch launched {got}")
+    int8_full_counts = counts()
+    epoch_peak = torch.cuda.max_memory_allocated() - state_bytes
+    losses = [h["loss"] for h in hist]
+    require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+            f"int8 GCNFULLBATCH losses not finite or not falling: {losses}")
+    int8_full = {
+        "engine": "GCNFULLBATCH", "feature_dtype": "int8",
+        "model": "gcn 602-128-41", "epochs": hist,
+        "epoch_ms_median_after_first": statistics.median(
+            h["ms"] for h in hist[1:]),
+        "f32_epoch_ms_median_after_first": next(
+            r["epoch_ms_median_after_first"] for r in full_runs
+            if r["engine"] == "GCNFULLBATCH"),
+        "first_loss_card_vs_cpu_abs_diff": loss_diff,
+        "exact_scale": FULL_EXACT_SCALE, "loss_atol": TRAIN_LOSS_ATOL,
+        "host_cpu_epoch_s": cpu_s,
+        "feature_bytes": base8.x.numel() * base8.x.element_size(),
+        "epoch_peak_bytes_above_state": epoch_peak,
+        "launches": int8_full_counts}
+    del base8
+    # (c) resume: 2 epochs straight against 1, save, restore, 1
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    straight = build_trainer(dev_cfg, ds)
+    straight.train_epoch()
+    straight.train_epoch()
+    first = build_trainer(dev_cfg, ds)
+    first.train_epoch()
+    mgr = CheckpointManager(str(ckpt_dir))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = mgr.save(0, first)
+    save_s = time.perf_counter() - t0
+    save_bytes = os.path.getsize(path)
+    del first
+    resumed = build_trainer(dev_cfg, ds)
+    t0 = time.perf_counter()
+    require(mgr.restore(resumed) == 0, "restore found no step 0")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    resumed.train_epoch()
+    resume_errs = [rel_err(b, a) for a, b in zip(
+        straight.params.leaves(), resumed.params.leaves())]
+    require(max(resume_errs) <= TRAIN_GRAD_RTOL,
+            f"resumed vs straight parameters: {resume_errs}")
+    bit_identical = all(torch.equal(a, b) for a, b in zip(
+        straight.params.leaves(), resumed.params.leaves()))
+    del straight, resumed
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit({"phase": "train_extras", "int8_device_sampled": int8_train,
+          "int8_fullbatch": int8_full,
+          "resume": {"engine": "GSSAMPLEALLGPU", "epochs": "2 straight vs "
+                     "1 + save + restore + 1", "param_rel_err": resume_errs,
+                     "tol": TRAIN_GRAD_RTOL, "bit_identical": bit_identical,
+                     "save_s": save_s, "restore_s": restore_s,
+                     "checkpoint_bytes": save_bytes},
+          "phase_s": time.perf_counter() - extras_t0})
+
+    # ---- 17. the CLI on the shipped Cora configs (subprocesses) ------------
+    extras_t0 = time.perf_counter()
+    cli_dir = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    cli_dir.mkdir(parents=True)
+
+    def cli(cfg_name, *flags):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "sgnn_tpu_torch", f"configs/{cfg_name}",
+             *flags], cwd=ROOT, capture_output=True, text=True, timeout=300)
+        lines = [ln for ln in out.stderr.splitlines()
+                 if "accuracy" in ln or "eval:" in ln or "final" in ln]
+        return out, {"cfg": cfg_name, "flags": list(flags),
+                     "rc": out.returncode,
+                     "wall_s": time.perf_counter() - t0,
+                     "accuracies": [ln.split("] ", 1)[-1] for ln in lines]}
+
+    def read_report(json_path):
+        with open(json_path) as f:
+            return json.load(f)
+
+    ck, runs, outs = str(cli_dir / "ckpt"), [], []
+    for cfg_name, flags in (
+            ("gs_cora_sample.cfg", ("--epochs", "2", "--checkpoint-dir", ck,
+                                    "--report-out", str(cli_dir / "r1.json"))),
+            ("gs_cora_sample.cfg", ("--epochs", "3", "--checkpoint-dir", ck,
+                                    "--resume", "--report-out",
+                                    str(cli_dir / "r2.json"))),
+            ("gs_cora_sample.cfg", ("--infer", ck, "--predictions-out",
+                                    str(cli_dir / "p.npy"))),
+            ("gcn_cora_fullbatch.cfg", ("--epochs", "5", "--exact-eval",
+                                        "--profile", str(cli_dir / "trace"))),
+            ("gat_cora_sample.cfg", ("--epochs", "2", "--exact-eval"))):
+        out, row = cli(cfg_name, *flags)
+        require(out.returncode == 0, f"CLI {cfg_name} {flags} exited "
+                f"{out.returncode}: {out.stderr[-2000:]}")
+        outs.append(out)
+        runs.append(row)
+    require(len(read_report(cli_dir / "r1.json")["epoch_times"]) == 2,
+            "the first CLI run did not train 2 epochs")
+    require(len(read_report(cli_dir / "r2.json")["epoch_times"]) == 1
+            and "resuming at epoch 2 of 3" in outs[1].stderr,
+            "the resumed CLI run did not start at the third epoch")
+    pred = np.load(cli_dir / "p.npy")
+    require(pred.shape == (2708, 7) and float(np.abs(
+        np.exp(pred).sum(1) - 1).max()) <= 1e-3,
+            f"--infer predictions {pred.shape} do not sum to 1")
+    require((cli_dir / "trace" / "trace.json").stat().st_size > 0,
+            "--profile wrote no trace")
+    out, row = cli("gcn_cora_sample.cfg")
+    require(out.returncode != 0 and "item 5" in out.stderr,
+            f"the PD-cache cfg exited {out.returncode}: {out.stderr[-500:]}")
+    runs.append(row)
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    emit({"phase": "cli", "runs": runs,
+          "phase_s": time.perf_counter() - extras_t0})
+
+    # ---- 18. kernels -------------------------------------------------------
     # one logprobs() pass's work: the F=128 and the F=41 f32 SpMMs
     per_pass = [t for t in timings if t["dtype"] == "float32"]
 
@@ -1857,6 +2250,27 @@ def main() -> int:
              f"all columns by CUDA-graph replay")):
         kernels.append(line(kname, rows, f"sgnn_tpu_torch/csrc/{source}",
                             replaces, probe_counts[kname], what))
+    # the launches of each kernel on the paths of the serving and training
+    # extras (each counted from zeros; `launches` stays the main path's)
+    by_path = {
+        "spmm_csr": {"serving+queries": launches,
+                     "int8_serving": int8_serve_counts["spmm_csr"],
+                     "chunked_layerwise_gcn": chunk_counts["gcn"]["spmm_csr"],
+                     "int8_fullbatch": int8_full_counts["spmm_csr"]},
+        "gat_aggregate": {
+            "serving_gat": gat_launches,
+            "int8_serving": int8_serve_counts["gat_aggregate"],
+            "chunked_layerwise_gat": chunk_counts["gat"]["gat_aggregate"]},
+        "spmm_csr_bwd": {"train_full": full_counts["spmm_csr_bwd"],
+                         "int8_fullbatch": int8_full_counts["spmm_csr_bwd"]}}
+    for k in kernels:
+        if k["name"] in by_path:
+            k["launches_by_path"] = by_path[k["name"]]
+        elif k["name"] in ("gather_agg_fwd", "gather_agg_bwd_dx",
+                           "block_transpose"):
+            k["launches_by_path"] = {
+                "train_device": k["launches"],
+                "int8_device_sampled": int8_train_counts[k["name"]]}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -132,7 +132,7 @@ class RunConfig:
     # quantized — 4x the rows of f32 in the same HBM (data/quant.py)
     feature_dtype: str = ""
     # HBM byte budget for feature residency decisions (0 = probe the live
-    # device, utils/profiling.device_memory_stats).  Mirrors the reference's
+    # device, utils/profiling.memory_budget).  Mirrors the reference's
     # free-memory probe determine_cache_node_idx (GCN_SAMPLE_PD_CACHE.hpp:
     # 1039); a forced value makes beyond-HBM behavior testable anywhere.
     hbm_budget: int = 0

@@ -20,7 +20,7 @@ By construction every kept slot's local index is below the hop's
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -151,6 +151,7 @@ def device_sample_batch(
     src_pads: Tuple[int, ...],
     weight_kind: WeightKind = WeightKind.GCN,
     degree_mode: str = "sampled",
+    feat_scale: Optional[torch.Tensor] = None,
     compute_dtype: torch.dtype = torch.float32,
 ) -> SampledBatch:
     """Sample an L-hop batch on the seeds' device and gather its payload.
@@ -159,7 +160,10 @@ def device_sample_batch(
     whole-graph CSC; `src_pads[h]` is the static source-set bound of hop h
     (seed hop first).  Returns blocks in input→output order, x0 gathered
     from `features` (or `features` itself on the identity bottom hop), and
-    the overflow count."""
+    the overflow count.  `feat_scale` ([F] per-column scales) marks
+    `features` as int8 storage (FEATURE_DTYPE:int8, data/quant.py): the
+    gathered rows are dequantized to `compute_dtype`, and the identity
+    bottom hop is off (it would hand over the whole quantized matrix)."""
     blocks: List[SampledBlock] = []
     cur_seeds, cur_valid = seeds, seed_valid
     num_vertices = indptr.shape[0] - 1
@@ -168,7 +172,8 @@ def device_sample_batch(
     for h, f in enumerate(fanouts):
         last = h == len(fanouts) - 1
         identity = (last and src_pads[h] == num_vertices
-                    and features.shape[0] == num_vertices)
+                    and features.shape[0] == num_vertices
+                    and feat_scale is None)
         blk, n_over = _sample_hop(
             generator, cur_seeds, cur_valid, indptr, indices, f, src_pads[h],
             weight_kind, in_degree, out_degree, identity_srcs=identity,
@@ -182,6 +187,8 @@ def device_sample_batch(
     else:
         b0 = blocks[0]
         rows = features.index_select(0, b0.srcs.long())
+        if feat_scale is not None:
+            rows = rows.to(compute_dtype) * feat_scale.to(compute_dtype)
         x0 = torch.where(b0.src_valid[:, None], rows,
                          torch.zeros((), dtype=rows.dtype, device=rows.device))
     top = blocks[-1]

@@ -18,6 +18,7 @@ CUDA graphs are later work.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -30,6 +31,7 @@ from ..graph.adjacency import Adjacency
 from ..sampler.blocks import WeightKind, pad_to
 from ..sampler.device import device_sample_batch
 from ..utils.logging import get_logger
+from ..utils.profiling import memory_budget
 from .trainer import SampleTrainer
 
 log = get_logger("sgnn.dev")
@@ -37,18 +39,12 @@ log = get_logger("sgnn.dev")
 
 def feature_capacity(feature_dim: int, itemsize: int, device: torch.device,
                      budget_bytes: Optional[int] = None) -> int:
-    """How many feature rows fit in free device memory: half the card's
-    free memory (`torch.cuda.mem_get_info`; activations and the graph share
-    the rest), or a forced `budget_bytes` (HBM_BUDGET), or 1 GiB on the
-    CPU, as the JAX package does for a backend without memory statistics
-    (hbm_feature_capacity)."""
-    if budget_bytes is None:
-        if device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(device)
-            budget_bytes = free // 2
-        else:
-            budget_bytes = 1 << 30
-    return max(int(budget_bytes) // max(feature_dim * itemsize, 1), 0)
+    """How many feature rows fit the device-memory budget
+    (`utils.profiling.memory_budget`: half the card's free memory, a
+    forced `budget_bytes` (HBM_BUDGET), or 1 GiB on the CPU, as the JAX
+    package does for a backend without memory statistics)."""
+    budget = memory_budget(device, budget_bytes)
+    return max(budget // max(feature_dim * itemsize, 1), 0)
 
 
 class FeaturesExceedHbm(ValueError):
@@ -84,23 +80,28 @@ class DeviceSampleTrainer(SampleTrainer):
         if dataset.features is not None:
             # residency probe (reference determine_cache_node_idx,
             # GCN_SAMPLE_PD_CACHE.hpp:1039): device sampling needs resident
-            # features
+            # features.  If they miss at the requested dtype but fit at
+            # int8, quantize (FEATURE_DTYPE:int8); if even int8 misses,
+            # raise FeaturesExceedHbm and the engine registry falls back to
+            # the host-sampled path
             v, f_dim = dataset.features.shape
             fd = (cfg.feature_dtype or cfg.dtype).lower()
             itemsize = {"int8": 1, "bfloat16": 2}.get(fd, 4)
             cap = feature_capacity(f_dim, itemsize, dev, hbm_budget_bytes)
             if cap < v:
-                if fd != "int8" and feature_capacity(
-                        f_dim, 1, dev, hbm_budget_bytes) >= v:
-                    raise NotImplementedError(
-                        f"features exceed device memory at {fd} ({cap} of "
-                        f"{v} rows fit) but would fit at int8: int8 features "
-                        "wait for the serving-extras slice (ROADMAP Queue 1 "
-                        "item 4)")
-                raise FeaturesExceedHbm(
-                    f"feature matrix needs {v} rows but only {cap} fit in "
-                    "device memory — use a host-sampled engine "
-                    "(e.g. GCNSAMPLEGPU)")
+                cap8 = feature_capacity(f_dim, 1, dev, hbm_budget_bytes)
+                if fd != "int8" and cap8 >= v:
+                    log.warning(
+                        "features exceed device memory at %s (%d of %d rows "
+                        "fit): auto-switching FEATURE_DTYPE to int8 "
+                        "(capacity probe; set FEATURE_DTYPE explicitly to "
+                        "silence)", fd, cap, v)
+                    cfg = dataclasses.replace(cfg, feature_dtype="int8")
+                else:
+                    raise FeaturesExceedHbm(
+                        f"feature matrix needs {v} rows but only {cap8} fit "
+                        "in device memory even at int8 — use a host-sampled "
+                        "engine (e.g. GCNSAMPLEGPU)")
         super().__init__(
             cfg, dataset, family=family, weight_kind=weight_kind,
             degree_mode=degree_mode, bias_correction=bias_correction, adj=adj,
@@ -184,6 +185,18 @@ class DeviceSampleTrainer(SampleTrainer):
                  batch_size, exact, tuple(est_pads))
         return tuple(est_pads)
 
+    # ----------------------------------------------------------- checkpoint
+    def checkpoint_state(self) -> dict:
+        """The host-sampled trainer's state plus the device sampler's
+        generator."""
+        state = super().checkpoint_state()
+        state["sample_rng"] = self.sample_generator.get_state()
+        return state
+
+    def load_checkpoint_state(self, state: dict) -> None:
+        super().load_checkpoint_state(state)
+        self.sample_generator.set_state(state["sample_rng"])
+
     # ---------------------------------------------------------------- steps
     def sample(self, seeds: torch.Tensor, valid: torch.Tensor):
         """One device-sampled batch for padded seeds."""
@@ -192,7 +205,7 @@ class DeviceSampleTrainer(SampleTrainer):
             self.dev_indices, self.dev_in_deg, self.dev_out_deg,
             self.dev_features, self.dev_labels, tuple(self.cfg.fanout),
             self.src_pads, self.weight_kind, degree_mode=self.dev_degree_mode,
-            compute_dtype=self.compute_dtype)
+            feat_scale=self._feat_scale, compute_dtype=self.compute_dtype)
 
     def _seed_batches(self, nids: np.ndarray, shuffle: bool):
         nids = np.asarray(nids, dtype=np.int32)

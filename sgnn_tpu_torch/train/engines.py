@@ -113,8 +113,8 @@ def _not_ported(spec: EngineSpec, cfg: RunConfig) -> Optional[str]:
     if cfg.pushdown:
         return "PUSHDOWN: the PD-cache composition (ROADMAP Queue 1 item 5)"
     if getattr(cfg, "estimator_advisor", "warn") == "route":
-        return ("ESTIMATOR_ADVISOR:route: the advisor (ROADMAP Queue 1 "
-                "item 5)")
+        return ("ESTIMATOR_ADVISOR:route: the advisor's PUSHDOWN routing "
+                "(ROADMAP Queue 1 item 5)")
     if (cfg.reorder or "none").lower() not in ("none", ""):
         return reorder
     return None
@@ -161,6 +161,12 @@ class FullBatchEngine:
 
     def evaluate(self, nids) -> float:
         return self.base.evaluate(nids)
+
+    def checkpoint_state(self) -> dict:
+        return self.base.checkpoint_state()
+
+    def load_checkpoint_state(self, state: dict) -> None:
+        self.base.load_checkpoint_state(state)
 
     def run(self, epochs: Optional[int] = None):
         from ..utils.timing import PhaseTimer

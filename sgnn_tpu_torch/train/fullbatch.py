@@ -28,6 +28,18 @@ float32: TF32 keeps only about three decimal digits and the port is held
 to the reference at 1e-5.  `InferenceServer` and `FullBatchTrainer` switch
 TF32 off when they are built on CUDA; a caller of `full_forward` alone on
 the card owns that flag.
+
+int8 features (FEATURE_DTYPE:int8, data/quant.py) enter as the int8 matrix
+and its [F] per-column scales, `x_scale`: dequantization commutes with the
+layer-0 product and with the aggregation, so the scales fold into W0 (row
+f of W0 times scale[f], as sgnn_tpu/train/fullbatch.py:146-157) and the
+int8 levels are used as floats.  Where layer 0 starts with its product
+(transform-first, GAT, min/max) the levels are converted in blocks of
+INT8_BLOCK_ROWS rows before the product and again in its backward, so the
+f32 transient is one block ([65,536, F], 158 MB at F=602) and not the
+[V, F] matrix, and training keeps no f32 copy for the backward; where it
+starts with the aggregation (in <= out, features no wider than the layer)
+the whole matrix is converted, no larger than the layer's output.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ import torch
 from .. import resolve_device
 from ..config import RunConfig
 from ..data.dataset import Dataset, MASK_TEST, MASK_TRAIN, MASK_VAL
+from ..data.quant import quantize_columns
 from ..graph.adjacency import Adjacency
 from ..models.gnn import GNNParams, check_heads, init_model
 from ..nn.functional import BN_EPS, dropout, log_softmax, nll_loss_masked
@@ -50,9 +63,16 @@ from ..ops.reductions import segment_extreme
 from ..ops.segment import Csr, SpmmCsr, csr_from_numpy, csr_transpose, spmm_csr
 from ..sampler.blocks import WeightKind
 from ..utils.logging import get_logger
+from .checkpoint import (
+    load_opt_state, load_params, opt_state_dict, params_state,
+)
 from .guard import check_finite_loss
 
 log = get_logger("sgnn.full")
+
+# rows of int8 features converted to floats at a time before the layer-0
+# product (full_forward): bounds the f32 transient of int8 residency
+INT8_BLOCK_ROWS = 1 << 16
 
 AGGREGATORS = ("sum", "min", "max")
 
@@ -93,6 +113,32 @@ def _bn(t: torch.Tensor) -> torch.Tensor:
     return ((t32 - mu) * torch.rsqrt(var + BN_EPS)).to(t.dtype)
 
 
+class _RowsMatmul(torch.autograd.Function):
+    """x @ w for int8 levels x: converted to w's dtype INT8_BLOCK_ROWS rows
+    at a time, each block's product written into one [V, out] result.  The
+    backward (w's gradient, x^T g) converts the same blocks again, so only
+    the int8 x is kept between the passes."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        out = w.new_empty(x.shape[0], w.shape[1])
+        for a in range(0, x.shape[0], INT8_BLOCK_ROWS):
+            b = a + INT8_BLOCK_ROWS
+            torch.matmul(x[a:b].to(w.dtype), w, out=out[a:b])
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        gw = None
+        for a in range(0, x.shape[0], INT8_BLOCK_ROWS):
+            b = a + INT8_BLOCK_ROWS
+            part = x[a:b].to(g.dtype).t().matmul(g[a:b])
+            gw = part if gw is None else gw.add_(part)
+        return None, gw
+
+
 def _gat_layer(ht: torch.Tensor, attn: torch.Tensor, csr: Csr,
                csr_t: Optional[Csr], dst_rows: Optional[torch.Tensor],
                heads: int) -> torch.Tensor:
@@ -126,6 +172,7 @@ def full_forward(
     graph_t: Optional[Csr] = None,
     drop_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    x_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """L-layer forward: [rows of the last graph, C] float32 log-probs.
 
@@ -147,7 +194,11 @@ def full_forward(
     an input or parameter requiring grad) through a sum or attention
     aggregation raises without it.  `drop_rate` > 0 with a `generator`
     applies dropout to each hidden layer's activations (drawn from the
-    generator, on x's device)."""
+    generator, on x's device).
+
+    `x_scale` ([F] per-column scales, float32 or bfloat16) marks an int8
+    `x` (FEATURE_DTYPE:int8): W0 becomes W0 · x_scale[:, None], and the
+    int8 levels enter as x_scale's dtype (module docstring)."""
     check_ported(family, aggregator)
     check_heads(params, family, heads)
     n_layers = len(params.weights)
@@ -169,6 +220,13 @@ def full_forward(
             raise ValueError("full_forward trains over the whole graph only")
     csr_t = graph_t if recorded else None
     train_drop = drop_rate > 0.0 and generator is not None
+    if x.dtype == torch.int8:
+        if x_scale is None:
+            raise ValueError("int8 features need x_scale")
+        w0 = params.weights[0] * x_scale.to(params.weights[0].dtype)[:, None]
+        params = params._replace(weights=(w0, *params.weights[1:]))
+    elif x_scale is not None:
+        raise ValueError(f"x_scale is for int8 features, x is {x.dtype}")
 
     def hidden(t: torch.Tensor) -> torch.Tensor:
         t = torch.relu(_bn(t) if batch_norm else t)
@@ -183,19 +241,24 @@ def full_forward(
     for l, (wl, csr, rows) in enumerate(zip(params.weights, graphs,
                                             dst_rows)):
         last = l == n_layers - 1
-        wl = wl.to(h.dtype)
+        if h.dtype == torch.int8:
+            wl = wl.to(x_scale.dtype)
+            matmul = _RowsMatmul.apply
+        else:
+            wl = wl.to(h.dtype)
+            matmul = torch.matmul
         if minmax:
-            h = segment_extreme(torch.matmul(h, wl), csr.rowptr, csr.col,
+            h = segment_extreme(matmul(h, wl), csr.rowptr, csr.col,
                                 aggregator)
         elif family == "gat":
-            h = _gat_layer(torch.matmul(h, wl), params.attn[l], csr, csr_t,
+            h = _gat_layer(matmul(h, wl), params.attn[l], csr, csr_t,
                            rows, 1 if last else heads)
             if last:
                 h = torch.relu(h)
         elif wl.shape[0] > wl.shape[1]:  # transform-first: fewer columns
-            h = spmm(torch.matmul(h, wl), csr)
+            h = spmm(matmul(h, wl), csr)
         else:
-            h = torch.matmul(spmm(h, csr), wl)
+            h = torch.matmul(spmm(h.to(wl.dtype), csr), wl)
         h = log_softmax(h.float()) if last else hidden(h)
     return h
 
@@ -219,11 +282,15 @@ class FullBatchTrainer:
 
     PARTITION_GRAPH (through `FullBatchEngine`, which warns) and
     HALO:targeted run the single-device program, as the JAX package does
-    on one device: HALO is kept on `.halo` and read only under a mesh.  Not
-    ported yet, raising NotImplementedError with the ROADMAP item: a mesh
-    (item 6), FEATURE_DTYPE:int8 and checkpoints (item 4).  `device=None`
-    means CUDA and raises without a card; `device="cpu"` runs the kernels'
-    plain versions."""
+    on one device: HALO is kept on `.halo` and read only under a mesh.
+    FEATURE_DTYPE:int8 keeps the features quantized on the device
+    (`.x` int8, `.x_scale` [F] in the compute dtype), folded into W0 by
+    `full_forward`.  `checkpoint_state` / `load_checkpoint_state` carry
+    the parameters, the optimizer state and the dropout generator
+    (train/checkpoint.py).  A mesh (vertex-sharded training, int8 shards
+    included) raises NotImplementedError naming ROADMAP item 6.
+    `device=None` means CUDA and raises without a card; `device="cpu"`
+    runs the kernels' plain versions."""
 
     def __init__(
         self,
@@ -248,10 +315,7 @@ class FullBatchTrainer:
         # read only under a mesh, as in the JAX package
         self.halo = halo
         fd = (cfg.feature_dtype or cfg.dtype).lower()
-        if fd == "int8":
-            raise NotImplementedError(
-                "FEATURE_DTYPE:int8 waits for the serving-extras slice "
-                "(ROADMAP Queue 1 item 4)")
+        self.feature_int8 = fd == "int8"
         self.cfg = cfg
         self.dataset = dataset
         self.family = family
@@ -281,8 +345,16 @@ class FullBatchTrainer:
             self.csr_t = csr_from_numpy(rowptr_t, col_t, w_t, v, self.device)
         self.compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                               else torch.float32)
-        self.x = torch.from_numpy(np.ascontiguousarray(
-            dataset.features, np.float32)).to(self.device, self.compute_dtype)
+        self.x_scale = None
+        if self.feature_int8:
+            q, scale = quantize_columns(dataset.features)
+            self.x = torch.from_numpy(q).to(self.device)
+            self.x_scale = torch.from_numpy(scale).to(self.device,
+                                                      self.compute_dtype)
+        else:
+            self.x = torch.from_numpy(np.ascontiguousarray(
+                dataset.features, np.float32)).to(self.device,
+                                                  self.compute_dtype)
         self.y = torch.from_numpy(dataset.labels.astype(np.int64)).to(
             self.device)
         self.masks = [torch.from_numpy(dataset.masks == m).to(self.device)
@@ -308,7 +380,8 @@ class FullBatchTrainer:
             batch_norm=self.cfg.batch_norm, aggregator=self.aggregator,
             heads=self.cfg.heads, graph_t=self.csr_t if train else None,
             drop_rate=self.cfg.drop_rate if train else 0.0,
-            generator=self.generator if train else None)
+            generator=self.generator if train else None,
+            x_scale=self.x_scale)
 
     # ------------------------------------------------------------------ run
     def train_epoch(self) -> Tuple[float, float, float, float]:
@@ -357,13 +430,17 @@ class FullBatchTrainer:
         labels = np.asarray(self.dataset.labels)
         return float((pred[nids] == labels[nids]).mean())
 
-    def checkpoint_state(self):
-        raise NotImplementedError("checkpoints wait for the serving-extras "
-                                  "slice (ROADMAP Queue 1 item 4)")
+    def checkpoint_state(self) -> dict:
+        """Parameters, optimizer state and the dropout generator: what a
+        bit-identical resume needs (train/checkpoint.py)."""
+        return {"params": params_state(self.params),
+                "opt_state": opt_state_dict(self.opt_state),
+                "dropout_rng": self.generator.get_state()}
 
-    def load_checkpoint_state(self, state) -> None:
-        raise NotImplementedError("checkpoints wait for the serving-extras "
-                                  "slice (ROADMAP Queue 1 item 4)")
+    def load_checkpoint_state(self, state: dict) -> None:
+        self.params = load_params(state["params"], self.params)
+        self.opt_state = load_opt_state(state["opt_state"], self.opt_state)
+        self.generator.set_state(state["dropout_rng"])
 
     def run(self, epochs: Optional[int] = None) -> List[dict]:
         epochs = epochs or self.cfg.epochs

@@ -7,8 +7,11 @@ The port's counterpart of `sgnn_tpu/train/inference.py`:
   `query(nids)` walks the CSC L hops back from the queried vertices on the
   host, exactly as the JAX server plans it (same numpy fanout draws for the
   same `seed`), and runs the forward over just that neighborhood.
-* `layerwise_inference` (whole-graph mode) and `exact_accuracy` are one
-  pass of a server built for the call.
+* `layerwise_inference` is one pass of a server built for the call
+  (whole-graph mode) or, for graphs beyond device memory, a layer-by-layer
+  pass over destination chunks with the activations on the host (chunked
+  mode; the mode is picked by a device-memory estimate unless given);
+  `exact_accuracy` reads either.
 
 The graph stays the CSC arrays, used as a CSR over destinations: `rowptr`
 is `adj.indptr` (int64), `col` is `adj.indices` (int32), `w` the serving
@@ -28,9 +31,10 @@ reductions (the JAX server's AGGREGATOR): every layer transform-first,
 then the elementwise extreme over each destination's in-edges
 (ops/reductions.py), in `logprobs()` and in `query()` alike.
 
-Not ported yet, and raising NotImplementedError with the ROADMAP.md item:
-int8 residency, and the chunked beyond-device-memory mode of
-`layerwise_inference` (`whole_graph=False`).
+int8 residency (`dtype="int8"`) keeps the per-column quantized features
+(data/quant.py) and their [F] scales on the device: `logprobs()` folds the
+scales into W0 (train/fullbatch.full_forward), `query()` dequantizes the
+gathered rows.
 """
 
 from __future__ import annotations
@@ -41,30 +45,35 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..data.quant import quantize_columns
 from ..graph.adjacency import Adjacency
 from ..models.gnn import GNNParams, check_heads
-from ..ops.segment import csr_from_numpy
+from ..nn.functional import BN_EPS, log_softmax
+from ..ops.gat import gat_aggregate, pack_score_tables
+from ..ops.segment import csr_from_numpy, spmm_csr
 from ..sampler.blocks import WeightKind
+from ..sampler.native import gather_rows
+from ..utils.logging import get_logger
+from ..utils.profiling import memory_budget
+from ..utils.timing import PhaseTimer
 from .fullbatch import build_coo, check_ported, full_forward
+
+log = get_logger("sgnn.infer")
 
 _DEFAULT_WEIGHTS = {"gcn": WeightKind.GCN, "sage": WeightKind.MEAN,
                     "gat": WeightKind.NONE}
 
 
 def _resident_dtype(dtype) -> torch.dtype:
-    """float32 or bfloat16 residency, given as a torch dtype, a numpy
-    dtype or a name; int8 residency is not ported yet."""
+    """float32, bfloat16 or int8 residency, given as a torch dtype, a
+    numpy dtype or a name."""
     if dtype == "bfloat16":
         dtype = torch.bfloat16
     elif not isinstance(dtype, torch.dtype):
         dtype = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.int8): torch.int8}.get(np.dtype(dtype), dtype)
-    if dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 feature residency is not ported yet: ROADMAP.md Queue 1 "
-            "item 4 (serving extras)")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"serving residency is float32 or bfloat16, "
+    if dtype not in (torch.float32, torch.bfloat16, torch.int8):
+        raise ValueError(f"serving residency is float32, bfloat16 or int8, "
                          f"not {dtype}")
     return dtype
 
@@ -100,14 +109,18 @@ def _in_edges(indptr: np.ndarray, dsts: np.ndarray):
 
 def _query_forward(params: GNNParams, x_all: torch.Tensor,
                    gids0: torch.Tensor, layers, dst_rows, family: str,
-                   aggregator: str = "sum", heads: int = 1) -> torch.Tensor:
+                   aggregator: str = "sum", heads: int = 1,
+                   x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact forward over an L-hop query neighborhood: gather the bottom
-    source rows, then one full_forward layer per hop CSR (`layers`, bottom
+    source rows (int8 rows dequantized by `x_scale`, as the JAX query
+    does), then one full_forward layer per hop CSR (`layers`, bottom
     first; layer l's rows are layer l+1's sources, the sets are nested, and
     `dst_rows[l]` places layer l's destinations among its sources)."""
-    return full_forward(params, family, x_all.index_select(0, gids0), layers,
-                        aggregator=aggregator, heads=heads,
-                        dst_rows=dst_rows)
+    h = x_all.index_select(0, gids0)
+    if x_scale is not None:
+        h = h.to(x_scale.dtype) * x_scale
+    return full_forward(params, family, h, layers, aggregator=aggregator,
+                        heads=heads, dst_rows=dst_rows)
 
 
 class InferenceServer:
@@ -117,7 +130,11 @@ class InferenceServer:
     then one whole-graph pass over resident tensors, `query(nids)` one pass
     over the queried vertices' L-hop neighborhood, and `update_params`
     swaps in fresh weights between passes.  `dtype=torch.bfloat16` halves
-    residency (the classification head still ends in f32 log_softmax).
+    residency (the classification head still ends in f32 log_softmax);
+    `dtype="int8"` (or torch.int8 / np.int8) quarters it: the features are
+    quantized per column (data/quant.py) and kept as int8 with their [F]
+    f32 scales, which `logprobs()` folds into W0 and `query()` applies to
+    the gathered rows.
     `family="gat"` serves GAT models with `heads` attention heads on the
     hidden layers (the last is single-head); GCN/SAGE ignore `heads`.
 
@@ -157,23 +174,31 @@ class InferenceServer:
         self._weight_kind = weight_kind
         self._mean_style = mean_style
         self._qrng = np.random.default_rng(0)  # query(fanout=...) draws
-        if self.device.type == "cuda":
-            # the precision choice of the whole package: f32 products in
-            # full f32 (TF32 keeps ~3 decimal digits; serving is held to the
-            # CPU pass at 1e-4).  Process-wide, like every torch.backends flag.
-            torch.backends.cuda.matmul.allow_tf32 = False
+        _full_f32_products(self.device)
         src, w = _serving_coo(adj, weight_kind, mean_style)
         self.csr = csr_from_numpy(adj.indptr, src, w, adj.num_vertices,
                                   self.device)
-        self._x = torch.from_numpy(
-            np.ascontiguousarray(features, np.float32)).to(
-                self.device).to(self.dtype)
+        self._x_scale = None
+        if self.dtype == torch.int8:
+            q, scale = quantize_columns(features)
+            self._x = torch.from_numpy(q).to(self.device)
+            self._x_scale = torch.from_numpy(scale).to(self.device)
+        else:
+            self._x = torch.from_numpy(
+                np.ascontiguousarray(features, np.float32)).to(
+                    self.device).to(self.dtype)
         # host-side CSC + serving weights for query-neighborhood planning
         self._h_indptr = adj.indptr.astype(np.int64)
         self._h_indices = src
         self._h_w = w
         self._seen_query_shapes: set = set()
         self.update_params(params)
+
+    @property
+    def feature_bytes(self) -> int:
+        """Bytes of the resident feature matrix (int8: the levels; the [F]
+        f32 scales add 4·F bytes)."""
+        return self._x.numel() * self._x.element_size()
 
     def update_params(self, params: GNNParams) -> None:
         check_heads(params, self.family, self.heads)
@@ -203,7 +228,8 @@ class InferenceServer:
         `as_numpy=False` keeps the result on the device."""
         logp = full_forward(self.params, self.family, self._x, self.csr,
                             batch_norm=self.batch_norm,
-                            aggregator=self.aggregator, heads=self.heads)
+                            aggregator=self.aggregator, heads=self.heads,
+                            x_scale=self._x_scale)
         return logp.cpu().numpy() if as_numpy else logp
 
     def predict(self) -> np.ndarray:
@@ -282,8 +308,48 @@ class InferenceServer:
         dst_rows = [torch.from_numpy(p[4]).to(self.device) for p in plan]
         gids0 = torch.from_numpy(plan[0][0]).to(self.device)
         logp = _query_forward(self.params, self._x, gids0, layers, dst_rows,
-                              self.family, self.aggregator, self.heads)
+                              self.family, self.aggregator, self.heads,
+                              self._x_scale)
         return logp.cpu().numpy()[inv]
+
+
+def _unique_inverse(ids: np.ndarray):
+    """`np.unique(ids, return_inverse=True)` (the same two arrays, int32)
+    for non-negative int32 ids, by one value sort of (id, position) keys
+    instead of numpy's argsort: O(n log n) in the ids alone, whatever the
+    number of vertices they index."""
+    n = ids.size
+    key = (ids.astype(np.int64) << 32) | np.arange(n, dtype=np.int64)
+    key.sort()
+    s = (key >> 32).astype(np.int32)
+    new = np.empty(n, bool)
+    new[:1] = True
+    np.not_equal(s[1:], s[:-1], out=new[1:])
+    inv = np.empty(n, np.int32)
+    inv[key & 0xFFFFFFFF] = np.cumsum(new, dtype=np.int32) - 1
+    return s[new], inv
+
+
+def _full_f32_products(device: torch.device) -> None:
+    """The precision choice of the whole package: f32 products in full f32
+    on the card (TF32 keeps ~3 decimal digits; serving is held to the CPU
+    pass at 1e-4).  Process-wide, like every torch.backends flag."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def whole_graph_bytes(params: GNNParams, family: str, adj: Adjacency,
+                      feature_dim: int, heads: int = 1) -> int:
+    """The JAX package's estimate of a whole-graph pass's device bytes
+    (sgnn_tpu/train/inference.py:265-275): features, two activations of
+    the widest layer and the COO at 4 bytes, plus GAT's per-edge score,
+    attention and exponential buffers."""
+    dims = [feature_dim] + [int(w.shape[1]) for w in params.weights]
+    est = 4 * (adj.num_vertices * (feature_dim + 2 * max(dims))
+               + 3 * adj.num_edges)
+    if family == "gat":
+        est += 4 * adj.num_edges * max(heads, 1) * 4
+    return est
 
 
 def layerwise_inference(
@@ -294,28 +360,128 @@ def layerwise_inference(
     *,
     weight_kind: Optional[WeightKind] = None,
     heads: int = 1,
+    chunk_size: Optional[int] = None,
     mean_style: str = "plain",
     whole_graph: Optional[bool] = None,
+    hbm_budget_bytes: Optional[int] = None,
     batch_norm: bool = False,
+    timers: Optional[PhaseTimer] = None,
     device=None,
 ) -> np.ndarray:
     """Exact log-probabilities for ALL vertices: [V, classes] float32.
 
-    The whole-graph mode of the JAX function: one pass with features,
-    activations and the graph resident on the device.  `mean_style`
-    selects the MEAN weights: "plain" = 1/indeg (what the sampled engines
-    train with), "fullbatch" = the full-batch sym-norm/indeg hybrid.
-    `batch_norm` serves BN-trained models with whole-graph statistics.
-    The chunked beyond-device-memory mode (`whole_graph=False`) is not
-    ported yet."""
-    if whole_graph is False:
-        raise NotImplementedError(
-            "chunked layerwise_inference(whole_graph=False) is not ported "
-            "yet: ROADMAP.md Queue 1 item 4 (serving extras)")
-    return InferenceServer(params, family, adj, features,
-                           weight_kind=weight_kind, heads=heads,
-                           mean_style=mean_style, batch_norm=batch_norm,
-                           device=device).logprobs()
+    `mean_style` selects the MEAN weights: "plain" = 1/indeg (what the
+    sampled engines train with), "fullbatch" = the full-batch sym-norm/
+    indeg hybrid.  `batch_norm` serves BN-trained models with whole-graph
+    statistics.
+
+    `whole_graph=True` is one pass with features, activations and the
+    graph resident on the device (an InferenceServer built for the call).
+    `whole_graph=False` is the beyond-device-memory mode: activations stay
+    on the host as f32 numpy, and per layer (1) the dense transform runs
+    in `chunk_size`-row blocks on the device (transform-first at every
+    layer, as the JAX chunked mode), (2) each destination chunk [a, b) —
+    `chunk_size` rows, 65,536 by default — gathers its UNIQUE transformed
+    source rows on the host (the native `gather_rows`), uploads them and
+    aggregates over its local CSR (built once, on the host, and reused by
+    every layer; its columns index the unique sources) with K2 (GCN/SAGE)
+    or K3 (GAT: `ts` from the unique rows, `td` from the chunk's own),
+    then (3) relu/log_softmax, or with `batch_norm` whole-graph BN on the
+    host after the last chunk, then relu.  Device memory then holds one
+    chunk's rows, not the graph's.  GAT's chunk attention is K3's clipped
+    max-free softmax, where the JAX chunked mode takes the max-shifted
+    one: the two are equal while every |score| < 60.
+
+    `whole_graph=None` picks by `whole_graph_bytes` against the device
+    budget (`utils.profiling.memory_budget`: `hbm_budget_bytes`, else half
+    the card's free memory, or 1 GiB on the CPU) and logs both.  `timers`
+    (a PhaseTimer) receives the chunked mode's host-clock phases: "plan"
+    (the edge weights, the chunks' unique sources and CSRs, once),
+    "transform", "stage"
+    (host gather and upload), "aggregate" (kernel and download) and
+    "batch_norm"."""
+    check_ported(family)
+    dev = resolve_device(device)
+    if weight_kind is None:
+        weight_kind = _DEFAULT_WEIGHTS[family]
+    if whole_graph is None:
+        est = whole_graph_bytes(params, family, adj,
+                                np.asarray(features).shape[1], heads)
+        budget = memory_budget(dev, hbm_budget_bytes)
+        whole_graph = est < budget
+        log.info("layerwise_inference: whole-graph estimate %d bytes, budget "
+                 "%d bytes on %s: %s mode", est, budget, dev,
+                 "whole-graph" if whole_graph else "chunked")
+    if whole_graph:
+        return InferenceServer(params, family, adj, features,
+                               weight_kind=weight_kind, heads=heads,
+                               mean_style=mean_style, batch_norm=batch_norm,
+                               device=dev).logprobs()
+    check_heads(params, family, heads)
+    _full_f32_products(dev)
+    timers = timers if timers is not None else PhaseTimer()
+    v = adj.num_vertices
+    chunk = min(v, chunk_size or 65536)
+    indptr = adj.indptr.astype(np.int64)
+    # per destination chunk: its unique sources and its local CSR (checked
+    # once, kept on the host, uploaded per layer)
+    chunks = []
+    with timers.phase("plan"):
+        src_all, w_all = _serving_coo(adj, weight_kind, mean_style)
+        for a in range(0, v, chunk):
+            b = min(a + chunk, v)
+            lo, hi = int(indptr[a]), int(indptr[b])
+            uniq, inv = _unique_inverse(src_all[lo:hi])
+            chunks.append((a, b, uniq, csr_from_numpy(
+                indptr[a:b + 1] - lo, inv, w_all[lo:hi], uniq.size, "cpu")))
+    h = np.ascontiguousarray(features, np.float32)
+    n_layers = len(params.weights)
+    with torch.inference_mode():
+        for l in range(n_layers):
+            wl = params.weights[l].to(dev, torch.float32)
+            last = l == n_layers - 1
+            raw = batch_norm and not last   # BN after the whole layer
+            hh = 1 if last else heads
+            ht = np.empty((v, wl.shape[1]), np.float32)
+            with timers.phase("transform"):
+                for a in range(0, v, chunk):
+                    ht[a:a + chunk] = torch.matmul(
+                        torch.from_numpy(h[a:a + chunk]).to(dev),
+                        wl).cpu().numpy()
+            h_next = np.empty_like(ht)
+            for a, b, uniq, csr in chunks:
+                with timers.phase("stage"):
+                    rows = torch.from_numpy(gather_rows(ht, uniq)).to(dev)
+                    rowptr, col, w = (t.to(dev) for t in csr)
+                    own = (torch.from_numpy(ht[a:b]).to(dev)
+                           if family == "gat" else None)
+                with timers.phase("aggregate"):
+                    if family == "gat":
+                        f = rows.shape[1]
+                        attn = params.attn[l].to(dev, torch.float32)
+                        ts, _ = pack_score_tables(rows, attn[:f, 0],
+                                                  attn[f:, 0], hh)
+                        _, td = pack_score_tables(own, attn[:f, 0],
+                                                  attn[f:, 0], hh)
+                        out, _ = gat_aggregate(rows, ts, td, rowptr, col, hh)
+                        if not raw:
+                            out = torch.relu(out)
+                            out = log_softmax(out) if last else out
+                    else:
+                        out = spmm_csr(rows, rowptr, col, w)
+                        if not raw:
+                            out = log_softmax(out) if last else torch.relu(out)
+                    h_next[a:b] = out.cpu().numpy()
+            if raw:
+                with timers.phase("batch_norm"):
+                    # whole-graph BN in f32 with the shared BN_EPS, then the
+                    # deferred relu (the JAX chunked mode's arithmetic)
+                    mu = h_next.mean(axis=0, keepdims=True, dtype=np.float32)
+                    var = h_next.var(axis=0, keepdims=True, dtype=np.float32)
+                    h_next = np.maximum((h_next - mu) / np.sqrt(var + BN_EPS),
+                                        0.0).astype(np.float32)
+            h = h_next
+    return h
 
 
 def exact_accuracy(

@@ -28,6 +28,7 @@ import torch
 from .. import resolve_device
 from ..config import RunConfig
 from ..data.dataset import Dataset, MASK_TEST, MASK_TRAIN, MASK_VAL
+from ..data.quant import quantize_columns
 from ..graph.adjacency import Adjacency
 from ..models.gnn import GNNParams, check_heads, init_model, model_forward
 from ..nn.functional import masked_accuracy, nll_loss_masked
@@ -36,6 +37,11 @@ from ..sampler.blocks import SampledBatch, SampledBlock, WeightKind
 from ..sampler.host import HostSampledBatch, HostSampler
 from ..utils.logging import get_logger
 from ..utils.timing import PhaseTimer
+from .advisor import advise_estimator_regime
+from .checkpoint import (
+    decode_np_rng, load_opt_state, load_params, np_rng_state, opt_state_dict,
+    params_state,
+)
 from .guard import check_finite_loss
 
 log = get_logger("sgnn.train")
@@ -66,6 +72,23 @@ class TrainReport:
         skip = min(n - 1, max(self.time_skip, 0))
         times = self.epoch_times[skip:]
         return float(np.mean(times)) if times else 0.0
+
+    def to_dict(self) -> dict:
+        """JSON-ready run record (the CLI's `--report-out`), with the JAX
+        package's keys, which scripts/summarize_runs.py reads."""
+        return {
+            "epoch_times": [float(t) for t in self.epoch_times],
+            "train_acc": [float(a) for a in self.train_acc],
+            "val_acc": [float(a) for a in self.val_acc],
+            "test_acc": [float(a) for a in self.test_acc],
+            "losses": [float(x) for x in self.losses],
+            "edges_per_epoch": [int(e) for e in self.edges_per_epoch],
+            "time_skip": int(self.time_skip),
+            "avg_epoch_time": self.avg_epoch_time,
+            "phase_totals_s": {k: round(v, 6)
+                               for k, v in self.timers.totals.items()},
+            "phase_counts": dict(self.timers.counts),
+        }
 
 
 def check_host_batch(hb: HostSampledBatch) -> None:
@@ -133,7 +156,15 @@ class _HostItem(NamedTuple):
 
 
 class SampleTrainer:
-    """Single-device sampled training engine over the host sampler."""
+    """Single-device sampled training engine over the host sampler.
+
+    FEATURE_DTYPE:int8 quantizes the features once (data/quant.py): on the
+    device they stay int8 and each batch's gathered rows are dequantized
+    there; in host mode (`features_on_device=False`) the batches ship int8
+    rows, dequantized after the upload.  `.estimator_advice` is the
+    ESTIMATOR_ADVISOR's finding (train/advisor.py), None below its
+    threshold.  `checkpoint_state` / `load_checkpoint_state` carry what a
+    bit-identical resume needs (train/checkpoint.py)."""
 
     def __init__(
         self,
@@ -178,22 +209,28 @@ class SampleTrainer:
             k = int(len(self.train_nids) * cfg.del_frac)
             keep = order[k:] if bt == "dellow" else order[: len(order) - k]
             self.train_nids = np.sort(self.train_nids[keep])
+        # ESTIMATOR_ADVISOR: warn when one batch's bottom hop is expected to
+        # reach most of the graph (train/advisor.py)
+        self.estimator_advice = advise_estimator_regime(
+            self.adj, cfg.fanout, cfg.batch_size, len(self.train_nids),
+            mode=cfg.estimator_advisor, context=type(self).__name__)
         self.sampler = HostSampler(
             self.adj, fanouts=cfg.fanout, batch_size=cfg.batch_size,
             weight_kind=weight_kind, degree_mode=degree_mode, seed=cfg.seed)
         self.compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                               else torch.float32)
+        # FEATURE_DTYPE ("" follows DTYPE): int8 stores per-column quantized
+        # features (data/quant.py), 4x the f32 rows per byte of device
+        # memory; gathered rows are dequantized on the device
         fd = (cfg.feature_dtype or cfg.dtype).lower()
-        if fd == "int8":
-            raise NotImplementedError(
-                "int8 features wait for the serving-extras slice (ROADMAP "
-                "Queue 1 item 4)")
-        if fd not in ("float32", "bfloat16"):
+        if fd not in ("float32", "bfloat16", "int8"):
             raise ValueError(f"FEATURE_DTYPE must be float32|bfloat16|int8, "
                              f"got {fd!r}")
+        self.feature_int8 = fd == "int8"
         if hbm_budget_bytes is None and cfg.hbm_budget > 0:
             hbm_budget_bytes = cfg.hbm_budget
-        store_dtype = torch.bfloat16 if fd == "bfloat16" else torch.float32
+        store_dtype = {"int8": torch.int8,
+                       "bfloat16": torch.bfloat16}.get(fd, torch.float32)
         if features_on_device is None:
             limit = (hbm_budget_bytes if hbm_budget_bytes is not None
                      else RESIDENT_FEATURE_BYTES)
@@ -206,9 +243,20 @@ class SampleTrainer:
             raise NotImplementedError(
                 "the partial feature cache (FEATURE_CACHE_RATE > 0) waits for "
                 "the cache slice (ROADMAP Queue 1 item 5)")
+        # int8: quantized once on the host; `_feat_scale` is the [F] scale
+        # on the device, `_host_q` the int8 rows host mode ships (1 byte an
+        # element over the link)
+        self._feat_scale = None
+        self._host_q = None
+        if self.feature_int8:
+            q, scale = quantize_columns(dataset.features)
+            self._feat_scale = torch.from_numpy(scale).to(self.device)
+            if not features_on_device:
+                self._host_q = q
         if features_on_device:
-            self.dev_features = torch.from_numpy(
-                np.ascontiguousarray(dataset.features)).to(self.device,
+            feats = q if self.feature_int8 else np.ascontiguousarray(
+                dataset.features)
+            self.dev_features = torch.from_numpy(feats).to(self.device,
                                                            store_dtype)
             self.dev_labels = torch.from_numpy(
                 dataset.labels.astype(np.int64)).to(self.device)
@@ -226,13 +274,29 @@ class SampleTrainer:
         self.timers = PhaseTimer()
 
     # ----------------------------------------------------------- checkpoint
-    def checkpoint_state(self):
-        raise NotImplementedError("checkpoints wait for the serving-extras "
-                                  "slice (ROADMAP Queue 1 item 4)")
+    def checkpoint_state(self) -> dict:
+        """Everything a bit-identical resume needs (train/checkpoint.py):
+        parameters, optimizer state, the dropout generator and the host
+        sampler's numpy RNG, which also draws the epoch permutations."""
+        return {"params": params_state(self.params),
+                "opt_state": opt_state_dict(self.opt_state),
+                "dropout_rng": self.generator.get_state(),
+                "host_rng": np_rng_state(self.sampler.rng)}
 
-    def load_checkpoint_state(self, state) -> None:
-        raise NotImplementedError("checkpoints wait for the serving-extras "
-                                  "slice (ROADMAP Queue 1 item 4)")
+    def load_checkpoint_state(self, state: dict) -> None:
+        self.params = load_params(state["params"], self.params)
+        self.opt_state = load_opt_state(state["opt_state"], self.opt_state)
+        self.generator.set_state(state["dropout_rng"])
+        decode_np_rng(self.sampler.rng, state["host_rng"])
+
+    def dequantize(self, rows: torch.Tensor) -> torch.Tensor:
+        """Feature rows in the compute dtype: int8 rows times the
+        per-column scales, in the compute dtype as the JAX package's
+        `_dequant`; other rows cast."""
+        if rows.dtype != torch.int8:
+            return rows.to(self.compute_dtype)
+        return (rows.to(self.compute_dtype)
+                * self._feat_scale.to(self.compute_dtype))
 
     # --------------------------------------------------------------- steps
     def train_step(self, batch: SampledBatch) -> Tuple[torch.Tensor,
@@ -268,8 +332,9 @@ class SampleTrainer:
                 return _HostItem(hb, np.zeros((1, 1), np.float32),
                                  np.zeros(top.seeds.shape[0], np.int32),
                                  top.dst_valid)
-            return _HostItem(hb, *hb.payload(self.dataset.features,
-                                             self.dataset.labels))
+            feats = (self._host_q if self._host_q is not None
+                     else self.dataset.features)
+            return _HostItem(hb, *hb.payload(feats, self.dataset.labels))
 
     def _upload(self, item: _HostItem) -> Tuple[SampledBatch, int]:
         """Consumer side: upload, and gather x0/labels on the device when
@@ -279,16 +344,16 @@ class SampleTrainer:
                                          item.y_valid, self.device)
             if self.features_on_device:
                 b0, top = batch.blocks[0], batch.blocks[-1]
-                rows = self.dev_features.index_select(0, b0.srcs.long())
+                rows = self.dequantize(
+                    self.dev_features.index_select(0, b0.srcs.long()))
                 x0 = torch.where(b0.src_valid[:, None], rows,
                                  torch.zeros((), dtype=rows.dtype,
                                              device=rows.device))
                 batch = dataclasses.replace(
-                    batch, x0=x0.to(self.compute_dtype),
-                    labels=self.dev_labels[top.seeds.long()])
+                    batch, x0=x0, labels=self.dev_labels[top.seeds.long()])
             else:
                 batch = dataclasses.replace(
-                    batch, x0=batch.x0.to(self.compute_dtype))
+                    batch, x0=self.dequantize(batch.x0))
         return batch, item.hb.num_valid_edges()
 
     def _batch_stream(self, nids: np.ndarray, shuffle: bool):

@@ -1,4 +1,6 @@
-"""Bulk array reads: one read() + frombuffer instead of numpy's file loop."""
+"""Bulk array reads and writes (from sgnn_tpu/utils/io.py): one read() +
+frombuffer, or one header write + one buffer write, instead of numpy's
+per-chunk file loops."""
 
 from __future__ import annotations
 
@@ -10,3 +12,12 @@ def read_binary(path: str, dtype) -> np.ndarray:
     with open(path, "rb") as f:
         buf = f.read()
     return np.frombuffer(bytearray(buf), dtype=dtype)
+
+
+def save_npy(path: str, arr: np.ndarray) -> None:
+    """np.save equivalent that bypasses arr.tofile's slow write loop."""
+    arr = np.ascontiguousarray(arr)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, np.lib.format.header_data_from_array_1_0(arr))
+        f.write(arr.tobytes())

@@ -1,0 +1,58 @@
+"""Profiling and observability on torch (the port's counterpart of
+sgnn_tpu/utils/profiling.py).
+
+  - `trace(log_dir)` — `torch.profiler` around a code region, written as a
+    Chrome trace (`trace.json`, open in chrome://tracing or Perfetto);
+    CUDA activity is recorded when a card is visible,
+  - `memory_budget` — the device-memory budget the residency decisions
+    use (`train/device_trainer.feature_capacity`,
+    `train/inference.layerwise_inference`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+from typing import Iterator, Optional
+
+import torch
+
+from .logging import get_logger
+
+log = get_logger("sgnn.prof")
+
+# the budget on the CPU, where no allocator reports free memory: the JAX
+# package's figure for a backend without memory statistics
+CPU_BUDGET_BYTES = 1 << 30
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """Record the region with `torch.profiler` (CPU, and CUDA when a card
+    is visible) and write `log_dir/trace.json`."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        path = os.path.join(log_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        log.info("profiler trace written to %s", path)
+
+
+def memory_budget(device: torch.device,
+                  budget_bytes: Optional[int] = None) -> int:
+    """Bytes a resident structure may take: `budget_bytes` when given
+    (HBM_BUDGET), else half the card's free memory (the rest is left to
+    activations and the graph), or CPU_BUDGET_BYTES on the CPU."""
+    if budget_bytes is not None:
+        return int(budget_bytes)
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return free // 2
+    return CPU_BUDGET_BYTES

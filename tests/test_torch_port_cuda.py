@@ -936,3 +936,93 @@ def test_probe_kernels_reject_bad_args(cuda_device):
                                device=cuda_device),
                     torch.ones(1, 2, 2, device=cuda_device), src[:1],
                     src[:1], 3)
+
+
+# ------------------------------------------------- serving and training extras
+@pytest.mark.parametrize("family,heads", [("gcn", 1), ("gat", 4)])
+def test_int8_server_card_matches_cpu(cuda_device, family, heads):
+    """int8 residency on the card: log-probs and queries held to the same
+    int8 server on the CPU at the serving bound (1e-4 abs), 2 kernel
+    launches a pass, a quarter of the f32 feature bytes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = random_graph_dataset(3000, 10, 48, 5, seed=5)
+    adj = Adjacency.from_edges(ds.edges, ds.num_vertices)
+    p = init_model(2, family, [48, 16, 5], device="cpu")
+    if family == "gat":
+        gen = torch.Generator().manual_seed(3)
+        p = p._replace(attn=tuple(torch.randn(a.shape, generator=gen) * 0.3
+                                  for a in p.attn))
+    card = InferenceServer(p, family, adj, ds.features, heads=heads,
+                           dtype="int8", device=cuda_device)
+    cpu = InferenceServer(p, family, adj, ds.features, heads=heads,
+                          dtype="int8", device="cpu")
+    assert card.feature_bytes * 4 == ds.features.nbytes
+    kernel = gat_aggregate_cuda if family == "gat" else spmm_csr_cuda
+    before = kernel.launches
+    got = card.logprobs()
+    assert kernel.launches - before == 2
+    ref = cpu.logprobs()
+    assert np.abs(got - ref).max() <= 1e-4
+    nids = np.arange(0, 3000, 37)
+    assert np.abs(card.query(nids) - got[nids]).max() <= 1e-4
+
+
+@pytest.mark.parametrize("family,heads", [("gcn", 1), ("sage", 1),
+                                          ("gat", 4)])
+def test_chunked_layerwise_card_matches_whole_graph(cuda_device, family,
+                                                    heads):
+    """Chunked layerwise_inference on the card: 2 launches a chunk (K2, or
+    K3 for GAT), held to the whole-graph pass at 1e-4 abs.  It runs first,
+    after a caller switched TF32 on: the chunked mode itself must turn
+    the products back to full f32."""
+    from sgnn_tpu_torch.train.inference import layerwise_inference
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    ds = random_graph_dataset(3000, 10, 48, 5, seed=6)
+    adj = Adjacency.from_edges(ds.edges, ds.num_vertices)
+    p = init_model(2, family, [48, 16, 5], device="cpu")
+    if family == "gat":
+        gen = torch.Generator().manual_seed(4)
+        p = p._replace(attn=tuple(torch.randn(a.shape, generator=gen) * 0.3
+                                  for a in p.attn))
+    kernel = gat_aggregate_cuda if family == "gat" else spmm_csr_cuda
+    other = spmm_csr_cuda if family == "gat" else gat_aggregate_cuda
+    before, before_other = kernel.launches, other.launches
+    got = layerwise_inference(p, family, adj, ds.features, heads=heads,
+                              whole_graph=False, chunk_size=1000,
+                              device=cuda_device)
+    assert kernel.launches - before == 2 * 3
+    assert other.launches == before_other
+    assert not torch.backends.cuda.matmul.allow_tf32
+    whole = layerwise_inference(p, family, adj, ds.features, heads=heads,
+                                whole_graph=True, device=cuda_device)
+    assert np.abs(got - whole).max() <= 1e-4
+
+
+@pytest.mark.parametrize("algo", ["GSSAMPLEALLGPU", "GCNFULLBATCH"])
+def test_resume_on_the_card(cuda_device, tmp_path, algo):
+    """2 epochs straight against 1 epoch, save, restore into a new trainer,
+    1 more: parameters within 1e-4 relative max-abs (the autograd
+    backward of index_select sums with float atomics on the card, so bit
+    equality is not promised there)."""
+    from sgnn_tpu_torch.train.checkpoint import CheckpointManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = random_graph_dataset(3000, 10, 48, 5, seed=7)
+    cfg = RunConfig(algorithm=algo, layer_sizes=[48, 16, 5], fanout=[5, 3],
+                    batch_size=256, drop_rate=0.5, vertices=ds.num_vertices)
+    a = build_trainer(cfg, ds, device=cuda_device)
+    a.train_epoch()
+    a.train_epoch()
+    b = build_trainer(cfg, ds, device=cuda_device)
+    b.train_epoch()
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(0, b)
+    c = build_trainer(cfg, ds, device=cuda_device)
+    assert mgr.restore(c) == 0
+    c.train_epoch()
+    pa = getattr(a, "base", a).params.leaves()
+    pc = getattr(c, "base", c).params.leaves()
+    for x, y in zip(pa, pc):
+        assert y.device.type == "cuda"
+        assert _rel(y.cpu(), x.cpu()) <= 1e-4

@@ -196,19 +196,19 @@ def test_not_ported_features_raise(tiny_ds):
                                device="cpu").logprobs()
         assert logp.shape == (tiny_ds.num_vertices, 5)
         assert np.isfinite(logp).all()
-    cases = [
-        lambda: InferenceServer(p, "gcn", adj, f, dtype="int8",
-                                device="cpu"),
-        lambda: InferenceServer(p, "gcn", adj, f, dtype=np.int8,
-                                device="cpu"),
-        lambda: InferenceServer(g, "gat", adj, f, dtype="int8",
-                                device="cpu"),
-        lambda: layerwise_inference(p, "gcn", adj, f, whole_graph=False,
-                                    device="cpu"),
-    ]
-    for make in cases:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make()
+    # int8 residency and the chunked layerwise_inference serve now (parity
+    # in test_torch_port_quant.py and test_torch_port_layerwise.py)
+    for params, family, dtype in ((p, "gcn", "int8"), (p, "gcn", np.int8),
+                                  (g, "gat", torch.int8)):
+        srv = InferenceServer(params, family, adj, f, dtype=dtype,
+                              device="cpu")
+        assert srv.dtype == torch.int8 and srv.feature_bytes == f.size
+        assert np.isfinite(srv.logprobs()).all()
+    np.testing.assert_allclose(
+        layerwise_inference(p, "gcn", adj, f, whole_graph=False,
+                            device="cpu"),
+        layerwise_inference(p, "gcn", adj, f, whole_graph=True,
+                            device="cpu"), **F32)
     with pytest.raises(ValueError):
         InferenceServer(p, "gin", adj, f, device="cpu")
     with pytest.raises(ValueError, match="aggregator"):

@@ -123,7 +123,10 @@ def test_unported_engines_name_their_item(cora, algo):
 
 @pytest.mark.parametrize("change", [
     dict(pushdown=True), dict(estimator_advisor="route"),
-    dict(reorder="degree"), dict(feature_dtype="int8"),
+    dict(reorder="degree"),
+    # int8 features train now (test_torch_port_quant.py); int8 rows in the
+    # partial feature cache wait with the cache for item 5
+    dict(feature_dtype="int8", feature_cache_rate=0.2, hbm_budget=1000),
     dict(feature_cache_rate=0.2, hbm_budget=1000),
 ], ids=["pushdown", "advisor-route", "reorder", "int8", "feature-cache"])
 def test_unported_options_name_their_item(cora, change):
@@ -138,8 +141,11 @@ def test_unknown_engine_lists_the_known(cora):
 
 
 def test_checkpoints_wait(tiny_ds):
+    """Checkpoints waited for item 4 and work now: the state round-trips
+    (resume parity in test_torch_port_checkpoint.py)."""
     cfg = RunConfig(layer_sizes=[32, 16, 5], fanout=[4, 3], batch_size=64,
                     vertices=tiny_ds.num_vertices)
     tr = SampleTrainer(cfg, tiny_ds, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tr.checkpoint_state()
+    state = tr.checkpoint_state()
+    assert set(state) == {"params", "opt_state", "dropout_rng", "host_rng"}
+    tr.load_checkpoint_state(state)
