@@ -156,25 +156,44 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                save, restore into a new trainer, 1 more, parameters held
                at 1e-4 relative (bit identity printed), the seconds and
                bytes of a save and a restore;
-17. cli      — `python -m sgnn_tpu_torch` in subprocesses on the shipped
+17. train_cache — the hot-vertex cache engines at the training widths
+               (602-128-41 / 25-10 / 10000, drop 0.5, CACHE_RATE 0.1,
+               PIPELINE_NUM 4: 4 super-batch plans): GSSAMPLECACHE's build
+               (presample, the hot CSRs, the PushDown aggregates: exactly 4
+               K2 launches), each plan's aggregate held to K2's plain
+               version at 1e-5 and bit-identical on repeat, K2 at that
+               shape (F=602) timed beside plain, `torch.sparse.mm` and the
+               bound, the first cached batch's loss and gradients card vs
+               CPU (drop 0, its cache rows), then one epoch and evaluate:
+               finite and falling losses, 4 refreshes, K1 as in
+               train_device, no K2; GCNSAMPLEPDCACHE (the device route)
+               and GATSAMPLEPDCACHE heads 4 (no K1, no K3) the same;
+               GCNSAMPLEPDCACHE with PD_REFRESH:host (the host sampler's
+               cached trainer) and GSSAMPLEPDCACHE past the card's memory
+               (HBM_BUDGET 100 MB: host features, a per-SB feature cache,
+               host aggregates, no K2) for 3 steps each; hit rates, step
+               times, edges/s beside train_device's, the feature cache's
+               bytes shipped against full shipping;
+18. cli      — `python -m sgnn_tpu_torch` in subprocesses on the shipped
                Cora configs: gs_cora_sample.cfg for 2 epochs with
                checkpoints and a report, resumed to 3 (one more epoch),
                then `--infer` (predictions [2708, 7], rows summing to 1);
                gcn_cora_fullbatch.cfg with `--exact-eval --profile` (a
                trace written); gat_cora_sample.cfg with `--exact-eval`;
-               gcn_cora_sample.cfg exiting non-zero and naming ROADMAP
-               item 5; each run's accuracies and wall time;
-18. kernels  — one line listing every kernel with its launches on its main
+               gcn_cora_sample.cfg (GCNSAMPLEPDCACHE) trained to its end;
+               each run's accuracies and wall time;
+19. kernels  — one line listing every kernel with its launches on its main
                path (serving for `spmm_csr`, train_device for K1,
                serving_gat for K3, train_full for K2's backward and K4,
                kernel_probes for the probes) and, for K2, K3 and K1, on
-               the paths of phases 15-16 (`launches_by_path`), its error
+               the paths of phases 15-17 (`launches_by_path`), its error
                and its times (`spmm_csr` and `gat_bwd_dst` also their
                layouts and registers and local bytes at the main path's
-               shapes).
+               shapes; `spmm_csr` also at the PushDown shape).
 
-Every main path (phases 5-10, 13 and 14, and the int8 serving, chunked
-serving, int8 sampled and int8 whole-graph paths of phases 15-16) starts
+Every main path (phases 5-10, 13 and 14, the int8 serving, chunked
+serving, int8 sampled and int8 whole-graph paths of phases 15-16, and
+each cached build and run of phase 17) starts
 with every launch count set to 0 and reads them all at its end; the CLI
 runs in other processes, whose counts this one cannot read.  Then the card's name and power limit as
 nvidia-smi prints them, and last `{"ok": true, "device": {...}}`.  Any
@@ -291,6 +310,10 @@ INT8_ARGMAX_AGREE = 0.97
 # chunked layerwise_inference's destination rows a chunk: the JAX
 # package's default, four chunks on the Reddit-shaped graph
 CHUNK_ROWS = 65536
+# the cached engine past the card's memory: a device budget below even the
+# int8 features (140 MB), so FeaturesExceedHbm routes it to the host-
+# refreshed trainer; its feature cache then stages 41,528 f32 rows
+BEYOND_BUDGET = 100_000_000
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -350,8 +373,11 @@ def main() -> int:
     from sgnn_tpu_torch.ops import probes as pr
     from sgnn_tpu_torch.ops.cuda import probes as probe_k
     from sgnn_tpu_torch.ops.segment import (
-        csr_chunk_edges, csr_transpose, spmm_csr_plain,
+        csr_chunk_edges, csr_from_numpy, csr_transpose, spmm_csr_plain,
     )
+    from sgnn_tpu_torch.cache.embedding_cache import refresh_rows
+    from sgnn_tpu_torch.cache.orchestrator import CachedSampleTrainer
+    from sgnn_tpu_torch.train.device_cached import DeviceCachedSampleTrainer
     from sgnn_tpu_torch.nn.functional import nll_loss_masked
     from sgnn_tpu_torch.train.fullbatch import build_coo
     from sgnn_tpu_torch.sampler.blocks import WeightKind
@@ -468,10 +494,10 @@ def main() -> int:
     def counts() -> dict:
         return {n: f.launches for n, f in counted.items()}
 
-    def first_batch(trainer):
+    def first_batch(trainer, omit_map=None):
         """The first TRAIN_BATCH train vertices of `trainer`, sampled on the
-        card with a generator of their own: the trainer's draws stay
-        untouched."""
+        card with a generator of their own (cache-omitting with
+        `omit_map`): the trainer's draws stay untouched."""
         seeds = torch.zeros(trainer.seed_pad, dtype=torch.int32)
         seeds[:TRAIN_BATCH] = torch.from_numpy(trainer.train_nids[
             :TRAIN_BATCH].astype(np.int32))
@@ -481,7 +507,7 @@ def main() -> int:
             trainer.dev_indptr, trainer.dev_indices, trainer.dev_in_deg,
             trainer.dev_out_deg, trainer.dev_features, trainer.dev_labels,
             tuple(TRAIN_FANOUT), trainer.src_pads, trainer.weight_kind,
-            degree_mode=trainer.dev_degree_mode)
+            degree_mode=trainer.dev_degree_mode, omit_map=omit_map)
 
     # ---- 2. kernel against its plain version -------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -1106,6 +1132,7 @@ def main() -> int:
             f"epoch + evaluate launched {counts()}")
     transpose_launches = k1.block_transpose_cuda.launches
     med_step_ms = f32_step_ms = statistics.median(dev_trainer.step_ms[1:])
+    dev_edges_per_s = edges / steps / (med_step_ms / 1e3)
     f32_train_feature_bytes = (dev_trainer.dev_features.numel()
                                * dev_trainer.dev_features.element_size())
     emit({"phase": "train_device", "engine": "GSSAMPLEALLGPU",
@@ -1115,7 +1142,7 @@ def main() -> int:
           "step_ms_median_after_first": med_step_ms,
           "epoch_s": epoch_s, "edges_per_epoch": edges,
           "sampled_edges_per_s_epoch": edges / epoch_s,
-          "sampled_edges_per_s_steady": edges / steps / (med_step_ms / 1e3),
+          "sampled_edges_per_s_steady": dev_edges_per_s,
           "overflow": dev_trainer.last_overflow, "losses": losses,
           "train_acc": tr_acc, "val_acc": val_acc,
           "eval_batches": eval_batches,
@@ -2086,7 +2113,253 @@ def main() -> int:
                      "checkpoint_bytes": save_bytes},
           "phase_s": time.perf_counter() - extras_t0})
 
-    # ---- 17. the CLI on the shipped Cora configs (subprocesses) ------------
+    # ---- 17. cached training (main paths, counted) ------------------------
+    cache_t0 = time.perf_counter()
+
+    def build_cached(cfg):
+        """`cfg`'s trainer built from zeroed counts: (trainer, the build's
+        host-clock phases and the device bytes the trainer holds after it,
+        the launches the build made)."""
+        reset_counts()
+        torch.cuda.synchronize()
+        held0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tr = build_trainer(cfg, ds)
+        torch.cuda.synchronize()
+        build = {"total_s": time.perf_counter() - t0,
+                 **{f"{k}_s": tr.timers.totals[k] for k in (
+                     "presample", "cache_csr", "cache_aggregate")},
+                 "resident_bytes": torch.cuda.memory_allocated() - held0}
+        if isinstance(tr, DeviceCachedSampleTrainer):
+            # one copy of the aggregates on the card: the stacked one
+            require(all(c.cache_agg is None for c in tr.sb_caches),
+                    "a plan keeps its own aggregate beside the stack")
+            build["stacked_agg_bytes"] = (tr.cache_agg_all.numel()
+                                          * tr.cache_agg_all.element_size())
+        return tr, build, {n: c for n, c in counts().items() if c}
+
+    def plan_checks(tr):
+        """Each plan's PushDown aggregate against K2's plain version on the
+        same card tensors, and a repeat launch bit-identical to it (these
+        launches are outside the counted path)."""
+        rows = []
+        for k, c in enumerate(tr.sb_caches):
+            csr = csr_from_numpy(c.rowptr, c.col, c.w,
+                                 tr.dev_features.shape[0], dev)
+            again = spmm_csr_cuda(tr.dev_features, *csr)
+            ref = spmm_csr_plain(tr.dev_features, *csr)
+            agg = tr.cache_agg_all[k]
+            err = rel_err(agg, ref)
+            require(err <= TOL["float32"], f"plan {k}'s PushDown aggregate "
+                                           f"vs plain: {err}")
+            require(torch.equal(again, agg),
+                    f"plan {k}'s aggregate is not bit-identical on repeat")
+            rows.append({"plan": k, "C": c.num_cached, "E": int(c.col.size),
+                         "longest_row": int(np.diff(c.rowptr).max()),
+                         "rel_err": err, "tol": TOL["float32"],
+                         "max_abs_err": (agg - ref).abs().max()
+                         .item(), "bit_identical": True})
+        return rows
+
+    def k1_expect(steps, eval_batches):
+        return {"gather_agg_fwd": 2 * (steps + eval_batches),
+                "gather_agg_bwd_dx": 2 * steps,
+                "block_transpose": 2 * steps}
+
+    def cached_epoch(tr, k1_on_path):
+        """One epoch and `evaluate` from zeroed counts: finite losses, the
+        last 4 steps' mean below the first step's, 16 steps, one refresh a
+        super-batch, K1's launches as train_device's (none for GAT), no
+        K2 after the build."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr_loss, tr_acc, edges = tr.train_epoch()
+        epoch_s = time.perf_counter() - t0
+        val_acc = tr.evaluate(tr.val_nids)
+        got = {n: c for n, c in counts().items() if c}
+        steps = len(tr.step_ms)
+        eval_batches = -(-tr.val_nids.size // TRAIN_BATCH)
+        losses = tr.step_losses
+        require(all(np.isfinite(losses)) and np.isfinite(tr_loss),
+                f"non-finite cached training loss: {losses}")
+        require(steps == 16, f"{steps} cached steps, expected 16")
+        require(float(np.mean(losses[-4:])) < losses[0],
+                f"cached loss did not fall: first {losses[0]}, last 4 "
+                f"{losses[-4:]}")
+        require(tr.refreshes == len(tr.sb_caches) == 4,
+                f"{tr.refreshes} refreshes for {len(tr.sb_caches)} plans")
+        want = k1_expect(steps, eval_batches) if k1_on_path else {}
+        require(got == want, f"cached epoch + evaluate launched {got}, "
+                             f"expected {want}")
+        med = statistics.median(tr.step_ms[1:])
+        return got, {
+            "steps": steps, "step_ms": tr.step_ms,
+            "step_ms_median_after_first": med, "losses": losses,
+            "epoch_s": epoch_s, "edges_per_epoch": edges,
+            "sampled_edges_per_s_steady": edges / steps / (med / 1e3),
+            "hit_rate": tr.cache_hit_rate, "hits": tr.cache_hits,
+            "lookups": tr.cache_lookups, "refreshes": tr.refreshes,
+            "train_acc": tr_acc, "val_acc": val_acc,
+            "eval_batches": eval_batches, "launches": got}
+
+    cache_runs, cache_counts = {}, {}
+    # (a) GSSAMPLECACHE: build, plans against plain, K2 at the PushDown
+    # shape, the first cached batch card vs CPU, then one epoch
+    gs_cfg = dataclasses.replace(dev_cfg, algorithm="GSSAMPLECACHE")
+    gs_tr, build, built = build_cached(gs_cfg)
+    require(isinstance(gs_tr, DeviceCachedSampleTrainer)
+            and len(gs_tr.sb_caches) == 4,
+            "GSSAMPLECACHE did not build 4 plans on the device trainer")
+    require(built == {"spmm_csr": 4}, f"GSSAMPLECACHE's build launched "
+                                      f"{built}, expected 4 K2")
+    plans = plan_checks(gs_tr)
+    c0 = gs_tr.sb_caches[0]
+    x = gs_tr.dev_features
+    csr = csr_from_numpy(c0.rowptr, c0.col, c0.w, x.shape[0], dev)
+    lay, how = k2_layout(x)
+    lib_csr = torch.sparse_csr_tensor(csr.rowptr, csr.col.long(), csr.w,
+                                      size=(c0.num_cached, x.shape[0]))
+    e0, f0, c_rows = int(c0.col.size), x.shape[1], c0.num_cached
+    once = e0 * 8 + 8 * (c_rows + 1) + (x.shape[0] + c_rows) * f0 * 4
+    flops = 2 * e0 * f0
+    out = spmm_csr_cuda(x, *csr)
+    ref = spmm_csr_plain(x, *csr)
+    pd_shape = {
+        "name": "spmm_csr", "shape": "PushDown aggregate, plan 0",
+        "C": c_rows, "V": x.shape[0], "E": e0, "F": f0, "dtype": "float32",
+        "longest_row": plans[0]["longest_row"], "layout": how,
+        "registers": resources("spmm_csr PushDown F=602", lay),
+        "max_abs_err": (out - ref).abs().max().item(),
+        "rel_err": rel_err(out, ref),
+        "ms": time_ms(lambda: spmm_csr_cuda(x, *csr), 20),
+        "plain_ms": time_ms(lambda: spmm_csr_plain(x, *csr), 3),
+        "library_ms": time_ms(lambda: torch.sparse.mm(lib_csr, x), 20),
+        "bound_ms": max(once / hbm, flops / F32_FLOPS_PER_S) * 1e3,
+        "bound_by": ("bytes" if once / hbm >= flops / F32_FLOPS_PER_S
+                     else "operations"),
+        "gather_bound_ms": (e0 * 8 + e0 * f0 * 4 + c_rows * f0 * 4)
+        / hbm * 1e3}
+    del out, ref, lib_csr
+    # the first cached batch: its loss and every gradient, card vs CPU on
+    # the same blocks and cache rows, drop 0
+    batch = first_batch(gs_tr, omit_map=gs_tr.cache_maps[0])
+    emb = refresh_rows(gs_tr.cache_agg_all[0], gs_tr.params.weights[0])
+    require(bool(batch.cache_mask.any()), "the first batch hit no cache row")
+    card = loss_and_grads(gs_tr.params, "sage", batch, cache_emb=emb)
+    t0 = time.perf_counter()
+    cpu = loss_and_grads(gs_tr.params.to("cpu"), "sage",
+                         batch_to(batch, "cpu"), cache_emb=emb.cpu())
+    cpu_step_s = time.perf_counter() - t0
+    loss_diff = abs(card.loss.item() - cpu.loss.item())
+    require(loss_diff <= TRAIN_LOSS_ATOL,
+            f"cached card vs CPU loss: {loss_diff}")
+    grad_errs = [rel_err(a, b) for a, b in zip(card.grads, cpu.grads)]
+    require(max(grad_errs) <= TRAIN_GRAD_RTOL,
+            f"cached card vs CPU gradients: {grad_errs}")
+    first = {"loss_abs_diff": loss_diff, "loss_atol": TRAIN_LOSS_ATOL,
+             "grad_rel_err": grad_errs, "grad_rtol": TRAIN_GRAD_RTOL,
+             "cache_rows_hit": int(batch.cache_mask.sum()),
+             "host_cpu_loss_and_grads_s": cpu_step_s}
+    del card, cpu, batch, emb
+    got, run = cached_epoch(gs_tr, True)
+    cache_counts["gssamplecache"] = got
+    cache_runs["GSSAMPLECACHE"] = {
+        "model": "sage 602-128-41", "build": build, "build_launches": built,
+        "plans": plans, "first_batch": first,
+        "train_device_step_ms_median_after_first": f32_step_ms,
+        "train_device_sampled_edges_per_s_steady": dev_edges_per_s, **run}
+    del gs_tr
+    # (b) GCNSAMPLEPDCACHE (the default route: the device trainer) and
+    # GATSAMPLEPDCACHE heads 4 (no K1, no K3: sampled GAT is torch ops)
+    for algo, heads, k1_on_path in (("GCNSAMPLEPDCACHE", 1, True),
+                                    ("GATSAMPLEPDCACHE", GAT_TRAIN_HEADS,
+                                     False)):
+        cfg = dataclasses.replace(dev_cfg, algorithm=algo, heads=heads)
+        tr, build, built = build_cached(cfg)
+        require(isinstance(tr, DeviceCachedSampleTrainer)
+                and built == {"spmm_csr": 4},
+                f"{algo}: {type(tr).__name__}, build launched {built}")
+        plans = plan_checks(tr)
+        got, run = cached_epoch(tr, k1_on_path)
+        cache_counts[algo.lower()] = got
+        cache_runs[algo] = {"heads": heads, "build": build,
+                            "build_launches": built, "plans": plans, **run}
+        del tr
+    # (c) GCNSAMPLEPDCACHE with PD_REFRESH:host: the host sampler's cached
+    # trainer, its first 3 steps (one super-batch boundary)
+    host_pd, build, built = build_cached(dataclasses.replace(
+        dev_cfg, algorithm="GCNSAMPLEPDCACHE", pd_refresh="host"))
+    require(isinstance(host_pd, CachedSampleTrainer)
+            and host_pd.features_on_device and built == {"spmm_csr": 4},
+            f"PD_REFRESH:host: {type(host_pd).__name__}, build launched "
+            f"{built}")
+    host_pd.train_nids = host_pd.train_nids[:3 * TRAIN_BATCH]
+    host_pd.timers = PhaseTimer()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, edges = host_pd.train_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    got = {n: c for n, c in counts().items() if c}
+    require(np.isfinite(loss), f"PD_REFRESH:host loss {loss}")
+    require(got == k1_expect(3, 0), f"PD_REFRESH:host launched {got}")
+    require(host_pd.w_queue.version == 0, "PD_REFRESH:host published "
+            f"{host_pd.w_queue.version + 1} weight versions in one SB")
+    cache_counts["pd_refresh_host"] = got
+    cache_runs["GCNSAMPLEPDCACHE PD_REFRESH:host"] = {
+        "steps": 3, "build": build, "build_launches": built,
+        "step_s": epoch_s / 3, "loss": loss, "edges": edges,
+        "sampled_edges_per_s": edges / epoch_s,
+        "hit_rate": host_pd.cache_hit_rate,
+        "staleness_queue_version": host_pd.w_queue.version,
+        "phase_totals_s": dict(host_pd.timers.totals), "launches": got}
+    del host_pd
+    # (d) GSSAMPLEPDCACHE past the device's memory: HBM_BUDGET below even
+    # int8 residency, so FeaturesExceedHbm sends it to the host-refreshed
+    # trainer with host features, a per-SB feature cache and host
+    # aggregates (no K2); its first 3 steps
+    far, build, built = build_cached(dataclasses.replace(
+        dev_cfg, algorithm="GSSAMPLEPDCACHE", hbm_budget=BEYOND_BUDGET,
+        feature_cache_rate=0.2, feature_cache_plan="per_sb"))
+    require(isinstance(far, CachedSampleTrainer)
+            and not far.features_on_device and far._fc_sb_caches is not None
+            and built == {},
+            f"beyond device memory: {type(far).__name__}, on device "
+            f"{far.features_on_device}, build launched {built}")
+    far.train_nids = far.train_nids[:3 * TRAIN_BATCH]
+    far.timers = PhaseTimer()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, edges = far.train_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    got = {n: c for n, c in counts().items() if c}
+    require(np.isfinite(loss), f"beyond-device loss {loss}")
+    require(got == k1_expect(3, 0), f"beyond-device steps launched {got}")
+    # shipped may equal full: the miss buffer is padded to a power of two
+    # times 128 rows, capped at the source axis, which a 10,000-seed
+    # batch's bottom hop nearly covers
+    fc_rate, shipped, full = far.feature_cache_stats
+    require(0 < fc_rate < 1 and 0 < shipped <= full,
+            f"feature cache: hit rate {fc_rate}, {shipped} of {full} bytes")
+    cache_counts["beyond_device"] = got
+    cache_runs["GSSAMPLEPDCACHE beyond device memory"] = {
+        "steps": 3, "hbm_budget": BEYOND_BUDGET, "build": build,
+        "build_launches": built,
+        "feature_cache_rows": int(far.feat_cache.hot_ids.size),
+        "step_s": epoch_s / 3, "loss": loss, "edges": edges,
+        "hit_rate": far.cache_hit_rate, "feature_cache_hit_rate": fc_rate,
+        "feature_bytes_shipped": shipped, "feature_bytes_full": full,
+        "phase_totals_s": dict(far.timers.totals), "launches": got}
+    del far
+    emit({"phase": "train_cache", "runs": cache_runs,
+          "k2_pushdown_shape": pd_shape,
+          "phase_s": time.perf_counter() - cache_t0})
+
+    # ---- 18. the CLI on the shipped Cora configs (subprocesses) ------------
     extras_t0 = time.perf_counter()
     cli_dir = ROOT / "build" / "chip_smoke_cli"
     shutil.rmtree(cli_dir, ignore_errors=True)
@@ -2137,14 +2410,14 @@ def main() -> int:
     require((cli_dir / "trace" / "trace.json").stat().st_size > 0,
             "--profile wrote no trace")
     out, row = cli("gcn_cora_sample.cfg")
-    require(out.returncode != 0 and "item 5" in out.stderr,
-            f"the PD-cache cfg exited {out.returncode}: {out.stderr[-500:]}")
+    require(out.returncode == 0 and "final: train" in out.stderr,
+            f"the PD-cache cfg exited {out.returncode}: {out.stderr[-2000:]}")
     runs.append(row)
     shutil.rmtree(cli_dir, ignore_errors=True)
     emit({"phase": "cli", "runs": runs,
           "phase_s": time.perf_counter() - extras_t0})
 
-    # ---- 18. kernels -------------------------------------------------------
+    # ---- 19. kernels -------------------------------------------------------
     # one logprobs() pass's work: the F=128 and the F=41 f32 SpMMs
     per_pass = [t for t in timings if t["dtype"] == "float32"]
 
@@ -2170,7 +2443,8 @@ def main() -> int:
                     f"one f32 logprobs pass: F=128 + F=41 on the {v}-vertex, "
                     f"{e}-edge graph")]
     kernels[0].update(layouts=[t["layout"] for t in per_pass],
-                      registers=[t["registers"] for t in per_pass])
+                      registers=[t["registers"] for t in per_pass],
+                      pushdown_shape=pd_shape)
     for kname, replaces, n, note in (
             ("gather_agg_fwd", "sgnn_tpu/ops/pallas/gather_agg.py:43",
              dev_launches[0], ""),
@@ -2256,7 +2530,16 @@ def main() -> int:
         "spmm_csr": {"serving+queries": launches,
                      "int8_serving": int8_serve_counts["spmm_csr"],
                      "chunked_layerwise_gcn": chunk_counts["gcn"]["spmm_csr"],
-                     "int8_fullbatch": int8_full_counts["spmm_csr"]},
+                     "int8_fullbatch": int8_full_counts["spmm_csr"],
+                     **{f"{name}_build": run["build_launches"].get(
+                         "spmm_csr", 0) for name, run in (
+                         ("gssamplecache", cache_runs["GSSAMPLECACHE"]),
+                         ("gcnsamplepdcache", cache_runs["GCNSAMPLEPDCACHE"]),
+                         ("gatsamplepdcache", cache_runs["GATSAMPLEPDCACHE"]),
+                         ("pd_refresh_host", cache_runs[
+                             "GCNSAMPLEPDCACHE PD_REFRESH:host"]),
+                         ("beyond_device", cache_runs[
+                             "GSSAMPLEPDCACHE beyond device memory"]))}},
         "gat_aggregate": {
             "serving_gat": gat_launches,
             "int8_serving": int8_serve_counts["gat_aggregate"],
@@ -2270,7 +2553,9 @@ def main() -> int:
                            "block_transpose"):
             k["launches_by_path"] = {
                 "train_device": k["launches"],
-                "int8_device_sampled": int8_train_counts[k["name"]]}
+                "int8_device_sampled": int8_train_counts[k["name"]],
+                **{path: got.get(k["name"], 0)
+                   for path, got in cache_counts.items()}}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

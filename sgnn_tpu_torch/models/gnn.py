@@ -191,17 +191,22 @@ def model_forward(
     standardises hidden pre-activations over the hop's valid destination
     rows.  `remat` recomputes a layer in the backward pass
     (torch.utils.checkpoint) instead of storing it: GCN/SAGE's hidden
-    aggregations, every GAT layer (as the JAX package's checkpoints)."""
-    if cache_emb is not None:
-        raise NotImplementedError(
-            "the embedding cache waits for the cache slice (ROADMAP Queue 1 "
-            "item 5)")
+    aggregations, every GAT layer (as the JAX package's checkpoints).
+
+    `cache_emb` ([C, H] hot-vertex rows, cache/embedding_cache.py), with a
+    batch carrying `cache_mask`/`cache_slot`, replaces the cached
+    destinations' layer-0 pre-activations (GCN/SAGE: agg·W before batch
+    norm and relu; GAT: the attention output before batch norm), only when
+    the model has more than one layer; the cached rows carry no
+    gradient."""
     if family not in MODEL_FAMILIES:
         raise ValueError(f"unknown model family {family!r}")
     n_layers = len(params.weights)
     if batch.num_layers != n_layers:
         raise ValueError(f"{batch.num_layers} blocks for {n_layers} layers")
     check_heads(params, family, heads)
+    use_cache = (cache_emb is not None and batch.cache_mask is not None
+                 and n_layers > 1)
     x = batch.x0
     for l, block in enumerate(batch.blocks):
         is_last = l == n_layers - 1
@@ -211,6 +216,8 @@ def model_forward(
                     block.weight, block.seed_in_src)
             pre = (checkpoint(fn, *args, use_reentrant=False) if remat
                    else fn(*args))
+            if l == 0 and use_cache:
+                pre = _merge_cache(pre, batch, cache_emb)
             if not is_last and batch_norm:
                 pre = _batch_norm(pre, block.dst_valid)
             x = torch.relu(pre)
@@ -222,6 +229,8 @@ def model_forward(
             y = checkpoint(_agg_linear, *args, use_reentrant=False)
         else:
             y = _agg_linear(*args)
+        if l == 0 and use_cache:
+            y = _merge_cache(y, batch, cache_emb)
         if is_last:
             # classification head in f32 regardless of compute dtype
             x = log_softmax(y.float())
@@ -231,3 +240,17 @@ def model_forward(
             if train and drop_rate > 0.0 and generator is not None:
                 x = dropout(generator, x, drop_rate, train)
     return x
+
+
+def _merge_cache(pre_act: torch.Tensor, batch: SampledBatch,
+                 cache_emb: torch.Tensor) -> torch.Tensor:
+    """Overlay the cached hot-vertex pre-activations onto layer 0's output
+    (reference load_share_embedding, GCN_SAMPLE_PD_CACHE.hpp:938; kernel
+    dev_load_share_embedding, ntsCUDATransferKernel.cuh:344).  The cached
+    rows are constants to autograd (reference PushDownOp sets
+    requires_grad_(false), ntsPushdownGraphOp.hpp:122)."""
+    if cache_emb.shape[0] == 0:
+        return pre_act
+    rows = cache_emb.detach().index_select(
+        0, batch.cache_slot.long()).to(pre_act.dtype)
+    return torch.where(batch.cache_mask[:, None], rows, pre_act)

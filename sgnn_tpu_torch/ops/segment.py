@@ -92,6 +92,23 @@ def csr_from_numpy(rowptr: np.ndarray, col: np.ndarray, w: np.ndarray,
                torch.from_numpy(w).to(dev))
 
 
+def unique_inverse(ids: np.ndarray):
+    """`np.unique(ids, return_inverse=True)` (the same two arrays, int32)
+    for non-negative int32 ids, by one value sort of (id, position) keys
+    instead of numpy's argsort: O(n log n) in the ids alone, whatever the
+    number of vertices they index."""
+    n = ids.size
+    key = (ids.astype(np.int64) << 32) | np.arange(n, dtype=np.int64)
+    key.sort()
+    s = (key >> 32).astype(np.int32)
+    new = np.empty(n, bool)
+    new[:1] = True
+    np.not_equal(s[1:], s[:-1], out=new[1:])
+    inv = np.empty(n, np.int32)
+    inv[key & 0xFFFFFFFF] = np.cumsum(new, dtype=np.int32) - 1
+    return s[new], inv
+
+
 def csr_transpose(rowptr: np.ndarray, col: np.ndarray, w: np.ndarray,
                   num_src: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The same edges as a CSR keyed by source, on the host: `(rowptr_t

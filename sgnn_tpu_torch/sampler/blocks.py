@@ -69,19 +69,26 @@ class SampledBlock:
 
 @dataclasses.dataclass(frozen=True)
 class SampledBatch:
-    """An L-hop sampled minibatch: blocks input→output + gathered payload.
-
-    The JAX package's embedding-cache and cold-row fields wait for the
-    cache slice (ROADMAP Queue 1 item 5); `overflow` is set by the device
-    sampler."""
+    """An L-hop sampled minibatch: blocks input→output + gathered payload."""
 
     blocks: List[SampledBlock]
     x0: torch.Tensor           # [blocks[0].num_src_pad, F] input features
     labels: torch.Tensor       # int64 [num_seed_pad]
     label_valid: torch.Tensor  # bool  [num_seed_pad]
+    # hot-vertex embedding cache, for the BOTTOM hop's destinations (None
+    # when the cache is off): cache_mask[d] ⇒ blocks[0].seeds[d] is cached
+    # and its layer-0 pre-activation is replaced by cache_emb[cache_slot[d]]
+    # (reference load_share_embedding, GCN_SAMPLE_PD_CACHE.hpp:938)
+    cache_mask: Optional[torch.Tensor] = None   # bool  [blocks[0].num_dst_pad]
+    cache_slot: Optional[torch.Tensor] = None   # int32 [blocks[0].num_dst_pad]
     # edges and seeds dropped by a src_pad_factor overflow (device sampler;
     # 0 with exact bounds), an int32 scalar on the batch's device
     overflow: Optional[torch.Tensor] = None
+    # partial feature cache (cache/feature_cache.py), before the batch's x0
+    # is assembled: x0 holds only the compacted cache-MISS rows and
+    # cold_pos[i] each one's position on the bottom source axis (padding
+    # entries point one past its end)
+    cold_pos: Optional[torch.Tensor] = None     # int32 [num_cold_pad]
 
     @property
     def num_layers(self) -> int:

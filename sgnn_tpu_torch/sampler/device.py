@@ -59,14 +59,20 @@ def _edge_weights(keep, nbr_local, num_src_pad, fanout, weight_kind,
 
 def _sample_hop(generator, seeds, dst_valid, indptr, indices, fanout,
                 num_src_pad, weight_kind, in_degree, out_degree,
-                identity_srcs=False, degree_mode="sampled"
+                identity_srcs=False, degree_mode="sampled", omit_map=None
                 ) -> Tuple[SampledBlock, torch.Tensor]:
-    """One hop: (block, overflow count)."""
+    """One hop: (block, overflow count).  With `omit_map`, destinations
+    holding a cache slot are not expanded (degree 0)."""
     dev = seeds.device
     b = seeds.shape[0]
     seeds_l = seeds.long()
     start = indptr[seeds_l]
     deg = (indptr[seeds_l + 1] - start).to(torch.int32)
+    if omit_map is not None:
+        # cache-omitting sampling (reference sample_gpu_fast_omit,
+        # ntsFastSampler.hpp:711): a cached destination's layer-0 output
+        # comes from the hot cache
+        deg = torch.where(omit_map[seeds_l] >= 0, 0, deg)
     # uniform position draw (with replacement) over each row's degree; the
     # f32 product can round up to exactly deg for large degrees, so clamp
     u = torch.rand((b, fanout), generator=generator, device=dev)
@@ -153,6 +159,7 @@ def device_sample_batch(
     degree_mode: str = "sampled",
     feat_scale: Optional[torch.Tensor] = None,
     compute_dtype: torch.dtype = torch.float32,
+    omit_map: Optional[torch.Tensor] = None,
 ) -> SampledBatch:
     """Sample an L-hop batch on the seeds' device and gather its payload.
 
@@ -163,7 +170,10 @@ def device_sample_batch(
     the overflow count.  `feat_scale` ([F] per-column scales) marks
     `features` as int8 storage (FEATURE_DTYPE:int8, data/quant.py): the
     gathered rows are dequantized to `compute_dtype`, and the identity
-    bottom hop is off (it would hand over the whole quantized matrix)."""
+    bottom hop is off (it would hand over the whole quantized matrix).
+    `omit_map` (int32 [V_pad], slot or -1) turns on cache-omitting
+    sampling at the bottom hop; the batch then carries `cache_mask` and
+    `cache_slot` for the model's layer-0 merge."""
     blocks: List[SampledBlock] = []
     cur_seeds, cur_valid = seeds, seed_valid
     num_vertices = indptr.shape[0] - 1
@@ -177,11 +187,16 @@ def device_sample_batch(
         blk, n_over = _sample_hop(
             generator, cur_seeds, cur_valid, indptr, indices, f, src_pads[h],
             weight_kind, in_degree, out_degree, identity_srcs=identity,
-            degree_mode=degree_mode)
+            degree_mode=degree_mode, omit_map=omit_map if last else None)
         blocks.append(blk)
         cur_seeds, cur_valid = blk.srcs, blk.src_valid
         overflow = overflow + n_over
     blocks.reverse()
+    cache_mask = cache_slot = None
+    if omit_map is not None:
+        slots = omit_map[blocks[0].seeds.long()]
+        cache_mask = (slots >= 0) & blocks[0].dst_valid
+        cache_slot = slots.clamp_min(0).to(torch.int32)
     if identity:
         x0 = features   # the whole feature matrix IS x0: no re-gather
     else:
@@ -194,4 +209,5 @@ def device_sample_batch(
     top = blocks[-1]
     return SampledBatch(blocks=blocks, x0=x0.to(compute_dtype),
                         labels=labels[top.seeds.long()],
-                        label_valid=top.dst_valid, overflow=overflow)
+                        label_valid=top.dst_valid, cache_mask=cache_mask,
+                        cache_slot=cache_slot, overflow=overflow)

@@ -128,24 +128,33 @@ class HostSampler:
 
     def sample(self, batch_seeds: np.ndarray,
                omit_map: Optional[np.ndarray] = None) -> "HostSampledBatch":
-        """Sample an L-hop block stack for `batch_seeds` (≤ batch_size ids)."""
-        if omit_map is not None:
-            raise NotImplementedError(
-                "cache-omitting sampling waits for the PD-cache slice "
-                "(ROADMAP Queue 1 item 5)")
+        """Sample an L-hop block stack for `batch_seeds` (≤ batch_size ids).
+
+        `omit_map` ([V] int32, slot or -1): destinations of the BOTTOM hop
+        with a cache slot are not expanded — the cache-omitting sampler
+        (reference sample_gpu_fast_omit, ntsFastSampler.hpp:711) —
+        shrinking the sampling work and the bottom hop's source set.  The
+        draws stay those of the sampler without it."""
         if self.use_native:
             from .native import sample_batch
 
-            return sample_batch(self, np.asarray(batch_seeds, dtype=np.int32))
-        return self._sample_numpy(batch_seeds)
+            return sample_batch(self, np.asarray(batch_seeds, dtype=np.int32),
+                                omit_map)
+        return self._sample_numpy(batch_seeds, omit_map)
 
-    def _sample_numpy(self, batch_seeds: np.ndarray) -> "HostSampledBatch":
+    def _sample_numpy(self, batch_seeds: np.ndarray,
+                      omit_map: Optional[np.ndarray] = None
+                      ) -> "HostSampledBatch":
         hops = []  # seed-hop first
         seeds = np.asarray(batch_seeds, dtype=np.int32)
         nseed = seeds.shape[0]
-        for plan in self.plans:
+        last = len(self.plans) - 1
+        for h, plan in enumerate(self.plans):
             nbr_global, valid = self._sample_hop(seeds.astype(np.int64),
                                                  plan.fanout)
+            if omit_map is not None and h == last:
+                valid = valid & (omit_map[seeds] < 0)[:, None]
+                nbr_global = np.where(valid, nbr_global, -1)
             # src set = unique valid neighbors ∪ seeds (guarantees
             # seed_in_src exists; reference merge-src-dst mode coocsc.hpp:407)
             srcs = np.union1d(np.unique(nbr_global[valid]),

@@ -26,11 +26,14 @@ class _Workspace:
         self.srcs = np.zeros(num_vertices, dtype=np.int32)
 
 
-def sample_batch(sampler, batch_seeds: np.ndarray):
+def sample_batch(sampler, batch_seeds: np.ndarray,
+                 omit_map: Optional[np.ndarray] = None):
     """Native analogue of HostSampler._sample_numpy (same hop-dict
     contract).  Each hop takes one 63-bit seed from `sampler.rng`, and the
     C++ side keys its counter-based RNG by (that seed, destination id), so
-    the draws do not depend on the thread count."""
+    the draws do not depend on the thread count.  `omit_map` ([V] int32)
+    goes to the bottom hop: the C++ side leaves destinations with a slot
+    unexpanded."""
     lib = load_library()
     adj = sampler.adj
     if getattr(sampler, "_native_ws", None) is None:
@@ -38,10 +41,17 @@ def sample_batch(sampler, batch_seeds: np.ndarray):
     ws: _Workspace = sampler._native_ws
     indptr = np.ascontiguousarray(adj.indptr, dtype=np.int64)
     indices = np.ascontiguousarray(adj.indices, dtype=np.int32)
+    omit = None
+    if omit_map is not None:
+        omit = np.ascontiguousarray(omit_map, dtype=np.int32)
+        if omit.shape != (adj.num_vertices,):
+            raise ValueError(f"omit_map must be [{adj.num_vertices}], got "
+                             f"{omit.shape}")
     hops = []
     seeds = np.ascontiguousarray(batch_seeds, dtype=np.int32)
     nseed = seeds.shape[0]
-    for plan in sampler.plans:
+    last = len(sampler.plans) - 1
+    for h, plan in enumerate(sampler.plans):
         if plan.fanout > 1024:
             raise ValueError("the native sampler takes fanout <= 1024")
         n = seeds.shape[0]
@@ -51,7 +61,9 @@ def sample_batch(sampler, batch_seeds: np.ndarray):
         lib.sgnn_sample_hop(
             _ptr(indptr, ctypes.c_int64), _ptr(indices, ctypes.c_int32),
             adj.num_vertices, _ptr(seeds, ctypes.c_int32), n, plan.fanout,
-            None, np.uint64(sampler.rng.integers(0, 2**63, dtype=np.int64)),
+            _ptr(omit, ctypes.c_int32) if omit is not None and h == last
+            else None,
+            np.uint64(sampler.rng.integers(0, 2**63, dtype=np.int64)),
             _ptr(nbr_global, ctypes.c_int32), _ptr(valid_u8, ctypes.c_uint8),
             _ptr(ws.bitmap, ctypes.c_uint64),
         )

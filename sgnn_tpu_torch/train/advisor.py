@@ -13,8 +13,10 @@ the ESTIMATOR_ADVISOR cfg key selects what to do about it:
 
     warn  (default) — log a structured warning recommending FULLBATCH /
                       *PDCACHE, and set the trainers' `.estimator_advice`
-    route           — also turn the PUSHDOWN composition on: waits for
-                      the cache slice (ROADMAP Queue 1 item 5)
+    route           — also turn the PUSHDOWN bottom-hop composition on
+                      (the engine registry then serves the hot bottom
+                      layer from the precomputed aggregate and omits
+                      cached destinations from sampling)
     off             — silence
 """
 
@@ -67,12 +69,15 @@ def advise_estimator_regime(
     n_train: int,
     *,
     mode: str = "warn",
+    remedied: bool = False,
     context: str = "",
 ) -> Optional[Dict[str, float]]:
     """Estimate the sampled estimator's per-epoch redundancy; warn above
     the coverage threshold.  Returns the advice dict when the regime
     triggers (None otherwise), which the trainers keep as
-    `.estimator_advice`."""
+    `.estimator_advice`.  `remedied=True` (the cached trainers, which ARE
+    the recommendation, and the engine registry's route check) skips the
+    warning but still returns the numbers."""
     if mode == "off" or not fanouts or n_train <= 0:
         return None
     # if even the worst-case bound cannot reach the threshold, skip the
@@ -94,14 +99,17 @@ def advise_estimator_regime(
         "threshold": COVERAGE_THRESHOLD,
         "recommendation": "FULLBATCH or *PDCACHE/PUSHDOWN",
     }
+    if remedied:
+        return advice
     log.warning(
         "estimator regime%s: one %d-seed batch's bottom hop is expected "
         "to reach %.1f%% of all %d vertices — an epoch (%d steps) "
         "recomputes ~%.1fx whole-graph bottom-layer work.  At this "
         "coverage FULLBATCH computes EXACT gradients in one pass and "
         "the *PDCACHE engines reuse the hot bottom layer across "
-        "batches.  Set ALGORITHM to a FULLBATCH variant, or "
-        "ESTIMATOR_ADVISOR:off to silence.",
+        "batches.  Set ALGORITHM to a FULLBATCH/PDCACHE variant, "
+        "ESTIMATOR_ADVISOR:route to turn the PUSHDOWN bottom-hop "
+        "composition on, or ESTIMATOR_ADVISOR:off to silence.",
         f" ({context})" if context else "",
         batch_size, 100.0 * coverage, adj.num_vertices, steps,
         steps * coverage)

@@ -87,9 +87,12 @@ class DeviceSampleTrainer(SampleTrainer):
             v, f_dim = dataset.features.shape
             fd = (cfg.feature_dtype or cfg.dtype).lower()
             itemsize = {"int8": 1, "bfloat16": 2}.get(fd, 4)
-            cap = feature_capacity(f_dim, itemsize, dev, hbm_budget_bytes)
+            # what else must stay resident beside the features
+            budget = max(memory_budget(dev, hbm_budget_bytes)
+                         - self._resident_extra_bytes(cfg, dataset), 0)
+            cap = feature_capacity(f_dim, itemsize, dev, budget)
             if cap < v:
-                cap8 = feature_capacity(f_dim, 1, dev, hbm_budget_bytes)
+                cap8 = feature_capacity(f_dim, 1, dev, budget)
                 if fd != "int8" and cap8 >= v:
                     log.warning(
                         "features exceed device memory at %s (%d of %d rows "
@@ -100,7 +103,9 @@ class DeviceSampleTrainer(SampleTrainer):
                 else:
                     raise FeaturesExceedHbm(
                         f"feature matrix needs {v} rows but only {cap8} fit "
-                        "in device memory even at int8 — use a host-sampled "
+                        "in device memory even at int8 (beside "
+                        f"{self._resident_extra_bytes(cfg, dataset)} bytes "
+                        "of other resident state) — use a host-sampled "
                         "engine (e.g. GCNSAMPLEGPU)")
         super().__init__(
             cfg, dataset, family=family, weight_kind=weight_kind,
@@ -198,14 +203,17 @@ class DeviceSampleTrainer(SampleTrainer):
         self.sample_generator.set_state(state["sample_rng"])
 
     # ---------------------------------------------------------------- steps
-    def sample(self, seeds: torch.Tensor, valid: torch.Tensor):
-        """One device-sampled batch for padded seeds."""
+    def sample(self, seeds: torch.Tensor, valid: torch.Tensor,
+               omit_map: Optional[torch.Tensor] = None):
+        """One device-sampled batch for padded seeds (cache-omitting at the
+        bottom hop with `omit_map`)."""
         return device_sample_batch(
             self.sample_generator, seeds, valid, self.dev_indptr,
             self.dev_indices, self.dev_in_deg, self.dev_out_deg,
             self.dev_features, self.dev_labels, tuple(self.cfg.fanout),
             self.src_pads, self.weight_kind, degree_mode=self.dev_degree_mode,
-            feat_scale=self._feat_scale, compute_dtype=self.compute_dtype)
+            feat_scale=self._feat_scale, compute_dtype=self.compute_dtype,
+            omit_map=omit_map)
 
     def _seed_batches(self, nids: np.ndarray, shuffle: bool):
         nids = np.asarray(nids, dtype=np.int32)
@@ -220,6 +228,17 @@ class DeviceSampleTrainer(SampleTrainer):
             yield (torch.from_numpy(seeds).to(self.device),
                    torch.from_numpy(valid).to(self.device))
 
+    def _train_order(self) -> np.ndarray:
+        """The epoch's seed order (BATCH_TYPE)."""
+        return self._epoch_order(self.train_nids)
+
+    def _device_step(self, step: int, seeds: torch.Tensor,
+                     valid: torch.Tensor):
+        """Sample and train one batch → (batch, loss, acc)."""
+        batch = self.sample(seeds, valid)
+        loss, acc = self.train_step(batch)
+        return batch, loss, acc
+
     def train_epoch(self) -> Tuple[float, float, int]:
         """One epoch → (mean loss, train acc, sampled edges), with one host
         sync at its end (or one per step when `fused_epoch` is False)."""
@@ -229,11 +248,10 @@ class DeviceSampleTrainer(SampleTrainer):
         if cuda:
             events.append(torch.cuda.Event(enable_timing=True))
             events[-1].record()
-        for seeds, valid in self._seed_batches(
-                self._epoch_order(self.train_nids), False):
+        for i, (seeds, valid) in enumerate(self._seed_batches(
+                self._train_order(), False)):
             with self.timers.phase("device_step"):
-                batch = self.sample(seeds, valid)
-                loss, acc = self.train_step(batch)
+                batch, loss, acc = self._device_step(i, seeds, valid)
                 if not self.fused_epoch and cuda:
                     torch.cuda.synchronize(self.device)
             if cuda:

@@ -5,13 +5,17 @@ dispatches 14 engine classes, one per (model × placement × caching ×
 #GPU); here one trainer is parameterised by policy knobs, so every
 ALGORITHM string maps to a configuration.  The table is the JAX package's
 in full; the port trains GCNSAMPLESINGLE, GCNSAMPLEGPU, GCNSAMPLEALLGPU,
-GSSAMPLEALLGPU and GATSAMPLEALLGPU (sampled) and GCNFULLBATCH, GSFULLBATCH
-and GATFULLBATCH (whole graph, `FullBatchEngine`), and every other engine,
-and every option the port does not take yet, raises NotImplementedError
-naming its ROADMAP item.
+GSSAMPLEALLGPU and GATSAMPLEALLGPU (sampled), GCNSAMPLEPDCACHE,
+GSSAMPLECACHE, GSSAMPLEPDCACHE and GATSAMPLEPDCACHE (sampled with the
+hot-vertex cache) and GCNFULLBATCH, GSFULLBATCH and GATFULLBATCH (whole
+graph, `FullBatchEngine`); the *MULTI engines, and every option the port
+does not take yet, raise NotImplementedError naming their ROADMAP item.
 
 Placement: *SAMPLESINGLE → bias-corrected Adam (CPU engines); *SAMPLEGPU →
-host sampler; *ALLGPU → device sampler; *FULLBATCH → whole-graph training
+host sampler; *ALLGPU → device sampler; *PDCACHE / *CACHE → the device
+sampler with the in-loop cache refresh (train/device_cached.py), or the
+host-refreshed cached trainer (cache/orchestrator.py) under PD_REFRESH:host
+or when the features exceed the device; *FULLBATCH → whole-graph training
 (train/fullbatch.py), bias-corrected Adam.  Edge-weight degrees follow
 UP_DEGREE for every engine (GraphSegment.cpp:273): false → "global"
 full-graph degrees, true → "sampled" degrees.
@@ -100,23 +104,11 @@ def resolve_degree_mode(cfg: RunConfig) -> str:
 
 def _not_ported(spec: EngineSpec, cfg: RunConfig) -> Optional[str]:
     """The ROADMAP item a configuration waits for, or None if the port
-    trains it.  PUSHDOWN and the advisor concern sampled engines only: a
-    *FULLBATCH engine ignores them, as in the JAX package."""
-    reorder = "REORDER: graph/reorder.py (ROADMAP Queue 1 item 7)"
-    if spec.fullbatch:
-        return reorder if (cfg.reorder or "none").lower() not in (
-            "none", "") else None
+    trains it."""
     if spec.multi_device:
         return f"{spec.name}: data-parallel training (ROADMAP Queue 1 item 6)"
-    if spec.use_cache:
-        return f"{spec.name}: caches and PD-cache engines (ROADMAP Queue 1 item 5)"
-    if cfg.pushdown:
-        return "PUSHDOWN: the PD-cache composition (ROADMAP Queue 1 item 5)"
-    if getattr(cfg, "estimator_advisor", "warn") == "route":
-        return ("ESTIMATOR_ADVISOR:route: the advisor's PUSHDOWN routing "
-                "(ROADMAP Queue 1 item 5)")
     if (cfg.reorder or "none").lower() not in ("none", ""):
-        return reorder
+        return "REORDER: graph/reorder.py (ROADMAP Queue 1 item 7)"
     return None
 
 
@@ -184,9 +176,41 @@ class FullBatchEngine:
             time_skip=self.cfg.time_skip)
 
 
+def _route_by_advice(cfg: RunConfig, dataset: Dataset,
+                     spec: EngineSpec) -> RunConfig:
+    """ESTIMATOR_ADVISOR:route: when one batch's bottom hop is expected to
+    cover most of the graph, turn the PUSHDOWN bottom-hop composition on
+    (train/advisor.py) instead of only warning."""
+    from ..data.dataset import MASK_TRAIN
+    from ..graph.adjacency import Adjacency
+    from .advisor import advise_estimator_regime
+
+    adj = Adjacency.from_edges(dataset.edges, dataset.num_vertices)
+    advice = advise_estimator_regime(
+        adj, cfg.fanout, cfg.batch_size,
+        len(dataset.nids_with_mask(MASK_TRAIN)), mode="warn", remedied=True)
+    if advice is None:
+        return cfg
+    get_logger("sgnn.advisor").warning(
+        "estimator regime (coverage %.1f%%): ESTIMATOR_ADVISOR:route "
+        "enabling the PUSHDOWN bottom-hop composition for %s",
+        100 * advice["bottom_coverage"], spec.name)
+    return dataclasses.replace(cfg, pushdown=True)
+
+
 def build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     """Construct (without running) the trainer an ALGORITHM string names,
-    on `device` (None means CUDA)."""
+    on `device` (None means CUDA), routed as the JAX package's
+    (sgnn_tpu/train/engines.py:196-330, less its multi-device branches).
+
+    A cached engine takes the device-sampled cached trainer when it
+    refreshes on the device (GSSAMPLECACHE) and by default (*PDCACHE);
+    PD_REFRESH:host takes the host-refreshed one, and so does any cached
+    engine whose features exceed the device (FeaturesExceedHbm: the JAX
+    package's beyond-device-memory posture, still on the card).
+    PUSHDOWN:1 on a plain sampled engine is the cached trainer on that
+    engine's sampler; ESTIMATOR_ADVISOR:route turns PUSHDOWN on when the
+    advisor fires."""
     spec = engine_from_config(cfg)
     missing = _not_ported(spec, cfg)
     if missing is not None:
@@ -195,9 +219,35 @@ def build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     if spec.fullbatch:
         return FullBatchEngine(cfg, dataset, spec.family, spec.weight_kind,
                                device=device)
+    log = get_logger("sgnn.engine")
+    if (cfg.estimator_advisor == "route" and not cfg.pushdown
+            and not spec.use_cache):
+        cfg = _route_by_advice(cfg, dataset, spec)
+    pushdown_derived = cfg.pushdown and not spec.use_cache
+    if pushdown_derived:
+        spec = dataclasses.replace(spec, use_cache=True,
+                                   cache_on_device=spec.device_sampling)
     kw = dict(family=spec.family, weight_kind=spec.weight_kind,
               degree_mode=degree_mode, bias_correction=spec.bias_correction,
               device=device)
+    if spec.use_cache and (spec.cache_on_device or (
+            cfg.pd_refresh != "host" and not pushdown_derived)):
+        from .device_cached import DeviceCachedSampleTrainer
+        from .device_trainer import FeaturesExceedHbm
+
+        try:
+            return DeviceCachedSampleTrainer(
+                cfg, dataset, family=spec.family,
+                weight_kind=spec.weight_kind,
+                bias_correction=spec.bias_correction, device=device)
+        except FeaturesExceedHbm as exc:
+            log.warning("%s: %s — the host-refreshed cached trainer "
+                        "instead (beyond-device-memory posture)", spec.name,
+                        exc)
+    if spec.use_cache:
+        from ..cache.orchestrator import CachedSampleTrainer
+
+        return CachedSampleTrainer(cfg, dataset, **kw)
     if spec.device_sampling:
         from .device_trainer import DeviceSampleTrainer, FeaturesExceedHbm
 
@@ -206,8 +256,8 @@ def build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
         except FeaturesExceedHbm as exc:
             # beyond-device-memory graph: degrade to the host-sampled
             # trainer, as the JAX package does
-            get_logger("sgnn.engine").warning(
-                "%s: %s — falling back to host sampling", spec.name, exc)
+            log.warning("%s: %s — falling back to host sampling", spec.name,
+                        exc)
             from .trainer import SampleTrainer
 
             return SampleTrainer(cfg, dataset, features_on_device=False, **kw)

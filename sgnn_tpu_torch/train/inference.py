@@ -50,7 +50,7 @@ from ..graph.adjacency import Adjacency
 from ..models.gnn import GNNParams, check_heads
 from ..nn.functional import BN_EPS, log_softmax
 from ..ops.gat import gat_aggregate, pack_score_tables
-from ..ops.segment import csr_from_numpy, spmm_csr
+from ..ops.segment import csr_from_numpy, spmm_csr, unique_inverse
 from ..sampler.blocks import WeightKind
 from ..sampler.native import gather_rows
 from ..utils.logging import get_logger
@@ -313,23 +313,6 @@ class InferenceServer:
         return logp.cpu().numpy()[inv]
 
 
-def _unique_inverse(ids: np.ndarray):
-    """`np.unique(ids, return_inverse=True)` (the same two arrays, int32)
-    for non-negative int32 ids, by one value sort of (id, position) keys
-    instead of numpy's argsort: O(n log n) in the ids alone, whatever the
-    number of vertices they index."""
-    n = ids.size
-    key = (ids.astype(np.int64) << 32) | np.arange(n, dtype=np.int64)
-    key.sort()
-    s = (key >> 32).astype(np.int32)
-    new = np.empty(n, bool)
-    new[:1] = True
-    np.not_equal(s[1:], s[:-1], out=new[1:])
-    inv = np.empty(n, np.int32)
-    inv[key & 0xFFFFFFFF] = np.cumsum(new, dtype=np.int32) - 1
-    return s[new], inv
-
-
 def _full_f32_products(device: torch.device) -> None:
     """The precision choice of the whole package: f32 products in full f32
     on the card (TF32 keeps ~3 decimal digits; serving is held to the CPU
@@ -431,7 +414,7 @@ def layerwise_inference(
         for a in range(0, v, chunk):
             b = min(a + chunk, v)
             lo, hi = int(indptr[a]), int(indptr[b])
-            uniq, inv = _unique_inverse(src_all[lo:hi])
+            uniq, inv = unique_inverse(src_all[lo:hi])
             chunks.append((a, b, uniq, csr_from_numpy(
                 indptr[a:b + 1] - lo, inv, w_all[lo:hi], uniq.size, "cpu")))
     h = np.ascontiguousarray(features, np.float32)

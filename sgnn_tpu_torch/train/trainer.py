@@ -26,6 +26,11 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..cache.feature_cache import (
+    FeatureCache, check_cold_pos, degree_ranked_hot_ids,
+    hbm_feature_capacity, scatter_cold_rows,
+)
+from ..cache.hotness import presample_hotness_per_sb, super_batch_stable_shuffle
 from ..config import RunConfig
 from ..data.dataset import Dataset, MASK_TEST, MASK_TRAIN, MASK_VAL
 from ..data.quant import quantize_columns
@@ -133,26 +138,34 @@ def loss_and_grads(params: GNNParams, family: str, batch: SampledBatch, *,
                    drop_rate: float = 0.0,
                    generator: Optional[torch.Generator] = None,
                    remat: bool = False, batch_norm: bool = False,
-                   heads: int = 1) -> StepOut:
+                   heads: int = 1,
+                   cache_emb: Optional[torch.Tensor] = None) -> StepOut:
     """Forward, masked NLL and its gradient with respect to every weight
     and attention vector: the differentiated part of a training step, on
-    the batch's device."""
+    the batch's device.  `cache_emb` is the hot-vertex cache's layer-0
+    rows (`model_forward`)."""
     leaves = [p.detach().requires_grad_() for p in params.leaves()]
     logp = model_forward(params.replace_leaves(leaves), family, batch,
                          drop_rate=drop_rate, train=True, generator=generator,
-                         remat=remat, batch_norm=batch_norm, heads=heads)
+                         remat=remat, batch_norm=batch_norm, heads=heads,
+                         cache_emb=cache_emb)
     loss = nll_loss_masked(logp, batch.labels, batch.label_valid)
     loss.backward()
     return StepOut(loss.detach(), logp.detach(), [p.grad for p in leaves])
 
 
 class _HostItem(NamedTuple):
-    """What the prefetch thread hands over: host arrays only."""
+    """What the prefetch thread hands over: host arrays only.  `cold_pos`
+    marks x0 as the feature cache's compacted miss rows; `cache_mask` and
+    `cache_slot` are the embedding cache's bottom-hop merge."""
 
     hb: HostSampledBatch
     x0: np.ndarray
     y: np.ndarray
     y_valid: np.ndarray
+    cold_pos: Optional[np.ndarray] = None
+    cache_mask: Optional[np.ndarray] = None
+    cache_slot: Optional[np.ndarray] = None
 
 
 class SampleTrainer:
@@ -161,7 +174,11 @@ class SampleTrainer:
     FEATURE_DTYPE:int8 quantizes the features once (data/quant.py): on the
     device they stay int8 and each batch's gathered rows are dequantized
     there; in host mode (`features_on_device=False`) the batches ship int8
-    rows, dequantized after the upload.  `.estimator_advice` is the
+    rows, dequantized after the upload.  FEATURE_CACHE_RATE > 0 with the
+    features off the device stages a partial feature cache
+    (cache/feature_cache.py): the hottest rows on the device — by degree,
+    or per super-batch under FEATURE_CACHE_PLAN:per_sb — and batches ship
+    only their cache-miss rows.  `.estimator_advice` is the
     ESTIMATOR_ADVISOR's finding (train/advisor.py), None below its
     threshold.  `checkpoint_state` / `load_checkpoint_state` carry what a
     bit-identical resume needs (train/checkpoint.py)."""
@@ -213,7 +230,9 @@ class SampleTrainer:
         # reach most of the graph (train/advisor.py)
         self.estimator_advice = advise_estimator_regime(
             self.adj, cfg.fanout, cfg.batch_size, len(self.train_nids),
-            mode=cfg.estimator_advisor, context=type(self).__name__)
+            mode=cfg.estimator_advisor,
+            remedied=getattr(type(self), "_advisor_remedied", False),
+            context=type(self).__name__)
         self.sampler = HostSampler(
             self.adj, fanouts=cfg.fanout, batch_size=cfg.batch_size,
             weight_kind=weight_kind, degree_mode=degree_mode, seed=cfg.seed)
@@ -237,12 +256,9 @@ class SampleTrainer:
             features_on_device = (
                 dataset.features is not None
                 and dataset.features.shape[0] * dataset.features.shape[1]
-                * store_dtype.itemsize < limit)
+                * store_dtype.itemsize
+                < limit - self._resident_extra_bytes(cfg, dataset))
         self.features_on_device = features_on_device
-        if not features_on_device and cfg.feature_cache_rate > 0:
-            raise NotImplementedError(
-                "the partial feature cache (FEATURE_CACHE_RATE > 0) waits for "
-                "the cache slice (ROADMAP Queue 1 item 5)")
         # int8: quantized once on the host; `_feat_scale` is the [F] scale
         # on the device, `_host_q` the int8 rows host mode ships (1 byte an
         # element over the link)
@@ -263,6 +279,7 @@ class SampleTrainer:
         else:
             self.dev_features = None
             self.dev_labels = None
+        self._init_feature_cache(hbm_budget_bytes)
         self.params = init_model(cfg.seed, family, cfg.layer_sizes,
                                  device=self.device)
         check_heads(self.params, family, cfg.heads)
@@ -272,6 +289,148 @@ class SampleTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
         self.timers = PhaseTimer()
+
+    def _resident_extra_bytes(self, cfg: RunConfig, dataset: Dataset) -> int:
+        """Device bytes a subclass keeps resident beside the features for
+        the whole run, counted where residency is decided."""
+        return 0
+
+    # ------------------------------------------------ partial feature cache
+    def _init_feature_cache(self, hbm_budget_bytes: Optional[int]) -> None:
+        """FEATURE_CACHE_RATE with the features off the device (the JAX
+        package's sgnn_tpu/train/trainer.py:223-310): as many of the
+        hottest rows as the rate asks for and the capacity probe allows
+        (`hbm_feature_capacity`), staged once by degree, or under
+        FEATURE_CACHE_PLAN:per_sb one plan per super-batch from the
+        hotness presample, only the active plan's rows on the device.
+        Producer and consumer count batches apart (the prefetch thread
+        samples ahead): the producer gathers each batch's misses under its
+        own super-batch's slot map, the consumer installs that plan before
+        the batch is assembled."""
+        self.feat_cache: Optional[FeatureCache] = None
+        self._fc_sb_caches: Optional[List[FeatureCache]] = None
+        self._fc_sb_size = 0
+        self._fc_dev_sb = 0
+        self._produce_idx = 0   # the producer's batch counter (per epoch)
+        self._fc_consume_idx = 0
+        self._fc_train_mode = False
+        cfg, dataset = self.cfg, self.dataset
+        if self.features_on_device or cfg.feature_cache_rate <= 0:
+            return
+        # int8: hot rows stay int8 on the device and misses ship as int8;
+        # otherwise rows are staged in the compute dtype
+        self._fc_host_store = (self._host_q if self._host_q is not None
+                               else dataset.features)
+        self._fc_store_dtype = (None if self._host_q is not None
+                                else self.compute_dtype)
+        itemsize = (1 if self.feature_int8
+                    else self.compute_dtype.itemsize)
+        cap = hbm_feature_capacity(dataset.features.shape[1], itemsize,
+                                   budget_bytes=hbm_budget_bytes,
+                                   device=self.device)
+        rows = min(int(cfg.feature_cache_rate * dataset.num_vertices), cap)
+        plan = (cfg.feature_cache_plan or "global").lower()
+        sb_size = cfg.batch_size * max(cfg.pipeline_num, 1)
+        if plan == "per_sb" and rows > 0 and len(self.train_nids) > sb_size:
+            per = presample_hotness_per_sb(
+                self.adj, self.train_nids, cfg.fanout,
+                min(1.0, (rows + 0.5) / dataset.num_vertices), sb_size,
+                edge_file=cfg.edge_file or None,
+                batch_size=cfg.batch_size)[:, :rows]
+            self._fc_sb_caches = [
+                FeatureCache.build(self._fc_host_store, ids,
+                                   dtype=self._fc_store_dtype, upload=False,
+                                   device=self.device) for ids in per]
+            self._fc_sb_size = sb_size
+            self.feat_cache = self._fc_sb_caches[0]
+            self.feat_cache.upload(self._fc_host_store, self._fc_store_dtype)
+            staged = per.shape[1]
+        else:
+            hot = degree_ranked_hot_ids(self.adj, rows)
+            self.feat_cache = FeatureCache.build(
+                self._fc_host_store, hot, dtype=self._fc_store_dtype,
+                device=self.device)
+            staged = hot.size
+        log.info("feature cache: %d/%d rows (%.1f%%) staged on the device "
+                 "(capacity probe allowed %d, plan %s%s)", staged,
+                 dataset.num_vertices,
+                 100.0 * staged / max(dataset.num_vertices, 1), cap, plan,
+                 f" x {len(self._fc_sb_caches)} SBs"
+                 if self._fc_sb_caches else "")
+
+    def _producer_sb(self) -> int:
+        """Producer side: the super-batch of the batch being made (its
+        index in the epoch // PIPELINE_NUM), advancing the producer's
+        batch counter; the epoch loop resets it."""
+        k = self._produce_idx // max(self.cfg.pipeline_num, 1)
+        self._produce_idx += 1
+        return k
+
+    def _fc_producer_cache(self, sb: int) -> FeatureCache:
+        """The FeatureCache whose host slot map a batch of super-batch `sb`
+        gathers under (the one global plan outside per-SB training)."""
+        if self._fc_sb_caches is None or not self._fc_train_mode:
+            return self.feat_cache
+        return self._fc_sb_caches[min(sb, len(self._fc_sb_caches) - 1)]
+
+    def _fc_consume_advance(self) -> None:
+        """Consumer side: before assembling the next batch, install the
+        super-batch plan it was gathered under."""
+        if self._fc_sb_caches is None or not self._fc_train_mode:
+            return
+        k = (self._fc_consume_idx * self.cfg.batch_size) // self._fc_sb_size
+        self._fc_consume_idx += 1
+        self._fc_install_sb(min(k, len(self._fc_sb_caches) - 1))
+
+    def _fc_install_sb(self, k: int) -> None:
+        """Make plan k's rows the resident ones, the previous plan's
+        released first (one [C, F] set on the device at a time)."""
+        if k == self._fc_dev_sb and self._fc_sb_caches[k].dev_hot is not None:
+            return
+        prev = self._fc_sb_caches[self._fc_dev_sb]
+        prev.dev_hot = None
+        prev.dev_slot_map = None
+        with self.timers.phase("cache_refresh"):
+            self._fc_sb_caches[k].upload(self._fc_host_store,
+                                         self._fc_store_dtype)
+        self.feat_cache = self._fc_sb_caches[k]
+        self._fc_dev_sb = k
+
+    @property
+    def feature_cache_stats(self) -> Tuple[float, int, int]:
+        """(hit rate, bytes shipped, bytes full shipping would send) over
+        every feature-cache plan."""
+        caches = (self._fc_sb_caches if self._fc_sb_caches is not None
+                  else ([self.feat_cache] if self.feat_cache else []))
+        hits = sum(c.hits for c in caches)
+        misses = sum(c.misses for c in caches)
+        return (hits / max(hits + misses, 1),
+                sum(c.bytes_shipped for c in caches),
+                sum(c.bytes_full for c in caches))
+
+    def _gather_cold(self, hb: HostSampledBatch, sb: int) -> _HostItem:
+        """Producer side, feature-cache mode: the bottom hop's cache-miss
+        rows of a batch of super-batch `sb`, compacted, and the seeds'
+        labels."""
+        b0, top = hb.blocks[0], hb.blocks[-1]
+        fcache = self._fc_producer_cache(sb)
+        x0, cold_pos = fcache.gather_cold_compact(self._fc_host_store,
+                                                  b0.srcs, b0.src_valid)
+        y = self.dataset.labels[np.maximum(top.seeds, 0)].astype(np.int32)
+        return _HostItem(hb, x0, y, top.dst_valid, cold_pos=cold_pos)
+
+    def _assemble_cold(self, batch: SampledBatch) -> SampledBatch:
+        """Consumer side, feature-cache mode: the compacted miss rows
+        scattered onto the bottom source axis at `batch.cold_pos`, the
+        resident hot rows laid over them, then dequantized (the JAX
+        package's `_materialize`)."""
+        b0 = batch.blocks[0]
+        fc = self.feat_cache
+        x0 = scatter_cold_rows(batch.x0.to(fc.dev_hot.dtype), batch.cold_pos,
+                               b0.srcs.shape[0])
+        x0 = fc.merge_device(x0, b0.srcs, b0.src_valid)
+        return dataclasses.replace(batch, x0=self.dequantize(x0),
+                                   cold_pos=None)
 
     # ----------------------------------------------------------- checkpoint
     def checkpoint_state(self) -> dict:
@@ -299,15 +458,17 @@ class SampleTrainer:
                 * self._feat_scale.to(self.compute_dtype))
 
     # --------------------------------------------------------------- steps
-    def train_step(self, batch: SampledBatch) -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
-        """One forward/backward/update on `batch`; returns the loss and the
+    def train_step(self, batch: SampledBatch,
+                   cache_emb: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One forward/backward/update on `batch` (with the embedding
+        cache's rows `cache_emb`, if any); returns the loss and the
         (correct, valid) counts as device tensors."""
         out = loss_and_grads(self.params, self.family, batch,
                              drop_rate=self.cfg.drop_rate,
                              generator=self.generator, remat=self.cfg.remat,
                              batch_norm=self.cfg.batch_norm,
-                             heads=self.cfg.heads)
+                             heads=self.cfg.heads, cache_emb=cache_emb)
         new, self.opt_state = self.optimizer.update(
             out.grads, self.opt_state, self.params.leaves())
         self.params = self.params.replace_leaves(new)
@@ -332,17 +493,33 @@ class SampleTrainer:
                 return _HostItem(hb, np.zeros((1, 1), np.float32),
                                  np.zeros(top.seeds.shape[0], np.int32),
                                  top.dst_valid)
+            if self.feat_cache is not None:
+                return self._gather_cold(hb, self._producer_sb())
             feats = (self._host_q if self._host_q is not None
                      else self.dataset.features)
             return _HostItem(hb, *hb.payload(feats, self.dataset.labels))
 
     def _upload(self, item: _HostItem) -> Tuple[SampledBatch, int]:
         """Consumer side: upload, and gather x0/labels on the device when
-        the features are resident there."""
+        the features are resident there (or assemble x0 from the feature
+        cache)."""
         with self.timers.phase("transfer"):
             batch = host_batch_to_device(item.hb, item.x0, item.y,
                                          item.y_valid, self.device)
-            if self.features_on_device:
+            if item.cache_mask is not None:
+                batch = dataclasses.replace(
+                    batch,
+                    cache_mask=torch.from_numpy(item.cache_mask).to(
+                        self.device),
+                    cache_slot=torch.from_numpy(item.cache_slot).to(
+                        self.device))
+            if item.cold_pos is not None:
+                check_cold_pos(item.cold_pos, item.hb.blocks[0].srcs.shape[0])
+                batch = dataclasses.replace(batch, cold_pos=torch.from_numpy(
+                    item.cold_pos).to(self.device))
+                self._fc_consume_advance()
+                batch = self._assemble_cold(batch)
+            elif self.features_on_device:
                 b0, top = batch.blocks[0], batch.blocks[-1]
                 rows = self.dequantize(
                     self.dev_features.index_select(0, b0.srcs.long()))
@@ -407,13 +584,28 @@ class SampleTrainer:
     def train_epoch(self) -> Tuple[float, float, int]:
         """One epoch over the train nids → (mean loss, train acc, edges)."""
         losses, accs, edges = [], [], 0
-        for batch, nedges in self._batch_stream(
-                self._epoch_order(self.train_nids), shuffle=False):
-            with self.timers.phase("train_step"):
-                loss, acc = self.train_step(batch)
-            losses.append(loss)
-            accs.append(acc)
-            edges += nedges
+        if self._fc_sb_caches is not None:
+            # per-SB feature plans need stable super-batch membership
+            # (BATCH_TYPE sequence has it by construction) and counters
+            # from zero
+            order = (self.train_nids
+                     if self.cfg.batch_type.lower() == "sequence"
+                     else super_batch_stable_shuffle(
+                         self.train_nids, self._fc_sb_size,
+                         self.sampler.rng))
+            self._fc_train_mode = True
+            self._produce_idx = self._fc_consume_idx = 0
+        else:
+            order = self._epoch_order(self.train_nids)
+        try:
+            for batch, nedges in self._batch_stream(order, shuffle=False):
+                with self.timers.phase("train_step"):
+                    loss, acc = self.train_step(batch)
+                losses.append(loss)
+                accs.append(acc)
+                edges += nedges
+        finally:
+            self._fc_train_mode = False
         if not losses:
             return 0.0, 0.0, 0
         mean_loss = float(torch.stack(losses).mean())
@@ -459,4 +651,9 @@ class SampleTrainer:
             log.info("epoch %d: loss %.5f train %.4f val %.4f test %.4f "
                      "time %.3fs edges %d", ep, loss, tr_acc, va, te, dt,
                      edges)
+        if self.feat_cache is not None:
+            rate, shipped, full = self.feature_cache_stats
+            log.info("feature cache: hit rate %.3f, shipped %.1f MiB of "
+                     "cold rows (full shipping %.1f MiB)", rate,
+                     shipped / (1 << 20), full / (1 << 20))
         return report

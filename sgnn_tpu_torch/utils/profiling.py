@@ -6,7 +6,9 @@ sgnn_tpu/utils/profiling.py).
     CUDA activity is recorded when a card is visible,
   - `memory_budget` — the device-memory budget the residency decisions
     use (`train/device_trainer.feature_capacity`,
-    `train/inference.layerwise_inference`).
+    `train/inference.layerwise_inference`),
+  - `device_memory_stats` — the card's memory in the JAX package's keys
+    (`cache/feature_cache.hbm_feature_capacity`).
 """
 
 from __future__ import annotations
@@ -43,6 +45,17 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         path = os.path.join(log_dir, "trace.json")
         prof.export_chrome_trace(path)
         log.info("profiler trace written to %s", path)
+
+
+def device_memory_stats(device: torch.device) -> Optional[dict]:
+    """`{"bytes_limit", "bytes_in_use"}` of a CUDA device, from
+    `torch.cuda.mem_get_info` (in use = total − free: this process's
+    tensors, its allocator's cache and any other process's); None on the
+    CPU, which has no such statistics."""
+    if device.type != "cuda":
+        return None
+    free, total = torch.cuda.mem_get_info(device)
+    return {"bytes_limit": int(total), "bytes_in_use": int(total - free)}
 
 
 def memory_budget(device: torch.device,

@@ -38,6 +38,7 @@ from sgnn_tpu_torch.ops.segment import (
     CSR_CHUNK_MIN, LONG_ROW_EDGES, csr_chunk_edges, csr_from_numpy,
     csr_transpose, spmm_csr, spmm_csr_bwd, spmm_csr_plain,
 )
+from sgnn_tpu_torch.sampler.blocks import WeightKind
 from sgnn_tpu_torch.sampler.host import HostSampler
 from sgnn_tpu_torch.train import build_trainer
 from sgnn_tpu_torch.train.fullbatch import FullBatchTrainer
@@ -1026,3 +1027,121 @@ def test_resume_on_the_card(cuda_device, tmp_path, algo):
     for x, y in zip(pa, pc):
         assert y.device.type == "cuda"
         assert _rel(y.cpu(), x.cpu()) <= 1e-4
+
+
+# ------------------------------------------------------------- the caches --
+def _hot_graph(feat):
+    """A 6,000-vertex graph with hub destinations, its hot set (a fifth of
+    the vertices, by presampled hotness) and Gaussian [V, feat] rows."""
+    from sgnn_tpu_torch.cache.hotness import presample_hotness
+
+    rng = np.random.default_rng(feat)
+    v = 6000
+    dst = np.concatenate([rng.zipf(1.6, 60000) % v,
+                          rng.integers(0, v, 60000)]).astype(np.int32)
+    src = rng.integers(0, v, dst.size).astype(np.int32)
+    adj = Adjacency.from_edges(np.stack([src, dst], 1), v)
+    ids = presample_hotness(adj, np.arange(0, v, 3), [10, 5], 0.2)
+    x = rng.standard_normal((v, feat)).astype(np.float32)
+    return adj, ids, x
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3),
+                                       (torch.int8, 1e-5)])
+@pytest.mark.parametrize("feat", [7, 602])
+def test_pushdown_aggregate_matches_plain(cuda_device, dtype, tol, feat):
+    """K2's forward over the hot set's CSR (rows: the cache slots, up to
+    hundreds of edges) against its plain version on the same card tensors;
+    int8 levels (exact in f32) in blocks of unique source rows, scaled
+    after the sum; one launch a plan for f32/bf16, bit-identical on
+    repeat."""
+    from sgnn_tpu_torch.cache.embedding_cache import EmbeddingCache
+    from sgnn_tpu_torch.data.quant import quantize_columns
+
+    adj, ids, x = _hot_graph(feat)
+    cache = EmbeddingCache.build(adj, ids, WeightKind.GCN, device=cuda_device)
+    assert int(np.diff(cache.rowptr).max()) > 100
+    scale = None
+    if dtype == torch.int8:
+        q, scale = quantize_columns(x)
+        xt = torch.from_numpy(q).to(cuda_device)
+        ref_x = torch.from_numpy(q.astype(np.float32)).to(cuda_device)
+    else:
+        xt = torch.from_numpy(x).to(cuda_device, dtype)
+        ref_x = xt.float()
+    before = spmm_csr_cuda.launches
+    cache.precompute_aggregate(xt, scale)
+    got = cache.cache_agg
+    n = spmm_csr_cuda.launches - before
+    assert n >= 1 if dtype == torch.int8 else n == 1
+    cache.precompute_aggregate(xt, scale)
+    assert torch.equal(got, cache.cache_agg)
+    csr = csr_from_numpy(cache.rowptr, cache.col, cache.w, x.shape[0],
+                         cuda_device)
+    ref = spmm_csr_plain(ref_x, *csr)
+    if scale is not None:
+        ref = ref * torch.from_numpy(scale).to(cuda_device)[None, :]
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    assert _rel(got.cpu(), ref.cpu()) <= tol
+
+
+def test_cold_row_scatter_on_the_card(cuda_device):
+    """The feature cache's compacted misses scattered onto the source axis
+    on CUDA tensors, padding entries (one past the axis) included, then
+    the hot rows laid over them: equal to the full gather."""
+    from sgnn_tpu_torch.cache.feature_cache import (
+        FeatureCache, check_cold_pos, scatter_cold_rows,
+    )
+
+    rng = np.random.default_rng(5)
+    feats = rng.standard_normal((5000, 41)).astype(np.float32)
+    fc = FeatureCache.build(feats, np.arange(0, 5000, 4, dtype=np.int32),
+                            device=cuda_device)
+    for n_src in (0, 3, 700, 2048):
+        srcs = np.zeros(2048, np.int32)
+        srcs[:n_src] = np.sort(rng.choice(5000, n_src, replace=False))
+        valid = np.arange(2048) < n_src
+        x_cold, pos = fc.gather_cold_compact(feats, srcs, valid)
+        assert (pos == 2048).sum() == pos.size - (
+            valid & (fc.slot_map[srcs] < 0)).sum()
+        check_cold_pos(pos, 2048)
+        x0 = scatter_cold_rows(torch.from_numpy(x_cold).to(cuda_device),
+                               torch.from_numpy(pos).to(cuda_device), 2048)
+        x0 = fc.merge_device(x0, torch.from_numpy(srcs).to(cuda_device),
+                             torch.from_numpy(valid).to(cuda_device))
+        torch.cuda.synchronize()
+        full = np.where(valid[:, None], feats[srcs], 0.0)
+        np.testing.assert_array_equal(x0.cpu().numpy(), full)
+
+
+@pytest.mark.parametrize("algo,extra", [
+    ("GSSAMPLECACHE", {}),
+    ("GCNSAMPLEPDCACHE", dict(pd_refresh="host")),
+    ("GSSAMPLEPDCACHE", dict(hbm_budget=100_000, feature_cache_rate=0.3,
+                             feature_cache_plan="per_sb")),
+])
+def test_cached_trainers_train_on_the_card(cuda_device, algo, extra):
+    """The cached trainers on the card: K2 launched once a plan at build
+    (none when the aggregate is the host's), finite losses, hits counted,
+    and the card's first epoch within 1e-3 of the CPU's from the same
+    weights (host sampler: the same blocks)."""
+    ds = random_graph_dataset(3000, 10, 48, 5, seed=7)
+    cfg = RunConfig(algorithm=algo, layer_sizes=[48, 16, 5], fanout=[5, 3],
+                    batch_size=128, pipeline_num=2, drop_rate=0.0,
+                    vertices=ds.num_vertices, **extra)
+    cpu = build_trainer(cfg, ds, device="cpu")
+    before = spmm_csr_cuda.launches
+    tr = build_trainer(cfg, ds, device=cuda_device)
+    built = spmm_csr_cuda.launches - before
+    assert built == (0 if "hbm_budget" in extra else len(tr.sb_caches))
+    assert len(tr.sb_caches) > 1
+    cpu.params = tr.params.to("cpu")
+    loss, _, edges = tr.train_epoch()
+    assert np.isfinite(loss) and edges > 0
+    assert 0 < tr.cache_hits < tr.cache_lookups
+    assert spmm_csr_cuda.launches - before == built
+    if algo != "GSSAMPLECACHE":
+        cpu_loss, _, cpu_edges = cpu.train_epoch()
+        assert cpu_edges == edges
+        assert abs(cpu_loss - loss) <= 1e-3 * abs(cpu_loss)

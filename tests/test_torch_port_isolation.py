@@ -3,6 +3,7 @@ the JAX package, every port module imports with both blocked, and the
 entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
+import dataclasses
 import pathlib
 import shutil
 import subprocess
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 import sgnn_tpu_torch
+from sgnn_tpu_torch.cache import EmbeddingCache, FeatureCache
 from sgnn_tpu_torch.graph.adjacency import Adjacency
 from sgnn_tpu_torch.models.gnn import init_model, params_from_numpy
 from sgnn_tpu_torch.ops.probes import (  # noqa: F401 (import checked)
@@ -20,6 +22,7 @@ from sgnn_tpu_torch.ops.probes import (  # noqa: F401 (import checked)
 )
 from sgnn_tpu_torch.ops.segment import csr_from_numpy
 from sgnn_tpu_torch.config import RunConfig
+from sgnn_tpu_torch.sampler.blocks import WeightKind
 from sgnn_tpu_torch.sampler.native import build as native_build
 from sgnn_tpu_torch.train import FullBatchTrainer, build_trainer, run_engine
 from sgnn_tpu_torch.train.inference import (
@@ -75,7 +78,12 @@ def test_every_port_module_imports_with_jax_blocked():
             "sgnn_tpu_torch.ops.cuda.gat", "sgnn_tpu_torch.ops.reductions",
             "sgnn_tpu_torch.ops.cuda.gat_bwd",
             "sgnn_tpu_torch.train.fullbatch", "sgnn_tpu_torch.ops.probes",
-            "sgnn_tpu_torch.ops.cuda.probes"} <= set(mods)
+            "sgnn_tpu_torch.ops.cuda.probes", "sgnn_tpu_torch.cache",
+            "sgnn_tpu_torch.cache.hotness",
+            "sgnn_tpu_torch.cache.embedding_cache",
+            "sgnn_tpu_torch.cache.feature_cache",
+            "sgnn_tpu_torch.cache.orchestrator",
+            "sgnn_tpu_torch.train.device_cached"} <= set(mods)
 
 
 def test_native_sampler_builds_inside_the_checkout():
@@ -122,6 +130,16 @@ def test_entry_points_default_to_cuda(no_cuda, tiny_ds):
             tiny_ds, epochs=1),
         lambda: FullBatchTrainer(RunConfig(layer_sizes=[32, 16, 5],
                                            aggregator="max"), tiny_ds),
+        # the cached engines, both routes, and the caches themselves
+        lambda: build_trainer(dataclasses.replace(
+            cfg, algorithm="GSSAMPLECACHE"), tiny_ds),
+        lambda: run_engine(dataclasses.replace(
+            cfg, algorithm="GCNSAMPLEPDCACHE", pd_refresh="host"), tiny_ds,
+            epochs=1),
+        lambda: build_trainer(dataclasses.replace(
+            cfg, feature_cache_rate=0.2, hbm_budget=1000), tiny_ds),
+        lambda: EmbeddingCache.build(adj, np.arange(4), WeightKind.GCN),
+        lambda: FeatureCache.build(f, np.arange(4)),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

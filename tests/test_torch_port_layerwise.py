@@ -28,8 +28,9 @@ from sgnn_tpu.train.inference import layerwise_inference as j_layerwise
 
 from sgnn_tpu_torch.graph.adjacency import Adjacency
 from sgnn_tpu_torch.models.gnn import params_from_numpy
+from sgnn_tpu_torch.ops.segment import unique_inverse
 from sgnn_tpu_torch.train.inference import (
-    _unique_inverse, exact_accuracy, layerwise_inference, whole_graph_bytes,
+    exact_accuracy, layerwise_inference, whole_graph_bytes,
 )
 from sgnn_tpu_torch.utils.timing import PhaseTimer
 
@@ -152,7 +153,7 @@ def test_unique_inverse_is_numpys():
     for n, size in ((1, 0), (7, 30), (500, 4000), (100000, 3000),
                     (2**31 - 1, 5000)):
         ids = rng.integers(0, n, size).astype(np.int32)
-        uniq, inv = _unique_inverse(ids)
+        uniq, inv = unique_inverse(ids)
         ref_u, ref_i = np.unique(ids, return_inverse=True)
         np.testing.assert_array_equal(uniq, ref_u)
         np.testing.assert_array_equal(inv, ref_i)

@@ -87,11 +87,28 @@ def test_remat_changes_nothing(batch_pair):
 
 
 def test_gat_and_cache_wait_for_their_slices(batch_pair):
-    # GAT is ported (tests/test_torch_port_gat.py); the cache still waits
-    tp = params_from_numpy([np.ones((32, 16), np.float32),
-                            np.ones((16, 5), np.float32)], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        model_forward(tp, "gcn", batch_pair[1], cache_emb=torch.zeros(1, 16))
+    """GAT is ported (tests/test_torch_port_gat.py) and so is the cache:
+    `cache_emb` replaces the layer-0 rows `cache_mask` marks (parity with
+    the JAX package in test_torch_port_cache.py), and without a mask it
+    changes nothing."""
+    import dataclasses
+
+    rng = np.random.default_rng(0)
+    tp = params_from_numpy([rng.standard_normal((32, 16), np.float32),
+                            rng.standard_normal((16, 5), np.float32)],
+                           device="cpu")
+    tb = batch_pair[1]
+    emb = torch.full((1, 16), 7.0)
+    plain = model_forward(tp, "gcn", tb)
+    assert torch.equal(model_forward(tp, "gcn", tb, cache_emb=emb), plain)
+    n_dst = tb.blocks[0].num_dst_pad
+    mask = torch.zeros(n_dst, dtype=torch.bool)
+    mask[:3] = True
+    cached = dataclasses.replace(tb, cache_mask=mask,
+                                 cache_slot=torch.zeros(n_dst,
+                                                        dtype=torch.int32))
+    assert not torch.equal(model_forward(tp, "gcn", cached, cache_emb=emb),
+                           plain)
 
 
 def test_nll_masked_matches_jax():

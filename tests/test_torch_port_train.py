@@ -13,9 +13,10 @@ test_torch_port_model.py.
 
 GSSAMPLEALLGPU (device sampler, torch draws) is held to the JAX engine
 matrix's floor of 0.91 train accuracy in 8 epochs (tests/test_train.py:244)
-(GATSAMPLEALLGPU's floor is held in test_torch_port_gat.py), and every
-engine and option the port does not take yet raises NotImplementedError
-naming its ROADMAP item.
+(GATSAMPLEALLGPU's floor is held in test_torch_port_gat.py), every engine
+and option the port does not take yet raises NotImplementedError naming
+its ROADMAP item, and the cached engines and options build (their parity
+with the JAX package: test_torch_port_cache*.py).
 """
 
 import dataclasses
@@ -23,6 +24,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from sgnn_tpu.sampler.blocks import WeightKind as JWeightKind
 from sgnn_tpu.train.trainer import SampleTrainer as JSampleTrainer
@@ -36,7 +38,8 @@ CFG = os.path.join(os.path.dirname(__file__), "..", "configs",
                    "gcn_cora_sample.cfg")
 PORTED = {"GCNSAMPLESINGLE", "GCNSAMPLEGPU", "GCNSAMPLEALLGPU",
           "GSSAMPLEALLGPU", "GATSAMPLEALLGPU", "GCNFULLBATCH", "GSFULLBATCH",
-          "GATFULLBATCH"}
+          "GATFULLBATCH", "GCNSAMPLEPDCACHE", "GSSAMPLECACHE",
+          "GSSAMPLEPDCACHE", "GATSAMPLEPDCACHE"}
 
 
 def _cfg(**kw):
@@ -124,15 +127,34 @@ def test_unported_engines_name_their_item(cora, algo):
 @pytest.mark.parametrize("change", [
     dict(pushdown=True), dict(estimator_advisor="route"),
     dict(reorder="degree"),
-    # int8 features train now (test_torch_port_quant.py); int8 rows in the
-    # partial feature cache wait with the cache for item 5
-    dict(feature_dtype="int8", feature_cache_rate=0.2, hbm_budget=1000),
-    dict(feature_cache_rate=0.2, hbm_budget=1000),
+    # a budget under the features (f32 15.5 MB, int8 3.9 MB) that still
+    # stages rows: int8 the rate's 541, f32 the budget's 523
+    dict(feature_dtype="int8", feature_cache_rate=0.2, hbm_budget=3_000_000),
+    dict(feature_cache_rate=0.2, hbm_budget=3_000_000),
 ], ids=["pushdown", "advisor-route", "reorder", "int8", "feature-cache"])
 def test_unported_options_name_their_item(cora, change):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        build_trainer(_cfg(algorithm="GCNSAMPLEGPU", **change), cora,
-                      device="cpu")
+    """REORDER still waits for item 7.  PUSHDOWN, ESTIMATOR_ADVISOR:route
+    (Cora's 1024-seed batches reach every vertex) and the partial feature
+    cache, with f32 or int8 rows, waited for item 5 and train now."""
+    cfg = _cfg(algorithm="GCNSAMPLEGPU", **change)
+    if "reorder" in change:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            build_trainer(cfg, cora, device="cpu")
+        return
+    tr = build_trainer(cfg, cora, device="cpu")
+    loss, _, edges = tr.train_epoch()
+    assert np.isfinite(loss) and edges > 0
+    if "feature_cache_rate" in change:
+        assert isinstance(tr, SampleTrainer) and not tr.features_on_device
+        int8 = "feature_dtype" in change
+        assert tr.feat_cache.hot_ids.size == (541 if int8 else 523)
+        assert tr.feat_cache.dev_hot.dtype == (torch.int8 if int8
+                                               else torch.float32)
+        rate, shipped, full = tr.feature_cache_stats
+        assert 0 < rate < 1 and 0 < shipped < full
+    else:
+        assert type(tr).__name__ == "CachedSampleTrainer"
+        assert 0 < tr.cache_hits < tr.cache_lookups
 
 
 def test_unknown_engine_lists_the_known(cora):
