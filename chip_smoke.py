@@ -170,11 +170,30 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                and GATSAMPLEPDCACHE heads 4 (no K1, no K3) the same;
                GCNSAMPLEPDCACHE with PD_REFRESH:host (the host sampler's
                cached trainer) and GSSAMPLEPDCACHE past the card's memory
-               (HBM_BUDGET 100 MB: host features, a per-SB feature cache,
+               (HBM_BUDGET 300 MB: host features, a per-SB feature cache,
                host aggregates, no K2) for 3 steps each; hit rates, step
                times, edges/s beside train_device's, the feature cache's
                bytes shipped against full shipping;
-18. cli      — `python -m sgnn_tpu_torch` in subprocesses on the shipped
+18. train_dp — the *MULTI engines at the training widths on a one-rank
+               NCCL group (`parallel.mesh.make_group`; a rank built on the
+               CPU with NCCL raises): GCNSAMPLEALLMULTI and
+               GATSAMPLEALLMULTI heads 4, one epoch each beside their
+               single-device engines (GCNSAMPLEALLGPU, GATSAMPLEALLGPU) from
+               the same seed — the same per-step losses, parameters within
+               1e-6 relative (0 expected; the GAT pair under torch's
+               deterministic algorithms, as its edge ops' backward adds
+               with float atomics), the same launches — with median
+               step, sampled edges/s and the gradient all-reduce's bytes and
+               device time a step; GCNSAMPLEALLMULTI with SHARD_FEATURES:1
+               (rows fetched through the collectives), parameters within
+               1e-6 of the replicated run's, the fetch's time a step;
+               GCNSAMPLEPCMULTI, GSSAMPLEPCMULTI and GATSAMPLEPCMULTI heads
+               4 (one global hot set: exactly 1 K2 launch at build, its
+               aggregate held to K2's plain version at 1e-5), one epoch
+               each: 4 refreshes, hit rate, median step, edges/s; and
+               GCNSAMPLEPCMULTI under PD_REFRESH:host through the
+               host-sampled wrapper, 3 steps: step seconds;
+19. cli      — `python -m sgnn_tpu_torch` in subprocesses on the shipped
                Cora configs: gs_cora_sample.cfg for 2 epochs with
                checkpoints and a report, resumed to 3 (one more epoch),
                then `--infer` (predictions [2708, 7], rows summing to 1);
@@ -182,18 +201,19 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                trace written); gat_cora_sample.cfg with `--exact-eval`;
                gcn_cora_sample.cfg (GCNSAMPLEPDCACHE) trained to its end;
                each run's accuracies and wall time;
-19. kernels  — one line listing every kernel with its launches on its main
+20. kernels  — one line listing every kernel with its launches on its main
                path (serving for `spmm_csr`, train_device for K1,
                serving_gat for K3, train_full for K2's backward and K4,
                kernel_probes for the probes) and, for K2, K3 and K1, on
-               the paths of phases 15-17 (`launches_by_path`), its error
+               the paths of phases 15-18 (`launches_by_path`), its error
                and its times (`spmm_csr` and `gat_bwd_dst` also their
                layouts and registers and local bytes at the main path's
                shapes; `spmm_csr` also at the PushDown shape).
 
 Every main path (phases 5-10, 13 and 14, the int8 serving, chunked
-serving, int8 sampled and int8 whole-graph paths of phases 15-16, and
-each cached build and run of phase 17) starts
+serving, int8 sampled and int8 whole-graph paths of phases 15-16, each
+cached build and run of phase 17 and each data-parallel run of phase 18)
+starts
 with every launch count set to 0 and reads them all at its end; the CLI
 runs in other processes, whose counts this one cannot read.  Then the card's name and power limit as
 nvidia-smi prints them, and last `{"ok": true, "device": {...}}`.  Any
@@ -310,10 +330,17 @@ INT8_ARGMAX_AGREE = 0.97
 # chunked layerwise_inference's destination rows a chunk: the JAX
 # package's default, four chunks on the Reddit-shaped graph
 CHUNK_ROWS = 65536
-# the cached engine past the card's memory: a device budget below even the
-# int8 features (140 MB), so FeaturesExceedHbm routes it to the host-
-# refreshed trainer; its feature cache then stages 41,528 f32 rows
-BEYOND_BUDGET = 100_000_000
+# the cached engine past the card's memory: a device budget below the int8
+# features (140 MB) beside the 4 plans' stacked aggregates (224 MB), so
+# FeaturesExceedHbm routes it to the host-refreshed trainer; its feature
+# cache then stages the f32 rows the aggregates leave room for, about
+# 31,400 (the capacity probe counts both)
+BEYOND_BUDGET = 300_000_000
+# the one-rank data-parallel engines against their single-device engines
+# (and SHARD_FEATURES against replicated features), relative max-abs over
+# every parameter after an epoch: the same program on the same draws, so
+# 0 is expected; 1e-6 allows one f32 ulp of a reordered sum
+DP_PARAM_RTOL = 1e-6
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -377,6 +404,11 @@ def main() -> int:
     )
     from sgnn_tpu_torch.cache.embedding_cache import refresh_rows
     from sgnn_tpu_torch.cache.orchestrator import CachedSampleTrainer
+    from sgnn_tpu_torch.parallel.dp import DataParallelTrainer
+    from sgnn_tpu_torch.parallel.dp_device import (
+        DeviceCachedDataParallelTrainer, DeviceDataParallelTrainer,
+    )
+    from sgnn_tpu_torch.parallel.mesh import DataGroup, make_group
     from sgnn_tpu_torch.train.device_cached import DeviceCachedSampleTrainer
     from sgnn_tpu_torch.nn.functional import nll_loss_masked
     from sgnn_tpu_torch.train.fullbatch import build_coo
@@ -2316,10 +2348,10 @@ def main() -> int:
         "staleness_queue_version": host_pd.w_queue.version,
         "phase_totals_s": dict(host_pd.timers.totals), "launches": got}
     del host_pd
-    # (d) GSSAMPLEPDCACHE past the device's memory: HBM_BUDGET below even
-    # int8 residency, so FeaturesExceedHbm sends it to the host-refreshed
-    # trainer with host features, a per-SB feature cache and host
-    # aggregates (no K2); its first 3 steps
+    # (d) GSSAMPLEPDCACHE past the device's memory: HBM_BUDGET below int8
+    # residency beside the aggregates, so FeaturesExceedHbm sends it to the
+    # host-refreshed trainer with host features, a per-SB feature cache and
+    # host aggregates (no K2); its first 3 steps
     far, build, built = build_cached(dataclasses.replace(
         dev_cfg, algorithm="GSSAMPLEPDCACHE", hbm_budget=BEYOND_BUDGET,
         feature_cache_rate=0.2, feature_cache_plan="per_sb"))
@@ -2328,6 +2360,14 @@ def main() -> int:
             and built == {},
             f"beyond device memory: {type(far).__name__}, on device "
             f"{far.features_on_device}, build launched {built}")
+    # the staged feature rows and the aggregates share the budget
+    far_aggs = sum(c.cache_agg.numel() * c.cache_agg.element_size()
+                   for c in far.sb_caches)
+    far_rows = far.feat_cache.dev_hot
+    far_staged = far_rows.numel() * far_rows.element_size()
+    require(0 < far_staged and far_staged + far_aggs <= BEYOND_BUDGET,
+            f"beyond device memory: {far_staged} bytes of feature rows "
+            f"beside {far_aggs} of aggregates exceed {BEYOND_BUDGET}")
     far.train_nids = far.train_nids[:3 * TRAIN_BATCH]
     far.timers = PhaseTimer()
     reset_counts()
@@ -2350,6 +2390,7 @@ def main() -> int:
         "steps": 3, "hbm_budget": BEYOND_BUDGET, "build": build,
         "build_launches": built,
         "feature_cache_rows": int(far.feat_cache.hot_ids.size),
+        "feature_cache_bytes": far_staged, "aggregate_bytes": far_aggs,
         "step_s": epoch_s / 3, "loss": loss, "edges": edges,
         "hit_rate": far.cache_hit_rate, "feature_cache_hit_rate": fc_rate,
         "feature_bytes_shipped": shipped, "feature_bytes_full": full,
@@ -2359,7 +2400,222 @@ def main() -> int:
           "k2_pushdown_shape": pd_shape,
           "phase_s": time.perf_counter() - cache_t0})
 
-    # ---- 18. the CLI on the shipped Cora configs (subprocesses) ------------
+    # ---- 18. data-parallel training (main paths, counted) -----------------
+    dp_t0 = time.perf_counter()
+    group = make_group()
+    require(group.backend == "nccl" and group.world_size == 1
+            and group.device.type == "cuda",
+            f"the data-parallel group is {group}")
+    try:
+        DataGroup(rank=0, world_size=1, device=torch.device("cpu"),
+                  backend="nccl")
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("chip_smoke: an NCCL rank on the CPU did not "
+                           "raise")
+    dp_runs, dp_counts = {}, {}
+
+    def dp_epoch(tr, label):
+        """One epoch from zeroed counts → (the launches, a summary row):
+        finite losses, the last 4 steps' mean below the first's, 16
+        steps; the gradient all-reduce's and the feature fetch's bytes and
+        device time a step."""
+        base = getattr(tr, "base", tr)
+        tr_group = getattr(tr, "group", None)
+        if tr_group is not None:
+            tr_group.timed = True
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, acc, edges = tr.train_epoch()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        got = {n: c for n, c in counts().items() if c}
+        losses = base.step_losses
+        steps = len(base.step_ms)
+        require(all(np.isfinite(losses)) and np.isfinite(loss),
+                f"{label}: non-finite loss {losses}")
+        require(steps == 16, f"{label}: {steps} steps, expected 16")
+        require(float(np.mean(losses[-4:])) < losses[0],
+                f"{label}: loss did not fall: {losses}")
+        med = statistics.median(base.step_ms[1:])
+        row = {"steps": steps, "step_ms": base.step_ms,
+               "step_ms_median_after_first": med, "losses": losses,
+               "epoch_s": epoch_s, "edges_per_epoch": edges,
+               "sampled_edges_per_s_steady": edges / steps / (med / 1e3),
+               "train_acc": acc, "launches": got}
+        regions = tr_group.region_times() if tr_group is not None else {}
+        for tag, rows in regions.items():
+            require(len(rows) == steps, f"{label}: {len(rows)} {tag} "
+                                        f"regions in {steps} steps")
+            row[tag] = {"bytes_a_step": rows[0][0],
+                        "ms_a_step_median": statistics.median(
+                            ms for _, ms in rows),
+                        "ms_total": sum(ms for _, ms in rows)}
+        return got, row
+
+    def max_rel(a_params, b_params):
+        return max(rel_err(a, b) for a, b in zip(a_params.leaves(),
+                                                  b_params.leaves()))
+
+    # (a) *ALLMULTI on the one-rank group against the single-device engine
+    # from the same seed: the same per-step losses and parameters.  Sampled
+    # GAT's edge ops gather source rows by index, whose backward adds into
+    # the rows with float atomics: on the H100 the pair's first steps agree
+    # and the second does not, so the GAT pair is compared under torch's
+    # deterministic algorithms (a sorted scatter-add, about 44x slower a
+    # step there), both sides, and timed again in the default mode
+    def dp_pair(multi, single, heads):
+        """(the *ALLMULTI trainer's params, its launches and row, the
+        single engine's params, launches and row), one epoch each."""
+        sd = build_trainer(dataclasses.replace(dev_cfg, algorithm=single,
+                                               heads=heads), ds)
+        sd_got, sd_row = dp_epoch(sd, single)
+        sd_params = sd.params
+        del sd
+        t0 = time.perf_counter()
+        tr = build_trainer(dataclasses.replace(dev_cfg, algorithm=multi,
+                                               heads=heads), ds)
+        build_s = time.perf_counter() - t0
+        require(type(tr) is DeviceDataParallelTrainer
+                and tr.group.world_size == 1,
+                f"{multi} built {type(tr).__name__}")
+        got, row = dp_epoch(tr, multi)
+        row["build_s"] = build_s
+        return tr.params, got, row, sd_params, sd_got, sd_row
+
+    replicated = None
+    for multi, single, heads in (
+            ("GCNSAMPLEALLMULTI", "GCNSAMPLEALLGPU", 1),
+            ("GATSAMPLEALLMULTI", "GATSAMPLEALLGPU", GAT_TRAIN_HEADS)):
+        deterministic = heads > 1
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        params, got, row, sd_params, sd_got, sd_row = dp_pair(multi, single,
+                                                              heads)
+        torch.use_deterministic_algorithms(False)
+        want = k1_expect(16, 0) if heads == 1 else {}
+        require(got == want == sd_got,
+                f"{multi} launched {got}, {single} {sd_got}, expected {want}")
+        require(row["losses"] == sd_row["losses"],
+                f"{multi} per-step losses {row['losses']} differ from "
+                f"{single}'s {sd_row['losses']}")
+        err = max_rel(params, sd_params)
+        require(err <= DP_PARAM_RTOL, f"{multi} parameters differ from "
+                                      f"{single}'s by {err}")
+        bit = all(torch.equal(a, b) for a, b in zip(params.leaves(),
+                                                     sd_params.leaves()))
+        dp_counts[multi.lower()] = got
+        run = {"heads": heads, "deterministic_algorithms": deterministic,
+               **row, "params_max_rel_diff": err,
+               "params_bit_identical": bit, "single_engine": single,
+               "single_step_ms_median_after_first":
+               sd_row["step_ms_median_after_first"],
+               "single_sampled_edges_per_s_steady":
+               sd_row["sampled_edges_per_s_steady"]}
+        if deterministic:
+            _, got, row, _, sd_got, sd_row = dp_pair(multi, single, heads)
+            require(got == sd_got == want,
+                    f"{multi} (default mode) launched {got}")
+            run["default_mode"] = {
+                "step_ms_median_after_first":
+                row["step_ms_median_after_first"],
+                "sampled_edges_per_s_steady":
+                row["sampled_edges_per_s_steady"],
+                "single_step_ms_median_after_first":
+                sd_row["step_ms_median_after_first"],
+                "single_sampled_edges_per_s_steady":
+                sd_row["sampled_edges_per_s_steady"],
+                "grad_all_reduce": row["grad_all_reduce"]}
+        dp_runs[multi] = run
+        if heads == 1:
+            replicated = params
+        del params, sd_params
+    # (b) SHARD_FEATURES:1: the rows fetched from their owner rank (here
+    # the one rank), the same epoch, the parameters the replicated run's
+    t0 = time.perf_counter()
+    tr = build_trainer(dataclasses.replace(
+        dev_cfg, algorithm="GCNSAMPLEALLMULTI", shard_features=True), ds)
+    build_s = time.perf_counter() - t0
+    require(tr.base.dev_features is None and tr.feat_local is not None,
+            "SHARD_FEATURES kept the replicated features")
+    got, row = dp_epoch(tr, "GCNSAMPLEALLMULTI SHARD_FEATURES:1")
+    require(got == k1_expect(16, 0) and "feature_fetch" in row,
+            f"SHARD_FEATURES launched {got}")
+    err = max_rel(tr.params, replicated)
+    require(err <= DP_PARAM_RTOL,
+            f"SHARD_FEATURES parameters differ from replicated by {err}")
+    dp_counts["gcnsampleallmulti_sharded"] = got
+    dp_runs["GCNSAMPLEALLMULTI SHARD_FEATURES:1"] = {
+        "build_s": build_s, **row, "params_max_rel_diff_vs_replicated": err,
+        "params_bit_identical": all(torch.equal(a, b) for a, b in zip(
+            tr.params.leaves(), replicated.leaves()))}
+    del tr, replicated
+    # (c) *PCMULTI: the device-cached trainer with one global hot set (one
+    # K2 launch at build), its aggregate against K2's plain version
+    for algo, heads, k1_on_path in (
+            ("GCNSAMPLEPCMULTI", 1, True), ("GSSAMPLEPCMULTI", 1, True),
+            ("GATSAMPLEPCMULTI", GAT_TRAIN_HEADS, False)):
+        tr, build, built = build_cached(dataclasses.replace(
+            dev_cfg, algorithm=algo, heads=heads))
+        require(type(tr) is DeviceCachedDataParallelTrainer
+                and len(tr.base.sb_caches) == 1 and built == {"spmm_csr": 1},
+                f"{algo}: {type(tr).__name__}, build launched {built}")
+        plans = plan_checks(tr.base)
+        got, row = dp_epoch(tr, algo)
+        want = k1_expect(16, 0) if k1_on_path else {}
+        require(got == want, f"{algo} launched {got}, expected {want}")
+        require(tr.base.refreshes == 4 and 0 < tr.cache_hit_rate < 1,
+                f"{algo}: {tr.base.refreshes} refreshes, hit rate "
+                f"{tr.cache_hit_rate}")
+        dp_counts[algo.lower()] = got
+        dp_runs[algo] = {"heads": heads, "build": build,
+                         "build_launches": built, "plans": plans, **row,
+                         "hit_rate": tr.cache_hit_rate,
+                         "refreshes": tr.base.refreshes}
+        del tr
+    # (d) GCNSAMPLEPCMULTI under PD_REFRESH:host: the host cached trainer
+    # (one global hot set) under the host-sampled data-parallel wrapper,
+    # its first 3 steps
+    tr, build, built = build_cached(dataclasses.replace(
+        dev_cfg, algorithm="GCNSAMPLEPCMULTI", pd_refresh="host"))
+    require(type(tr) is DataParallelTrainer
+            and isinstance(tr.base, CachedSampleTrainer)
+            and not tr.base.per_sb and built == {"spmm_csr": 1},
+            f"PCMULTI PD_REFRESH:host: {type(tr).__name__}, build launched "
+            f"{built}")
+    tr.base.train_nids = tr.base.train_nids[:3 * TRAIN_BATCH]
+    tr.group.timed = True
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, edges = tr.train_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    got = {n: c for n, c in counts().items() if c}
+    require(np.isfinite(loss) and got == k1_expect(3, 0),
+            f"PCMULTI PD_REFRESH:host: loss {loss}, launched {got}")
+    reduce_rows = tr.group.region_times()["grad_all_reduce"]
+    require(len(reduce_rows) == 3, f"{len(reduce_rows)} all-reduces in 3 "
+                                   "steps")
+    dp_counts["pcmulti_pd_refresh_host"] = got
+    dp_runs["GCNSAMPLEPCMULTI PD_REFRESH:host"] = {
+        "steps": 3, "build": build, "build_launches": built,
+        "step_s": epoch_s / 3, "loss": loss, "edges": edges,
+        "sampled_edges_per_s": edges / epoch_s,
+        "hit_rate": tr.cache_hit_rate,
+        "grad_all_reduce": {"bytes_a_step": reduce_rows[0][0],
+                            "ms_a_step": [ms for _, ms in reduce_rows]},
+        "launches": got}
+    del tr
+    torch.distributed.destroy_process_group()
+    emit({"phase": "train_dp", "group": {
+        "backend": group.backend, "world_size": group.world_size,
+        "device": str(group.device)}, "runs": dp_runs,
+        "param_rtol": DP_PARAM_RTOL,
+        "phase_s": time.perf_counter() - dp_t0})
+
+    # ---- 19. the CLI on the shipped Cora configs (subprocesses) ------------
     extras_t0 = time.perf_counter()
     cli_dir = ROOT / "build" / "chip_smoke_cli"
     shutil.rmtree(cli_dir, ignore_errors=True)
@@ -2417,7 +2673,7 @@ def main() -> int:
     emit({"phase": "cli", "runs": runs,
           "phase_s": time.perf_counter() - extras_t0})
 
-    # ---- 19. kernels -------------------------------------------------------
+    # ---- 20. kernels -------------------------------------------------------
     # one logprobs() pass's work: the F=128 and the F=41 f32 SpMMs
     per_pass = [t for t in timings if t["dtype"] == "float32"]
 
@@ -2539,7 +2795,11 @@ def main() -> int:
                          ("pd_refresh_host", cache_runs[
                              "GCNSAMPLEPDCACHE PD_REFRESH:host"]),
                          ("beyond_device", cache_runs[
-                             "GSSAMPLEPDCACHE beyond device memory"]))}},
+                             "GSSAMPLEPDCACHE beyond device memory"]))},
+                     **{f"dp_{name.lower().replace(' ', '_').replace(':', '_')}"
+                        f"_build": run["build_launches"].get("spmm_csr", 0)
+                        for name, run in dp_runs.items()
+                        if "build_launches" in run}},
         "gat_aggregate": {
             "serving_gat": gat_launches,
             "int8_serving": int8_serve_counts["gat_aggregate"],
@@ -2555,7 +2815,9 @@ def main() -> int:
                 "train_device": k["launches"],
                 "int8_device_sampled": int8_train_counts[k["name"]],
                 **{path: got.get(k["name"], 0)
-                   for path, got in cache_counts.items()}}
+                   for path, got in cache_counts.items()},
+                **{f"dp_{path}": got.get(k["name"], 0)
+                   for path, got in dp_counts.items()}}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

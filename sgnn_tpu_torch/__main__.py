@@ -12,6 +12,11 @@ names the last good checkpoint), and when the cfg asks for what the port
 does not run yet (the message names its ROADMAP item); 2 for bad
 arguments.  Under `--checkpoint-dir` the run's report covers the epochs
 this call trained.
+
+The *MULTI engines train data-parallel: on a one-rank group by default,
+on N ranks under `torchrun --nproc-per-node N -m sgnn_tpu_torch cfg`
+(one card a rank); rank 0 writes the checkpoints and the report.  The
+multi-host flags (--coordinator/--nprocs/--pid) are item 6c.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import sys
 
 MULTIHOST_NOT_PORTED = (
     "multi-host training (--coordinator/--nprocs/--pid) is not ported yet: "
-    "ROADMAP Queue 1 item 6 (parallel)")
+    "ROADMAP Queue 1 item 6 (6c; one host's ranks run under torchrun)")
 
 
 def main(argv=None) -> int:
@@ -96,12 +101,20 @@ def main(argv=None) -> int:
         prof_ctx = trace(args.profile)
     else:
         prof_ctx = contextlib.nullcontext()
+    import torch.distributed as dist
+
+    # a *MULTI engine joins a one-rank group, or torchrun's ranks
+    # (parallel/mesh.make_group); the group this call made ends with it
+    owns_group = not dist.is_initialized()
     try:
         with prof_ctx:
             return _run(args, cfg, ds, log, "cpu" if args.cpu else None)
     except NotImplementedError as exc:
         log.error("%s", exc)
         return 1
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _run(args, cfg, ds, log, device) -> int:
@@ -192,13 +205,19 @@ def _run(args, cfg, ds, log, device) -> int:
         log.info("final: train %.4f val %.4f test %.4f loss %.5f",
                  report.train_acc[-1], report.val_acc[-1],
                  report.test_acc[-1], report.losses[-1])
-    if args.report_out:
+    if args.report_out and _rank() == 0:
         rec = {"config": args.config, "algorithm": cfg.algorithm,
                **report.to_dict()}
         with open(args.report_out, "w") as f:
             json.dump(rec, f, indent=1)
         log.info("wrote run report to %s", args.report_out)
     return 0
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 if __name__ == "__main__":

@@ -148,13 +148,19 @@ def hbm_feature_capacity(feature_dim: int, itemsize: int,
     (`utils.profiling.device_memory_stats`); with no statistics (the CPU)
     the JAX package's generous 1 GiB."""
     if budget_bytes is None:
-        stats = device_memory_stats(resolve_device(device))
-        if stats and stats.get("bytes_limit"):
-            free = stats["bytes_limit"] - stats.get("bytes_in_use", 0)
-            budget_bytes = int(free * headroom_fraction)
-        else:
-            budget_bytes = CPU_BUDGET_BYTES
+        budget_bytes = feature_budget_bytes(device, headroom_fraction)
     return max(int(budget_bytes) // max(feature_dim * itemsize, 1), 0)
+
+
+def feature_budget_bytes(device=None, headroom_fraction: float = 0.5) -> int:
+    """The capacity probe's budget without HBM_BUDGET: `headroom_fraction`
+    of the card's free memory (`utils.profiling.device_memory_stats`), or
+    the JAX package's 1 GiB where there are no statistics (the CPU)."""
+    stats = device_memory_stats(resolve_device(device))
+    if stats and stats.get("bytes_limit"):
+        free = stats["bytes_limit"] - stats.get("bytes_in_use", 0)
+        return int(free * headroom_fraction)
+    return CPU_BUDGET_BYTES
 
 
 def degree_ranked_hot_ids(adj, max_rows: int) -> np.ndarray:

@@ -28,6 +28,7 @@ import torch
 from ..config import RunConfig
 from ..data.dataset import MASK_TRAIN, Dataset
 from ..sampler.blocks import WeightKind
+from ..sampler.host import HostSampler
 from ..train.trainer import SampleTrainer, _HostItem
 from ..utils.logging import get_logger
 from .embedding_cache import EmbeddingCache, StalenessQueue
@@ -51,15 +52,26 @@ def check_cached_layers(cfg: RunConfig) -> None:
             "layer 1 — use the non-cached engine for single-layer models")
 
 
-def stacked_aggregate_bytes(cfg: RunConfig, dataset: Dataset) -> int:
+def stacked_aggregate_bytes(cfg: RunConfig, dataset: Dataset,
+                            per_sb: Optional[bool] = None) -> int:
     """Device bytes of a cached trainer's PushDown aggregates, n_sb plans
     of [C, F] f32, resident for the whole run (n_sb from the whole train
-    set: an upper bound when BATCH_TYPE drops seeds)."""
+    set: an upper bound when BATCH_TYPE drops seeds; 1 with
+    `per_sb=False`, the one global plan)."""
     v, f_dim = dataset.features.shape
     rate = cfg.cache_rate if cfg.cache_rate > 0 else DEFAULT_CACHE_RATE
     sb_size = cfg.batch_size * max(cfg.pipeline_num, 1)
-    n_sb = max(-(-len(dataset.nids_with_mask(MASK_TRAIN)) // sb_size), 1)
+    n_sb = (1 if per_sb is False else max(
+        -(-len(dataset.nids_with_mask(MASK_TRAIN)) // sb_size), 1))
     return n_sb * int(v * rate) * f_dim * 4
+
+
+def use_per_sb(per_sb: Optional[bool], n_train: int, sb_size: int) -> bool:
+    """One plan per super-batch when the train set spans more than one
+    super-batch, unless the caller asks for one global plan
+    (`per_sb=False`: the data-parallel engines, whose ranks sample their
+    shards concurrently, share one hot set)."""
+    return per_sb is not False and n_train > sb_size
 
 
 def build_plans(trainer, agg_kind: WeightKind, mean_style: str,
@@ -119,8 +131,10 @@ class CachedSampleTrainer(SampleTrainer):
         features_on_device: Optional[bool] = None,
         hbm_budget_bytes: Optional[int] = None,
         device=None,
+        per_sb: Optional[bool] = None,
     ) -> None:
         check_cached_layers(cfg)
+        self._per_sb_arg = per_sb   # read by the residency probe below
         super().__init__(
             cfg, dataset, family=family, weight_kind=weight_kind,
             degree_mode=degree_mode, bias_correction=bias_correction, adj=adj,
@@ -131,8 +145,9 @@ class CachedSampleTrainer(SampleTrainer):
         # the cache's weights must match the sampler's (global → plain mean)
         ms = "plain" if degree_mode == "global" else "hybrid"
         # one plan per super-batch, one global plan when a single
-        # super-batch holds the whole train set
-        self.per_sb = len(self.train_nids) > self.super_batch_size
+        # super-batch holds the whole train set or `per_sb=False`
+        self.per_sb = use_per_sb(per_sb, len(self.train_nids),
+                                 self.super_batch_size)
         # the aggregates run over the resident features on the device (K2),
         # else over the host store (int8 levels when quantized)
         if self.features_on_device:
@@ -156,20 +171,24 @@ class CachedSampleTrainer(SampleTrainer):
                  len(self.sb_caches))
 
     def _resident_extra_bytes(self, cfg: RunConfig, dataset: Dataset) -> int:
-        return stacked_aggregate_bytes(cfg, dataset)
+        return stacked_aggregate_bytes(cfg, dataset, self._per_sb_arg)
 
     # ------------------------------------------------------------- batching
-    def _make_batch(self, seeds: np.ndarray) -> _HostItem:
+    def _make_batch(self, seeds: np.ndarray,
+                    sampler: Optional[HostSampler] = None) -> _HostItem:
         """Producer side: with the cache on, sample under this batch's own
         super-batch plan's omit map (the producer runs ahead of the
         consumer), count hits, and gather the payload (ids only with
-        resident features, the feature cache's misses, or full rows)."""
+        resident features, the feature cache's misses, or full rows).
+        `sampler` replaces `self.sampler` (a data-parallel rank's own
+        stream)."""
         if not self._cache_active:
-            return super()._make_batch(seeds)
+            return super()._make_batch(seeds, sampler)
         k = self._producer_sb()
         cache = self.sb_caches[k % len(self.sb_caches)]
         with self.timers.phase("sample"):
-            hb = self.sampler.sample(seeds, omit_map=cache.cache_map_host)
+            hb = (sampler or self.sampler).sample(
+                seeds, omit_map=cache.cache_map_host)
             b0, top = hb.blocks[0], hb.blocks[-1]
             slots = cache.cache_map_host[np.maximum(b0.seeds, 0)]
             mask = (slots >= 0) & b0.dst_valid

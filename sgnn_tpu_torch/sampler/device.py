@@ -160,6 +160,7 @@ def device_sample_batch(
     feat_scale: Optional[torch.Tensor] = None,
     compute_dtype: torch.dtype = torch.float32,
     omit_map: Optional[torch.Tensor] = None,
+    gather_features: bool = True,
 ) -> SampledBatch:
     """Sample an L-hop batch on the seeds' device and gather its payload.
 
@@ -173,7 +174,13 @@ def device_sample_batch(
     bottom hop is off (it would hand over the whole quantized matrix).
     `omit_map` (int32 [V_pad], slot or -1) turns on cache-omitting
     sampling at the bottom hop; the batch then carries `cache_mask` and
-    `cache_slot` for the model's layer-0 merge."""
+    `cache_slot` for the model's layer-0 merge.  `gather_features=False`
+    leaves x0 to the caller (row-sharded features: the data-parallel
+    wrapper fetches the rows from their owner ranks, parallel/
+    sharded_features.py); x0 is then a [1, 1] placeholder.  The
+    identity bottom hop stays on there (the JAX package turns it off): the
+    caller then fetches every row in id order, the x0 the replicated
+    features would give, so both layouts compute the same products."""
     blocks: List[SampledBlock] = []
     cur_seeds, cur_valid = seeds, seed_valid
     num_vertices = indptr.shape[0] - 1
@@ -182,8 +189,9 @@ def device_sample_batch(
     for h, f in enumerate(fanouts):
         last = h == len(fanouts) - 1
         identity = (last and src_pads[h] == num_vertices
-                    and features.shape[0] == num_vertices
-                    and feat_scale is None)
+                    and feat_scale is None
+                    and (not gather_features
+                         or features.shape[0] == num_vertices))
         blk, n_over = _sample_hop(
             generator, cur_seeds, cur_valid, indptr, indices, f, src_pads[h],
             weight_kind, in_degree, out_degree, identity_srcs=identity,
@@ -197,7 +205,9 @@ def device_sample_batch(
         slots = omit_map[blocks[0].seeds.long()]
         cache_mask = (slots >= 0) & blocks[0].dst_valid
         cache_slot = slots.clamp_min(0).to(torch.int32)
-    if identity:
+    if not gather_features:
+        x0 = torch.zeros((1, 1), dtype=compute_dtype, device=seeds.device)
+    elif identity:
         x0 = features   # the whole feature matrix IS x0: no re-gather
     else:
         b0 = blocks[0]

@@ -132,15 +132,25 @@ class CheckpointManager:
         return os.path.join(self.directory, f"step_{step}", STATE_FILE)
 
     def save(self, step: int, trainer) -> str:
-        """Write the trainer's state as step `step`; returns the file."""
+        """Write the trainer's state as step `step`; returns the file.  A
+        data-parallel trainer's state is its base trainer's, replicated
+        over the ranks (sgnn_tpu/train/checkpoint.py:55-56), with each
+        rank's own random streams: every rank makes it, rank 0 writes it,
+        and every rank waits for the file before going on."""
         path = self.path(step)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + ".tmp"
-        torch.save(trainer.checkpoint_state(), tmp)
-        os.replace(tmp, path)
-        for old in self.steps()[: -self.max_to_keep]:
-            shutil.rmtree(os.path.dirname(self.path(old)), ignore_errors=True)
-        log.info("checkpoint saved: step %d → %s", step, path)
+        group = getattr(trainer, "group", None)
+        state = trainer.checkpoint_state()   # on every rank: it gathers
+        if group is None or group.rank == 0:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = path + ".tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+            for old in self.steps()[: -self.max_to_keep]:
+                shutil.rmtree(os.path.dirname(self.path(old)),
+                              ignore_errors=True)
+            log.info("checkpoint saved: step %d → %s", step, path)
+        if group is not None and group.world_size > 1:
+            group.barrier()
         return path
 
     def restore(self, trainer, step: Optional[int] = None) -> Optional[int]:

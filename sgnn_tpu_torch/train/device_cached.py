@@ -27,7 +27,7 @@ import torch
 from ..cache.embedding_cache import refresh_rows
 from ..cache.hotness import super_batch_stable_shuffle
 from ..cache.orchestrator import (
-    build_plans, check_cached_layers, stacked_aggregate_bytes,
+    build_plans, check_cached_layers, stacked_aggregate_bytes, use_per_sb,
 )
 from ..config import RunConfig
 from ..data.dataset import Dataset
@@ -55,8 +55,10 @@ class DeviceCachedSampleTrainer(DeviceSampleTrainer):
         bias_correction: bool = False,
         adj=None,
         device=None,
+        per_sb: Optional[bool] = None,
     ) -> None:
         check_cached_layers(cfg)
+        self._per_sb_arg = per_sb   # read by the residency probe below
         super().__init__(cfg, dataset, family=family, weight_kind=weight_kind,
                          bias_correction=bias_correction, adj=adj,
                          device=device)
@@ -66,8 +68,9 @@ class DeviceCachedSampleTrainer(DeviceSampleTrainer):
         # the cache's weights must match the sampler's (global → plain mean)
         ms = "plain" if self.dev_degree_mode == "global" else "hybrid"
         # one plan per super-batch, one global plan when a single
-        # super-batch holds the whole train set
-        self.per_sb = len(self.train_nids) > sb_size
+        # super-batch holds the whole train set or `per_sb=False` (the
+        # *PCMULTI engines' one global hot set)
+        self.per_sb = use_per_sb(per_sb, len(self.train_nids), sb_size)
         # the one-time PushDown aggregates, K2 over the resident rows
         self.sb_caches = build_plans(self, agg_kind, ms, sb_size, self.per_sb,
                                      self.dev_features)
@@ -92,7 +95,7 @@ class DeviceCachedSampleTrainer(DeviceSampleTrainer):
                  len(self.sb_caches), self.super_batch_steps)
 
     def _resident_extra_bytes(self, cfg: RunConfig, dataset: Dataset) -> int:
-        return stacked_aggregate_bytes(cfg, dataset)
+        return stacked_aggregate_bytes(cfg, dataset, self._per_sb_arg)
 
     # ---------------------------------------------------------------- steps
     def _train_order(self) -> np.ndarray:
@@ -115,13 +118,13 @@ class DeviceCachedSampleTrainer(DeviceSampleTrainer):
         self._lookups.append(batch.blocks[0].dst_valid.sum())
         return batch, loss, acc
 
-    def train_epoch(self) -> Tuple[float, float, int]:
+    def _train_steps(self, batches) -> Tuple[float, int, int, int]:
         if self.cache_emb is None:
             self.cache_emb = torch.zeros(
                 (self.num_cached, self.cfg.layer_sizes[1]),
                 device=self.device)
         self._hits, self._lookups, self.refreshes = [], [], 0
-        out = super().train_epoch()     # its one sync
+        out = super()._train_steps(batches)     # its one sync
         if self._hits:
             self.cache_hits = int(torch.stack(self._hits).sum())
             self.cache_lookups = int(torch.stack(self._lookups).sum())

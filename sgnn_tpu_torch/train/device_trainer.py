@@ -19,7 +19,7 @@ CUDA graphs are later work.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +28,7 @@ from .. import resolve_device
 from ..config import RunConfig
 from ..data.dataset import Dataset
 from ..graph.adjacency import Adjacency
-from ..sampler.blocks import WeightKind, pad_to
+from ..sampler.blocks import SampledBatch, WeightKind, pad_to
 from ..sampler.device import device_sample_batch
 from ..utils.logging import get_logger
 from ..utils.profiling import memory_budget
@@ -147,6 +147,8 @@ class DeviceSampleTrainer(SampleTrainer):
         self.step_ms: List[float] = []
         self.step_losses: List[float] = []
         self.last_overflow = 0
+        # x0 from row-sharded features (parallel/dp_device.py), else None
+        self.fetch_x0: Optional[Callable[[SampledBatch], SampledBatch]] = None
 
     def compute_src_pads(self, batch_size: int) -> Tuple[int, ...]:
         """Static per-hop source bounds for a seed-batch size: the host
@@ -206,14 +208,17 @@ class DeviceSampleTrainer(SampleTrainer):
     def sample(self, seeds: torch.Tensor, valid: torch.Tensor,
                omit_map: Optional[torch.Tensor] = None):
         """One device-sampled batch for padded seeds (cache-omitting at the
-        bottom hop with `omit_map`)."""
-        return device_sample_batch(
+        bottom hop with `omit_map`).  With `fetch_x0` set (row-sharded
+        features, parallel/dp_device.py) the sampler gathers no rows and
+        x0 comes from it."""
+        batch = device_sample_batch(
             self.sample_generator, seeds, valid, self.dev_indptr,
             self.dev_indices, self.dev_in_deg, self.dev_out_deg,
             self.dev_features, self.dev_labels, tuple(self.cfg.fanout),
             self.src_pads, self.weight_kind, degree_mode=self.dev_degree_mode,
             feat_scale=self._feat_scale, compute_dtype=self.compute_dtype,
-            omit_map=omit_map)
+            omit_map=omit_map, gather_features=self.fetch_x0 is None)
+        return batch if self.fetch_x0 is None else self.fetch_x0(batch)
 
     def _seed_batches(self, nids: np.ndarray, shuffle: bool):
         nids = np.asarray(nids, dtype=np.int32)
@@ -242,14 +247,22 @@ class DeviceSampleTrainer(SampleTrainer):
     def train_epoch(self) -> Tuple[float, float, int]:
         """One epoch → (mean loss, train acc, sampled edges), with one host
         sync at its end (or one per step when `fused_epoch` is False)."""
+        loss, correct, total, edges = self._train_steps(
+            self._seed_batches(self._train_order(), False))
+        return loss, correct / max(total, 1), edges
+
+    def _train_steps(self, batches) -> Tuple[float, int, int, int]:
+        """`_device_step` over the padded (seeds, valid) pairs of
+        `batches` → (mean loss, correct, valid seeds, sampled edges); the
+        data-parallel wrapper feeds it each rank's own seeds
+        (parallel/dp_device.py) and sums the counts over the ranks."""
         cuda = self.device.type == "cuda"
         losses, accs, edges, overflow = [], [], [], []
         events = []
         if cuda:
             events.append(torch.cuda.Event(enable_timing=True))
             events[-1].record()
-        for i, (seeds, valid) in enumerate(self._seed_batches(
-                self._train_order(), False)):
+        for i, (seeds, valid) in enumerate(batches):
             with self.timers.phase("device_step"):
                 batch, loss, acc = self._device_step(i, seeds, valid)
                 if not self.fused_epoch and cuda:
@@ -262,15 +275,15 @@ class DeviceSampleTrainer(SampleTrainer):
             edges.append(batch.num_sampled_edges())
             overflow.append(batch.overflow)
         if not losses:
-            return 0.0, 0.0, 0
+            return 0.0, 0, 0, 0
         stacked = torch.stack(losses)
         mean_loss = float(stacked.mean())   # the epoch's sync
         self.step_losses = stacked.tolist()
         correct, total = torch.stack(accs).sum(dim=0).tolist()
         self.last_overflow = int(torch.stack(overflow).sum())
         self.step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-        return (mean_loss, correct / max(total, 1),
-                int(torch.stack(edges).sum()))
+        return mean_loss, int(correct), int(total), int(torch.stack(
+            edges).sum())
 
     @torch.no_grad()
     def evaluate(self, nids: np.ndarray) -> float:

@@ -7,15 +7,19 @@ ALGORITHM string maps to a configuration.  The table is the JAX package's
 in full; the port trains GCNSAMPLESINGLE, GCNSAMPLEGPU, GCNSAMPLEALLGPU,
 GSSAMPLEALLGPU and GATSAMPLEALLGPU (sampled), GCNSAMPLEPDCACHE,
 GSSAMPLECACHE, GSSAMPLEPDCACHE and GATSAMPLEPDCACHE (sampled with the
-hot-vertex cache) and GCNFULLBATCH, GSFULLBATCH and GATFULLBATCH (whole
-graph, `FullBatchEngine`); the *MULTI engines, and every option the port
-does not take yet, raise NotImplementedError naming their ROADMAP item.
+hot-vertex cache), GCNSAMPLEALLMULTI, GATSAMPLEALLMULTI, GCNSAMPLEPCMULTI,
+GSSAMPLEPCMULTI and GATSAMPLEPCMULTI (data-parallel over
+`torch.distributed`, parallel/) and GCNFULLBATCH, GSFULLBATCH and
+GATFULLBATCH (whole graph, `FullBatchEngine`): all 17.  An option the port
+does not take yet raises NotImplementedError naming its ROADMAP item.
 
 Placement: *SAMPLESINGLE → bias-corrected Adam (CPU engines); *SAMPLEGPU →
 host sampler; *ALLGPU → device sampler; *PDCACHE / *CACHE → the device
 sampler with the in-loop cache refresh (train/device_cached.py), or the
 host-refreshed cached trainer (cache/orchestrator.py) under PD_REFRESH:host
-or when the features exceed the device; *FULLBATCH → whole-graph training
+or when the features exceed the device; *ALLMULTI / *PCMULTI → the same
+trainers under a data-parallel wrapper (gradients summed over the ranks
+each step); *FULLBATCH → whole-graph training
 (train/fullbatch.py), bias-corrected Adam.  Edge-weight degrees follow
 UP_DEGREE for every engine (GraphSegment.cpp:273): false → "global"
 full-graph degrees, true → "sampled" degrees.
@@ -105,8 +109,6 @@ def resolve_degree_mode(cfg: RunConfig) -> str:
 def _not_ported(spec: EngineSpec, cfg: RunConfig) -> Optional[str]:
     """The ROADMAP item a configuration waits for, or None if the port
     trains it."""
-    if spec.multi_device:
-        return f"{spec.name}: data-parallel training (ROADMAP Queue 1 item 6)"
     if (cfg.reorder or "none").lower() not in ("none", ""):
         return "REORDER: graph/reorder.py (ROADMAP Queue 1 item 7)"
     return None
@@ -201,7 +203,7 @@ def _route_by_advice(cfg: RunConfig, dataset: Dataset,
 def build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     """Construct (without running) the trainer an ALGORITHM string names,
     on `device` (None means CUDA), routed as the JAX package's
-    (sgnn_tpu/train/engines.py:196-330, less its multi-device branches).
+    (sgnn_tpu/train/engines.py:196-363).
 
     A cached engine takes the device-sampled cached trainer when it
     refreshes on the device (GSSAMPLECACHE) and by default (*PDCACHE);
@@ -210,7 +212,8 @@ def build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     package's beyond-device-memory posture, still on the card).
     PUSHDOWN:1 on a plain sampled engine is the cached trainer on that
     engine's sampler; ESTIMATOR_ADVISOR:route turns PUSHDOWN on when the
-    advisor fires."""
+    advisor fires.  The *MULTI engines join this process's data-parallel
+    group (`_build_multi`)."""
     spec = engine_from_config(cfg)
     missing = _not_ported(spec, cfg)
     if missing is not None:
@@ -219,6 +222,8 @@ def build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     if spec.fullbatch:
         return FullBatchEngine(cfg, dataset, spec.family, spec.weight_kind,
                                device=device)
+    if spec.multi_device:
+        return _build_multi(cfg, dataset, spec, degree_mode, device)
     log = get_logger("sgnn.engine")
     if (cfg.estimator_advisor == "route" and not cfg.pushdown
             and not spec.use_cache):
@@ -264,6 +269,69 @@ def build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     from .trainer import SampleTrainer
 
     return SampleTrainer(cfg, dataset, **kw)
+
+
+def _build_multi(cfg: RunConfig, dataset: Dataset, spec: EngineSpec,
+                 degree_mode: str, device):
+    """The *MULTI engines, routed as the JAX package's
+    (sgnn_tpu/train/engines.py:270-363) over this process's data-parallel
+    group (parallel/mesh.make_group: a one-rank group, or torchrun's
+    ranks).  *PCMULTI: the device-cached trainer with one global hot set
+    under the data-parallel wrapper; under PD_REFRESH:host, or when the
+    features exceed the device, the host-refreshed cached trainer (one
+    global hot set) under the host-sampled wrapper.  *ALLMULTI: the
+    device trainer under the data-parallel wrapper; past the device's
+    memory the host-sampled trainer with host features under the
+    host-sampled wrapper.  SHARD_FEATURES row-shards the device
+    features."""
+    from ..parallel.dp import DataParallelTrainer
+    from ..parallel.dp_device import (
+        DeviceCachedDataParallelTrainer, DeviceDataParallelTrainer,
+    )
+    from ..parallel.mesh import make_group
+    from .device_trainer import FeaturesExceedHbm
+
+    log = get_logger("sgnn.engine")
+    group = make_group(device)
+    device = group.device
+    if spec.use_cache:
+        if cfg.pd_refresh != "host":
+            from .device_cached import DeviceCachedSampleTrainer
+
+            try:
+                base = DeviceCachedSampleTrainer(
+                    cfg, dataset, family=spec.family,
+                    weight_kind=spec.weight_kind,
+                    bias_correction=spec.bias_correction, device=device,
+                    per_sb=False)
+                return DeviceCachedDataParallelTrainer(
+                    base, group, shard_features=cfg.shard_features)
+            except FeaturesExceedHbm as exc:
+                log.warning("%s: %s — the host-refreshed cached "
+                            "data-parallel composition instead", spec.name,
+                            exc)
+        from ..cache.orchestrator import CachedSampleTrainer
+
+        # the ranks sample concurrently: one global hot set, as the
+        # reference's multi-GPU cache engines keep (ntsDataloador.hpp:735)
+        return DataParallelTrainer(CachedSampleTrainer(
+            cfg, dataset, family=spec.family, weight_kind=spec.weight_kind,
+            degree_mode=degree_mode, bias_correction=spec.bias_correction,
+            device=device, per_sb=False), group)
+    from .device_trainer import DeviceSampleTrainer
+    from .trainer import SampleTrainer
+
+    kw = dict(family=spec.family, weight_kind=spec.weight_kind,
+              degree_mode=degree_mode, bias_correction=spec.bias_correction,
+              device=device)
+    try:
+        base = DeviceSampleTrainer(cfg, dataset, **kw)
+    except FeaturesExceedHbm as exc:
+        log.warning("%s: %s — falling back to host sampling", spec.name, exc)
+        return DataParallelTrainer(SampleTrainer(
+            cfg, dataset, features_on_device=False, **kw), group)
+    return DeviceDataParallelTrainer(base, group,
+                                     shard_features=cfg.shard_features)
 
 
 def run_engine(cfg: RunConfig, dataset: Dataset,

@@ -20,7 +20,7 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +28,7 @@ import torch
 from .. import resolve_device
 from ..cache.feature_cache import (
     FeatureCache, check_cold_pos, degree_ranked_hot_ids,
-    hbm_feature_capacity, scatter_cold_rows,
+    feature_budget_bytes, hbm_feature_capacity, scatter_cold_rows,
 )
 from ..cache.hotness import presample_hotness_per_sb, super_batch_stable_shuffle
 from ..config import RunConfig
@@ -289,6 +289,9 @@ class SampleTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
         self.timers = PhaseTimer()
+        # gradients → grad_reduce → optimizer (None: this device's alone)
+        self.grad_reduce: Optional[Callable[[List[torch.Tensor]],
+                                            List[torch.Tensor]]] = None
 
     def _resident_extra_bytes(self, cfg: RunConfig, dataset: Dataset) -> int:
         """Device bytes a subclass keeps resident beside the features for
@@ -325,9 +328,16 @@ class SampleTrainer:
                                 else self.compute_dtype)
         itemsize = (1 if self.feature_int8
                     else self.compute_dtype.itemsize)
-        cap = hbm_feature_capacity(dataset.features.shape[1], itemsize,
-                                   budget_bytes=hbm_budget_bytes,
-                                   device=self.device)
+        # the staged rows share the budget with what else stays resident
+        # (a cached trainer's stacked aggregates) — a deliberate difference
+        # from the JAX package, whose probe counts the features alone
+        budget = (hbm_budget_bytes if hbm_budget_bytes is not None
+                  else feature_budget_bytes(self.device))
+        cap = hbm_feature_capacity(
+            dataset.features.shape[1], itemsize,
+            budget_bytes=max(budget - self._resident_extra_bytes(cfg, dataset),
+                             0),
+            device=self.device)
         rows = min(int(cfg.feature_cache_rate * dataset.num_vertices), cap)
         plan = (cfg.feature_cache_plan or "global").lower()
         sb_size = cfg.batch_size * max(cfg.pipeline_num, 1)
@@ -463,14 +473,19 @@ class SampleTrainer:
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One forward/backward/update on `batch` (with the embedding
         cache's rows `cache_emb`, if any); returns the loss and the
-        (correct, valid) counts as device tensors."""
+        (correct, valid) counts as device tensors.  Between the gradients
+        and the update, `grad_reduce` (set by a data-parallel wrapper,
+        parallel/dp.py) sums them over the ranks; a single trainer has
+        none."""
         out = loss_and_grads(self.params, self.family, batch,
                              drop_rate=self.cfg.drop_rate,
                              generator=self.generator, remat=self.cfg.remat,
                              batch_norm=self.cfg.batch_norm,
                              heads=self.cfg.heads, cache_emb=cache_emb)
+        grads = (out.grads if self.grad_reduce is None
+                 else self.grad_reduce(out.grads))
         new, self.opt_state = self.optimizer.update(
-            out.grads, self.opt_state, self.params.leaves())
+            grads, self.opt_state, self.params.leaves())
         self.params = self.params.replace_leaves(new)
         return out.loss, masked_accuracy(out.logp, batch.labels,
                                          batch.label_valid)
@@ -483,10 +498,13 @@ class SampleTrainer:
         return masked_accuracy(logp, batch.labels, batch.label_valid)
 
     # ------------------------------------------------------------- batching
-    def _make_batch(self, seeds: np.ndarray) -> _HostItem:
-        """Producer side: sample and gather the host payload (no CUDA)."""
+    def _make_batch(self, seeds: np.ndarray,
+                    sampler: Optional[HostSampler] = None) -> _HostItem:
+        """Producer side: sample and gather the host payload (no CUDA).
+        `sampler` replaces `self.sampler` (a data-parallel rank's own
+        stream, parallel/dp.py)."""
         with self.timers.phase("sample"):
-            hb = self.sampler.sample(seeds)
+            hb = (sampler or self.sampler).sample(seeds)
             if self.features_on_device:
                 # x0/labels are gathered on the device; ship ids only
                 top = hb.blocks[-1]

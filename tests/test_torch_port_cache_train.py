@@ -18,7 +18,10 @@
 - build_trainer routes every configuration to the trainer the JAX package
   builds: the four cached engines, PD_REFRESH:host, FeaturesExceedHbm,
   PUSHDOWN on host and device engines, ESTIMATOR_ADVISOR:route on and
-  below its threshold; the *PCMULTI engines still name item 6.
+  below its threshold; the *PCMULTI engines train an epoch on a one-rank
+  group (their parity is tests/test_torch_port_dp_device.py's).
+- Past the device, the feature cache's staged rows and the stacked
+  aggregates stay within HBM_BUDGET together.
 - The device trainer's residency probe counts its stacked aggregates.
 - Resume is bit-identical on the CPU for both cached trainers, and the CLI
   trains, checkpoints, serves and exact-evaluates the shipped PD-cache cfg.
@@ -77,7 +80,11 @@ def _fc_counters(tr):
     dict(algorithm="GCNSAMPLEGPU", feature_cache_rate=0.2, hbm_budget=BUDGET),
     dict(algorithm="GCNSAMPLEGPU", feature_cache_rate=0.2, hbm_budget=BUDGET,
          feature_cache_plan="per_sb", feature_dtype="int8"),
-    dict(algorithm="GSSAMPLEPDCACHE", feature_cache_rate=0.2,
+    # past the device the feature cache shares the budget with the stacked
+    # aggregates (the port's probe; the JAX package's counts the features
+    # alone): a 27-vertex embedding cache (0.6 MB of aggregates) and a 0.1
+    # rate leave both packages staging the rate's 270 rows
+    dict(algorithm="GSSAMPLEPDCACHE", feature_cache_rate=0.1, cache_rate=0.01,
          hbm_budget=BUDGET, feature_cache_plan="per_sb"),
 ], ids=["pd-refresh-host", "feature-cache", "feature-cache-per-sb-int8",
         "beyond-device-per-sb"])
@@ -106,6 +113,8 @@ def test_host_trainers_match_jax(cora, change):
             assert tt.w_queue.version == jt.w_queue.version
         if "feature_cache_rate" in change:
             assert not tt.features_on_device
+            if "cache_rate" in change:
+                assert tt.feat_cache.hot_ids.size == 270
             assert _fc_counters(tt) == _fc_counters(jt)
             assert tt.feature_cache_stats == jt.feature_cache_stats
     assert tt.evaluate(tt.val_nids) == pytest.approx(
@@ -191,8 +200,44 @@ def test_routing_matches_jax(cora, name):
 @pytest.mark.parametrize("algo", ["GCNSAMPLEPCMULTI", "GSSAMPLEPCMULTI",
                                   "GATSAMPLEPCMULTI"])
 def test_pcmulti_engines_name_item_6(cora, algo):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        build_trainer(_cfgs(algorithm=algo)[0], cora, device="cpu")
+    """Item 6a is ported: each *PCMULTI engine builds the device-cached
+    trainer with one global hot set under the data-parallel wrapper (a
+    one-rank group here) and trains an epoch."""
+    import torch.distributed as dist
+
+    from sgnn_tpu_torch.parallel.dp_device import (
+        DeviceCachedDataParallelTrainer,
+    )
+
+    try:
+        tr = build_trainer(_cfgs(**SMALL, algorithm=algo)[0], cora,
+                           device="cpu")
+        assert isinstance(tr, DeviceCachedDataParallelTrainer)
+        assert isinstance(tr.base, DeviceCachedSampleTrainer)
+        assert len(tr.base.sb_caches) == 1 and not tr.base.per_sb
+        loss, acc, edges = tr.train_epoch()
+        assert np.isfinite(loss) and 0 < acc <= 1 and edges > 0
+        assert 0 < tr.cache_hit_rate < 1
+    finally:
+        dist.destroy_process_group()
+
+
+def test_feature_cache_shares_the_budget_with_the_aggregates(cora):
+    """The host cached trainer past the device: its staged feature rows
+    and its stacked aggregates, counted from the tensors it holds, stay
+    within HBM_BUDGET (the capacity probe gives the rows what the
+    aggregates leave)."""
+    budget = 15_000_000
+    cfg = _cfgs(**SMALL, algorithm="GSSAMPLEPDCACHE", feature_cache_rate=0.5,
+                hbm_budget=budget)[0]
+    tr = build_trainer(cfg, cora, device="cpu")
+    assert isinstance(tr, CachedSampleTrainer) and not tr.features_on_device
+    aggs = sum(c.cache_agg.numel() * c.cache_agg.element_size()
+               for c in tr.sb_caches)
+    assert aggs == tr._resident_extra_bytes(cfg, cora) > 0
+    rows = tr.feat_cache.dev_hot
+    staged = rows.numel() * rows.element_size()
+    assert 0 < staged and staged + aggs <= budget
 
 
 def test_cached_trainers_reject_one_layer(tiny_ds):

@@ -5,8 +5,9 @@ against the JAX package's `python -m sgnn_tpu cfg`, on Cora, on the CPU
 The train → checkpoint → `--infer` workflow and the exit codes follow
 tests/test_aux.py:339-411; `--report-out` writes the JAX report's keys,
 which scripts/summarize_runs.py reads from both packages' reports; the
-engines and options of ROADMAP Queue 1 item 6 exit non-zero naming their
-item; `.estimator_advice` is the JAX trainer's on the same cfg.
+multi-host options of ROADMAP Queue 1 item 6 exit non-zero naming their
+item (the *MULTI engines train on a one-rank group); `.estimator_advice`
+is the JAX trainer's on the same cfg.
 """
 
 import json
@@ -118,10 +119,19 @@ def test_cli_exact_eval_and_profile(tmp_path, cli_log):
 
 
 def test_cli_unported_items_exit_nonzero(tmp_path, cli_log):
-    """The PD-cache cfg (item 5) trains now; the multi-host flags (item 6)
-    still exit 1 naming their item."""
+    """The PD-cache cfg (item 5) and a *MULTI cfg (item 6a, a one-rank
+    group that the call makes and ends) train now; the multi-host flags
+    (item 6c) still exit 1 naming their item."""
+    import torch.distributed as dist
+
     pd = os.path.join(CONFIGS, "gcn_cora_sample.cfg")
     assert main([pd, "--cpu", "--epochs", "1"]) == 0
+    multi = _cfg_file(tmp_path, "multi.cfg", "GCNSAMPLEPCMULTI",
+                      PIPELINE_NUM=2)
+    assert main([multi, "--cpu", "--epochs", "2"]) == 0
+    assert not dist.is_initialized()
+    assert sum(r.getMessage().startswith("final: train")
+               for r in cli_log.records) == 2
     assert not any("item" in r.getMessage() for r in cli_log.records)
     cli_log.clear()
     cfg = _cfg_file(tmp_path, "mh.cfg", "GCNSAMPLEGPU")

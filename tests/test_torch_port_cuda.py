@@ -1118,7 +1118,10 @@ def test_cold_row_scatter_on_the_card(cuda_device):
 @pytest.mark.parametrize("algo,extra", [
     ("GSSAMPLECACHE", {}),
     ("GCNSAMPLEPDCACHE", dict(pd_refresh="host")),
-    ("GSSAMPLEPDCACHE", dict(hbm_budget=100_000, feature_cache_rate=0.3,
+    # past the device: under int8 features (144 kB) beside the 8 plans'
+    # aggregates (461 kB); the feature cache stages the 204 rows a plan
+    # that the aggregates leave of the budget
+    ("GSSAMPLEPDCACHE", dict(hbm_budget=500_000, feature_cache_rate=0.3,
                              feature_cache_plan="per_sb")),
 ])
 def test_cached_trainers_train_on_the_card(cuda_device, algo, extra):
@@ -1145,3 +1148,43 @@ def test_cached_trainers_train_on_the_card(cuda_device, algo, extra):
         cpu_loss, _, cpu_edges = cpu.train_epoch()
         assert cpu_edges == edges
         assert abs(cpu_loss - loss) <= 1e-3 * abs(cpu_loss)
+
+
+@pytest.mark.parametrize("multi,single", [
+    ("GCNSAMPLEALLMULTI", "GCNSAMPLEALLGPU"),
+    ("GSSAMPLEPCMULTI", "GSSAMPLECACHE"),
+])
+def test_one_rank_nccl_dp_matches_the_single_device_engine(cuda_device,
+                                                          multi, single):
+    """A *MULTI engine on a one-rank NCCL group (parallel/mesh.make_group)
+    trains bit for bit as its single-device engine from the same seed, at
+    drop 0.5: the same epoch results, per-step losses and parameters (the
+    *PCMULTI against the cached trainer with its one global hot set)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from sgnn_tpu_torch.parallel.mesh import make_group
+    from sgnn_tpu_torch.train.device_cached import DeviceCachedSampleTrainer
+
+    ds = random_graph_dataset(3000, 10, 48, 5, seed=7)
+    cfg = RunConfig(algorithm=multi, layer_sizes=[48, 16, 5], fanout=[5, 3],
+                    batch_size=128, pipeline_num=2, drop_rate=0.5,
+                    vertices=ds.num_vertices)
+    group = make_group(cuda_device)
+    try:
+        assert (group.backend, group.world_size) == ("nccl", 1)
+        dp = build_trainer(cfg, ds, device=cuda_device)
+        single_cfg = dataclasses.replace(cfg, algorithm=single)
+        sd = (DeviceCachedSampleTrainer(single_cfg, ds, device=cuda_device,
+                                        per_sb=False)
+              if multi.endswith("PCMULTI")
+              else build_trainer(single_cfg, ds, device=cuda_device))
+        assert type(dp.base) is type(sd)
+        for _ in range(2):
+            assert dp.train_epoch() == sd.train_epoch()
+            assert dp.base.step_losses == sd.step_losses
+        for a, b in zip(dp.params.leaves(), sd.params.leaves()):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

@@ -21,6 +21,7 @@ from sgnn_tpu_torch.ops.probes import (  # noqa: F401 (import checked)
     gat_tile, gather_sum, shuffle, tile_gather, tile_part_args, tile_spmm,
 )
 from sgnn_tpu_torch.ops.segment import csr_from_numpy
+from sgnn_tpu_torch.parallel.mesh import make_group
 from sgnn_tpu_torch.config import RunConfig
 from sgnn_tpu_torch.sampler.blocks import WeightKind
 from sgnn_tpu_torch.sampler.native import build as native_build
@@ -83,7 +84,11 @@ def test_every_port_module_imports_with_jax_blocked():
             "sgnn_tpu_torch.cache.embedding_cache",
             "sgnn_tpu_torch.cache.feature_cache",
             "sgnn_tpu_torch.cache.orchestrator",
-            "sgnn_tpu_torch.train.device_cached"} <= set(mods)
+            "sgnn_tpu_torch.train.device_cached",
+            "sgnn_tpu_torch.parallel", "sgnn_tpu_torch.parallel.mesh",
+            "sgnn_tpu_torch.parallel.dp",
+            "sgnn_tpu_torch.parallel.dp_device",
+            "sgnn_tpu_torch.parallel.sharded_features"} <= set(mods)
 
 
 def test_native_sampler_builds_inside_the_checkout():
@@ -140,6 +145,13 @@ def test_entry_points_default_to_cuda(no_cuda, tiny_ds):
             cfg, feature_cache_rate=0.2, hbm_budget=1000), tiny_ds),
         lambda: EmbeddingCache.build(adj, np.arange(4), WeightKind.GCN),
         lambda: FeatureCache.build(f, np.arange(4)),
+        # the *MULTI engines and their process group
+        lambda: build_trainer(dataclasses.replace(
+            cfg, algorithm="GCNSAMPLEALLMULTI"), tiny_ds),
+        lambda: run_engine(dataclasses.replace(
+            cfg, algorithm="GCNSAMPLEPCMULTI", pd_refresh="host"), tiny_ds,
+            epochs=1),
+        lambda: make_group(),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

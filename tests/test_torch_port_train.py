@@ -13,10 +13,11 @@ test_torch_port_model.py.
 
 GSSAMPLEALLGPU (device sampler, torch draws) is held to the JAX engine
 matrix's floor of 0.91 train accuracy in 8 epochs (tests/test_train.py:244)
-(GATSAMPLEALLGPU's floor is held in test_torch_port_gat.py), every engine
-and option the port does not take yet raises NotImplementedError naming
-its ROADMAP item, and the cached engines and options build (their parity
-with the JAX package: test_torch_port_cache*.py).
+(GATSAMPLEALLGPU's floor is held in test_torch_port_gat.py), every
+option the port does not take yet raises NotImplementedError naming its
+ROADMAP item, and every engine builds, the cached ones and the *MULTI ones
+too (their parity with the JAX package: test_torch_port_cache*.py and
+test_torch_port_dp*.py).
 """
 
 import dataclasses
@@ -39,7 +40,9 @@ CFG = os.path.join(os.path.dirname(__file__), "..", "configs",
 PORTED = {"GCNSAMPLESINGLE", "GCNSAMPLEGPU", "GCNSAMPLEALLGPU",
           "GSSAMPLEALLGPU", "GATSAMPLEALLGPU", "GCNFULLBATCH", "GSFULLBATCH",
           "GATFULLBATCH", "GCNSAMPLEPDCACHE", "GSSAMPLECACHE",
-          "GSSAMPLEPDCACHE", "GATSAMPLEPDCACHE"}
+          "GSSAMPLEPDCACHE", "GATSAMPLEPDCACHE", "GCNSAMPLEALLMULTI",
+          "GATSAMPLEALLMULTI", "GCNSAMPLEPCMULTI", "GSSAMPLEPCMULTI",
+          "GATSAMPLEPCMULTI"}
 
 
 def _cfg(**kw):
@@ -114,11 +117,19 @@ def test_consumer_stopping_early_ends_the_producer(tiny_ds):
 
 @pytest.mark.parametrize("algo", sorted(ENGINES))
 def test_unported_engines_name_their_item(cora, algo):
-    """Every engine either builds its trainer (the ported ones) or raises
-    NotImplementedError naming its ROADMAP item."""
+    """Every engine either builds its trainer (the ported ones: all 17, the
+    *MULTI ones on a one-rank group) or raises NotImplementedError naming
+    its ROADMAP item."""
     if algo in PORTED:
-        tr = build_trainer(_cfg(algorithm=algo), cora, device="cpu")
-        assert tr.family == ENGINES[algo].family
+        import torch.distributed as dist
+
+        try:
+            tr = build_trainer(_cfg(algorithm=algo), cora, device="cpu")
+            assert tr.family == ENGINES[algo].family
+            assert hasattr(tr, "group") == ENGINES[algo].multi_device
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         build_trainer(_cfg(algorithm=algo), cora, device="cpu")
