@@ -201,19 +201,42 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                trace written); gat_cora_sample.cfg with `--exact-eval`;
                gcn_cora_sample.cfg (GCNSAMPLEPDCACHE) trained to its end;
                each run's accuracies and wall time;
-20. kernels  — one line listing every kernel with its launches on its main
+20. train_partition — vertex-partitioned whole-graph training
+               (parallel/halo.py) at the same widths: (a) on a one-rank
+               NCCL graph group (`make_group(graph=1)`), GCNFULLBATCH,
+               GSFULLBATCH and GATFULLBATCH heads 4 under HALO:all_gather
+               and HALO:targeted, 3 epochs each at drop 0.5, beside the
+               single-device trainer from the same seed: per-epoch losses
+               and accuracies, final parameters and `predict()` within
+               1e-6 relative (0 expected: a rank keeps only its real rows,
+               so every product has the single program's shape), exactly
+               one whole-graph epoch's launches an epoch and 2 a
+               predict(), median epoch beside the single one, each
+               collective's calls, bytes and device time an epoch; (b) a
+               degree-balanced 4-way partition and both halo plans: each
+               shard's rows, edges, rows_per_shard and H_pad, the halo
+               bytes a rank receives a layer at F = 128 and 41; each
+               shard, in turn on this card, fed what the exchange would
+               deliver from the whole table: K2 forward and backward (F =
+               128, 41), K3 and K4 (F = 128 H = 4, F = 41 H = 1) held to
+               their plain versions (1e-5, GAT gradients at cosine >
+               0.999) and to the single-device layer's rows (1e-5), the
+               shards' K2 input gradients summed held to the single one,
+               each shard's kernel times beside the single-device
+               kernel's;
+21. kernels  — one line listing every kernel with its launches on its main
                path (serving for `spmm_csr`, train_device for K1,
                serving_gat for K3, train_full for K2's backward and K4,
-               kernel_probes for the probes) and, for K2, K3 and K1, on
-               the paths of phases 15-18 (`launches_by_path`), its error
-               and its times (`spmm_csr` and `gat_bwd_dst` also their
+               kernel_probes for the probes) and, for K2, K3, K4 and K1, on
+               the paths of phases 15-18 and 20 (`launches_by_path`), its
+               error and its times (`spmm_csr` and `gat_bwd_dst` also their
                layouts and registers and local bytes at the main path's
                shapes; `spmm_csr` also at the PushDown shape).
 
 Every main path (phases 5-10, 13 and 14, the int8 serving, chunked
 serving, int8 sampled and int8 whole-graph paths of phases 15-16, each
-cached build and run of phase 17 and each data-parallel run of phase 18)
-starts
+cached build and run of phase 17, each data-parallel run of phase 18 and
+each sharded run of phase 20) starts
 with every launch count set to 0 and reads them all at its end; the CLI
 runs in other processes, whose counts this one cannot read.  Then the card's name and power limit as
 nvidia-smi prints them, and last `{"ok": true, "device": {...}}`.  Any
@@ -341,6 +364,10 @@ BEYOND_BUDGET = 300_000_000
 # every parameter after an epoch: the same program on the same draws, so
 # 0 is expected; 1e-6 allows one f32 ulp of a reordered sum
 DP_PARAM_RTOL = 1e-6
+# the sharded whole-graph trainer on a one-rank graph group against the
+# single-device trainer (DP_PARAM_RTOL: the same draws, every product over
+# the same rows, so 0 is expected): epochs a run
+PART_EPOCHS = 3
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -408,10 +435,15 @@ def main() -> int:
     from sgnn_tpu_torch.parallel.dp_device import (
         DeviceCachedDataParallelTrainer, DeviceDataParallelTrainer,
     )
+    from sgnn_tpu_torch.parallel.halo import (
+        build_targeted_halo, exchange_reference, local_aggregate, local_gat,
+        shard_graph, shard_on_device,
+    )
     from sgnn_tpu_torch.parallel.mesh import DataGroup, make_group
     from sgnn_tpu_torch.train.device_cached import DeviceCachedSampleTrainer
     from sgnn_tpu_torch.nn.functional import nll_loss_masked
-    from sgnn_tpu_torch.train.fullbatch import build_coo
+    from sgnn_tpu_torch.train.engines import engine_from_config
+    from sgnn_tpu_torch.train.fullbatch import FullBatchTrainer, build_coo
     from sgnn_tpu_torch.sampler.blocks import WeightKind
     from sgnn_tpu_torch.sampler.device import device_sample_batch
     from sgnn_tpu_torch.train import build_trainer
@@ -2673,7 +2705,337 @@ def main() -> int:
     emit({"phase": "cli", "runs": runs,
           "phase_s": time.perf_counter() - extras_t0})
 
-    # ---- 20. kernels -------------------------------------------------------
+    # ---- 20. vertex-partitioned whole-graph training (main path, counted) --
+    # (a) the whole sharded trainer on a one-rank NCCL graph group: each
+    # engine under both halos against the single-device trainer from the
+    # same seed; (b) the shard-local layers of a 4-way partition, one shard
+    # at a time on this one card, against their plain versions and the
+    # single-device layer's rows
+    part_t0 = time.perf_counter()
+    group = make_group(graph=1)
+    require(group.backend == "nccl" and group.world_size == 1
+            and group.graph == 1 and group.device.type == "cuda",
+            f"the graph group is {group}")
+    group.timed = True
+
+    def part_epochs(tr, algo):
+        """PART_EPOCHS epochs → (their rows, the launches of all of them,
+        each collective's (calls, bytes, ms) an epoch); each epoch's
+        launches exactly one whole-graph epoch's."""
+        hist, regions, total = [], [], dict.fromkeys(counted, 0)
+        for _ in range(PART_EPOCHS):
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tr.train_epoch()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            now = counts()
+            got = {n: now[n] - before[n] for n in now if now[n] != before[n]}
+            require(got == per_epoch[algo],
+                    f"{algo} epoch launched {got}, expected {per_epoch[algo]}")
+            for n_, c in got.items():
+                total[n_] += c
+            hist.append({"ms": ms, "loss": out[0], "train": out[1],
+                         "val": out[2], "test": out[3]})
+            regions.append({tag: (len(rows), sum(b for b, _ in rows),
+                                  sum(m for _, m in rows))
+                            for tag, rows in group.region_times().items()})
+        return hist, total, regions
+
+    def part_summary(hist, regions):
+        med = statistics.median(h["ms"] for h in hist[1:])
+        coll = {}
+        for tag in regions[0]:
+            calls, nbytes, _ = regions[0][tag]
+            coll[tag] = {"calls_an_epoch": calls, "bytes_an_epoch": nbytes,
+                         "ms_an_epoch_median_after_first": statistics.median(
+                             r[tag][2] for r in regions[1:]),
+                         "ms_an_epoch": [r[tag][2] for r in regions]}
+        return med, coll
+
+    part_runs, part_counts = [], dict.fromkeys(counted, 0)
+    for algo, heads in FULL_ENGINES:
+        cfg = dataclasses.replace(full_cfg(algo, heads, v, 0.5),
+                                  epochs=PART_EPOCHS)
+        spec = engine_from_config(cfg)
+        group.timed = False
+        t0 = time.perf_counter()
+        single = FullBatchTrainer(cfg, ds, family=spec.family,
+                                  weight_kind=spec.weight_kind, adj=adj)
+        single_build = time.perf_counter() - t0
+        s_hist, _, _ = part_epochs(single, algo)
+        group.region_times()
+        s_med = statistics.median(h["ms"] for h in s_hist[1:])
+        s_params = [p.clone() for p in single.params.leaves()]
+        s_pred = single.predict()
+        del single
+        group.timed = True
+        for halo in ("all_gather", "targeted"):
+            t0 = time.perf_counter()
+            tr = FullBatchTrainer(cfg, ds, family=spec.family,
+                                  weight_kind=spec.weight_kind, mesh=group,
+                                  halo=halo, adj=adj)
+            build_s = time.perf_counter() - t0
+            require(tr.shard.rows == tr.sharded.rows_per_shard >= v
+                    and tr.owned == v
+                    and (tr.shard.send_idx is not None) == (
+                        halo == "targeted"),
+                    f"{algo} {halo}: shard of {tr.shard.rows} rows")
+            group.region_times()
+            reset_counts()
+            hist, got, regions = part_epochs(tr, algo)
+            before = counts()
+            pred = tr.predict()
+            now = counts()
+            pred_got = {n: now[n] - before[n] for n in now
+                        if now[n] != before[n]}
+            for n_, c in counts().items():
+                part_counts[n_] += c
+            group.region_times()
+            require(pred_got == per_predict[algo],
+                    f"{algo} {halo} predict() launched {pred_got}")
+            losses = [h["loss"] for h in hist]
+            require(bool(np.isfinite(losses).all())
+                    and losses[-1] < losses[0],
+                    f"{algo} {halo} losses not finite or not falling: "
+                    f"{losses}")
+            rows_diff = max(abs(h[k] - s[k]) for h, s in zip(hist, s_hist)
+                            for k in ("loss", "train", "val", "test"))
+            loss_rel = max(abs(h["loss"] - s["loss"]) / abs(s["loss"])
+                           for h, s in zip(hist, s_hist))
+            p_abs = max((a - b).abs().max().item()
+                        for a, b in zip(tr.params.leaves(), s_params))
+            p_rel = max(rel_err(a, b) for a, b in zip(tr.params.leaves(),
+                                                      s_params))
+            pred_abs = float(np.abs(pred - s_pred).max())
+            require(loss_rel <= DP_PARAM_RTOL and p_rel <= DP_PARAM_RTOL
+                    and pred_abs <= DP_PARAM_RTOL * float(
+                        np.abs(s_pred).max()),
+                    f"{algo} {halo}: sharded against single: losses "
+                    f"{loss_rel}, parameters {p_rel}, predict {pred_abs}")
+            med, coll = part_summary(hist, regions)
+            part_runs.append({
+                "engine": algo, "heads": heads, "halo": halo, "V": v,
+                "E": e, "rows": tr.shard.rows, "drop": 0.5,
+                "epochs": hist, "epoch_ms_median_after_first": med,
+                "single_epoch_ms_median_after_first": s_med,
+                "single_epochs": s_hist,
+                "max_abs_diff_epoch_rows": rows_diff,
+                "loss_max_rel_diff": loss_rel,
+                "params_max_abs_diff": p_abs,
+                "params_max_rel_diff": p_rel,
+                "params_bit_identical": p_abs == 0.0,
+                "predict_max_abs_diff": pred_abs,
+                "launches": {n_: c for n_, c in got.items() if c},
+                "collectives": coll, "build_s": build_s,
+                "single_build_s": single_build,
+                "shard_transpose_s": tr.transpose_s})
+            del tr, pred
+        del s_params, s_pred
+    torch.distributed.destroy_process_group()
+    for kname in ("spmm_csr", "spmm_csr_bwd", "gat_aggregate", "gat_bwd_src",
+                  "gat_bwd_dst"):
+        require(part_counts[kname] > 0,
+                f"the sharded trainer never launched {kname}")
+
+    # (b) a degree-balanced 4-way partition, both halo plans, each shard's
+    # layers fed what the exchange would deliver from the whole table
+    n_parts = 4
+    t0 = time.perf_counter()
+    plans = {"all_gather": shard_graph(adj, n_parts, w_h, balance="degree"),
+             "targeted": build_targeted_halo(adj, n_parts, w_h,
+                                             balance="degree")}
+    plan_s = time.perf_counter() - t0
+    sg = plans["all_gather"]
+    rows_p, h_pad = sg.rows_per_shard, plans["targeted"].halo_pad
+    meta = sg.shard_meta
+    shards_info = [{"part": p, "owned": int(meta[p, 1]),
+                    "start": int(meta[p, 0]), "edges": int(sg.src[p].size),
+                    "rows_per_shard": rows_p, "H_pad": h_pad,
+                    "targeted_rows_received": int(
+                        plans["targeted"].send_cnt[:, p].sum())}
+                   for p in range(n_parts)]
+    halo_bytes = {f"F={f}": {"all_gather": (n_parts - 1) * rows_p * f * 4,
+                             "targeted": (n_parts - 1) * h_pad * f * 4}
+                  for f in (128, 41)}
+    slots = torch.from_numpy(sg.slot_of_vertex).to(dev)
+
+    def slot_table(full):
+        out = torch.zeros((n_parts * rows_p, full.shape[1]),
+                          dtype=full.dtype, device=dev)
+        out[slots] = full
+        return out
+
+    def to_slots(plan, p, grad_ext):
+        """A shard's gradient of its exchanged rows added into the slot
+        table's rows they came from (the exchange's backward, in one
+        process; padding rows carry zeros)."""
+        if plan is sg:
+            return grad_ext
+        idx = [np.arange(p * rows_p, (p + 1) * rows_p)] + [
+            q * rows_p + plan.send_idx[q, p].astype(np.int64)
+            for q in range(n_parts)]
+        idx = torch.from_numpy(np.concatenate(idx)).to(dev)
+        return torch.zeros((n_parts * rows_p, grad_ext.shape[1]),
+                           device=dev).index_add_(0, idx, grad_ext)
+
+    def rows_of(full, p):
+        """Shard p's [rows, ...] block of a whole-graph table."""
+        out = torch.zeros((rows_p, *full.shape[1:]), device=dev)
+        out[:int(meta[p, 1])] = full[int(meta[p, 0]):int(meta[p, :].sum())]
+        return out
+
+    def cosine(x, y):
+        x, y = x.double().flatten(), y.double().flatten()
+        return float(x @ y / (x.norm() * y.norm()).clamp_min(1e-300))
+
+    # the single-device layers at the same shapes: inputs, outputs, times
+    full_csr = csr_from_numpy(adj.indptr, src_h, w_h, v, dev)
+    full_csr_t = csr_from_numpy(rowptr_th, col_th, w_th, v, dev)
+    k2_in, gat_in = {}, {}
+    for feat in (128, 41):
+        x_full = torch.randn(v, feat, generator=gen).to(dev)
+        g_full = torch.randn(v, feat, generator=gen).to(dev)
+        k2_in[feat] = {
+            "x": x_full, "g": g_full, "x_slot": slot_table(x_full),
+            "out": spmm_csr_cuda(x_full, *full_csr),
+            "dx": spmm_csr_bwd_cuda(g_full, *full_csr_t),
+            "ms_fwd": time_ms(lambda: spmm_csr_cuda(x_full, *full_csr), 20),
+            "ms_bwd": time_ms(lambda: spmm_csr_bwd_cuda(g_full,
+                                                        *full_csr_t), 20)}
+    for feat, heads in ((128, GAT_TRAIN_HEADS), (41, 1)):
+        ht_full = torch.randn(v, feat, generator=gen).to(dev)
+        a = (torch.randn(2 * feat, generator=attn_gen)
+             * GAT_ATTN_SCALE).to(dev)
+        ts_full, td_full = pack_score_tables(ht_full, a[:feat], a[feat:],
+                                             heads)
+        gg_full = torch.randn(v, feat, generator=gen).to(dev)
+        h_full, z_full = gat_aggregate_cuda(ht_full, ts_full, td_full,
+                                            full_csr.rowptr, full_csr.col,
+                                            heads)
+        gz_full, rz_full = gat_bwd_operands(gg_full, h_full, z_full, heads)
+        b1 = (ht_full, ts_full, gz_full, td_full, rz_full,
+              full_csr_t.rowptr, full_csr_t.col, heads)
+        b2 = (ht_full, ts_full, gz_full, td_full, rz_full, full_csr.rowptr,
+              full_csr.col, heads)
+        gat_in[feat] = {
+            "heads": heads, "ht_slot": slot_table(ht_full),
+            "ts_slot": slot_table(ts_full), "td": td_full, "g": gg_full,
+            "h": h_full,
+            "ms_k3": time_ms(lambda: gat_aggregate_cuda(
+                ht_full, ts_full, td_full, full_csr.rowptr, full_csr.col,
+                heads), 20),
+            "ms_b1": time_ms(lambda: gat_bwd_src_cuda(*b1), 20),
+            "ms_b2": time_ms(lambda: gat_bwd_dst_cuda(*b2), 20)}
+        del ht_full, ts_full, h_full, z_full, gz_full, rz_full, b1, b2
+    layer_rows = []
+    for halo, plan in plans.items():
+        gat_plan = plan._replace(weight=tuple(np.ones_like(x)
+                                              for x in plan.weight))
+        dx_sum = {feat: 0 for feat in k2_in}
+        for p in range(n_parts):
+            shard = shard_on_device(plan, p, dev)
+            gshard = shard_on_device(gat_plan, p, dev)
+            mine = slice(int(meta[p, 0]), int(meta[p, :].sum()))
+            size = int(meta[p, 1])
+            for feat, k in k2_in.items():
+                # K2's forward and backward over the shard's CSRs
+                # a leaf of its own (the all_gather halo delivers the
+                # table itself)
+                ext = exchange_reference(plan, p, k["x_slot"]).detach()
+                ext.requires_grad_()
+                g = rows_of(k["g"], p)
+                out = local_aggregate(ext, shard)
+                out.backward(g)
+                torch.cuda.synchronize()
+                errs = [rel_err(out, spmm_csr_plain(ext.detach(),
+                                                    *shard.csr)),
+                        rel_err(ext.grad, spmm_csr_plain(g, *shard.csr_t)),
+                        rel_err(out[:size], k["out"][mine])]
+                require(max(errs) <= TOL["float32"],
+                        f"shard {p} {halo} K2 F={feat}: {errs}")
+                dx_sum[feat] = dx_sum[feat] + to_slots(plan, p, ext.grad)
+                x_ext = ext.detach()
+                layer_rows.append({
+                    "kernel": "spmm_csr, spmm_csr_bwd", "halo": halo,
+                    "part": p, "F": feat, "sources": int(x_ext.shape[0]),
+                    "rel_err_plain": errs[:2],
+                    "rel_err_single_rows": errs[2],
+                    "ms": [time_ms(lambda: spmm_csr_cuda(x_ext, *shard.csr),
+                                   20),
+                           time_ms(lambda: spmm_csr_bwd_cuda(
+                               g, *shard.csr_t), 20)],
+                    "single_ms": [k["ms_fwd"], k["ms_bwd"]]})
+                del ext, x_ext, out, g
+            for feat, k in gat_in.items():
+                # K3 forward, K4's B1 and B2 backward over the shard's CSRs
+                heads = k["heads"]
+                leaves = [exchange_reference(plan, p, k["ht_slot"]).detach(),
+                          exchange_reference(plan, p, k["ts_slot"]).detach(),
+                          rows_of(k["td"], p)]
+                for t in leaves:
+                    t.requires_grad_()
+                g = rows_of(k["g"], p)
+                out = local_gat(*leaves, gshard, heads)
+                out.backward(g)
+                torch.cuda.synchronize()
+                ext, ts_ext, td = (t.detach() for t in leaves)
+                ref, z = gat_aggregate_plain(ext, ts_ext, td,
+                                             gshard.csr.rowptr,
+                                             gshard.csr.col, heads)
+                gz, rz = gat_bwd_operands(g, ref, z, heads)
+                b1 = (ext, ts_ext, gz, td, rz, gshard.csr_t.rowptr,
+                      gshard.csr_t.col, heads)
+                b2 = (ext, ts_ext, gz, td, rz, gshard.csr.rowptr,
+                      gshard.csr.col, heads)
+                ref_grads = (*gat_bwd_src_plain(*b1), gat_bwd_dst_plain(*b2))
+                cos = [cosine(t.grad, r) for t, r in zip(leaves, ref_grads)]
+                errs = [rel_err(out, ref), rel_err(out[:size], k["h"][mine])]
+                require(max(errs) <= TOL["float32"] and min(cos) > 0.999,
+                        f"shard {p} {halo} K3/K4 F={feat} H={heads}: "
+                        f"{errs}, cosines {cos}")
+                layer_rows.append({
+                    "kernel": "gat_aggregate, gat_bwd_src, gat_bwd_dst",
+                    "halo": halo, "part": p, "F": feat, "H": heads,
+                    "sources": int(ext.shape[0]),
+                    "rel_err_plain_fwd": errs[0],
+                    "rel_err_single_rows": errs[1],
+                    "cosine_plain_grads": cos,
+                    "rel_err_plain_grads": [rel_err(t.grad, r) for t, r in
+                                            zip(leaves, ref_grads)],
+                    "ms": [time_ms(lambda: gat_aggregate_cuda(
+                               ext, ts_ext, td, gshard.csr.rowptr,
+                               gshard.csr.col, heads), 20),
+                           time_ms(lambda: gat_bwd_src_cuda(*b1), 20),
+                           time_ms(lambda: gat_bwd_dst_cuda(*b2), 20)],
+                    "single_ms": [k["ms_k3"], k["ms_b1"], k["ms_b2"]]})
+                del leaves, ext, ts_ext, td, out, ref, z, gz, rz, b1, b2
+            del shard, gshard
+        for feat, k in k2_in.items():
+            # the shards' input gradients, summed: the single backward's
+            err = rel_err(dx_sum[feat][slots], k["dx"])
+            require(err <= TOL["float32"], f"{halo} K2 backward summed over "
+                                           f"the shards F={feat}: {err}")
+            layer_rows.append({"kernel": "spmm_csr_bwd, summed over the "
+                               "shards", "halo": halo, "F": feat,
+                               "rel_err_single": err})
+    del full_csr, full_csr_t, slots, k2_in, gat_in, dx_sum
+    emit({"phase": "train_partition", "model": "602-128-41",
+          "param_rtol": DP_PARAM_RTOL,
+          "a_one_rank_graph_group": {
+              "group": {"backend": group.backend, "world_size": 1,
+                        "device": str(group.device)},
+              "runs": part_runs, "launches": {
+                  n_: c for n_, c in part_counts.items() if c}},
+          "b_four_shards_one_card": {
+              "balance": "degree", "plan_build_s": plan_s,
+              "shards": shards_info,
+              "halo_bytes_received_a_rank_a_layer": halo_bytes,
+              "layers": layer_rows},
+          "phase_s": time.perf_counter() - part_t0})
+
+    # ---- 21. kernels -------------------------------------------------------
     # one logprobs() pass's work: the F=128 and the F=41 f32 SpMMs
     per_pass = [t for t in timings if t["dtype"] == "float32"]
 
@@ -2799,13 +3161,19 @@ def main() -> int:
                      **{f"dp_{name.lower().replace(' ', '_').replace(':', '_')}"
                         f"_build": run["build_launches"].get("spmm_csr", 0)
                         for name, run in dp_runs.items()
-                        if "build_launches" in run}},
+                        if "build_launches" in run},
+                     "train_partition": part_counts["spmm_csr"]},
         "gat_aggregate": {
             "serving_gat": gat_launches,
             "int8_serving": int8_serve_counts["gat_aggregate"],
-            "chunked_layerwise_gat": chunk_counts["gat"]["gat_aggregate"]},
+            "chunked_layerwise_gat": chunk_counts["gat"]["gat_aggregate"],
+            "train_partition": part_counts["gat_aggregate"]},
         "spmm_csr_bwd": {"train_full": full_counts["spmm_csr_bwd"],
-                         "int8_fullbatch": int8_full_counts["spmm_csr_bwd"]}}
+                         "int8_fullbatch": int8_full_counts["spmm_csr_bwd"],
+                         "train_partition": part_counts["spmm_csr_bwd"]},
+        **{kname: {"train_full": full_counts[kname],
+                   "train_partition": part_counts[kname]}
+           for kname in ("gat_bwd_src", "gat_bwd_dst")}}
     for k in kernels:
         if k["name"] in by_path:
             k["launches_by_path"] = by_path[k["name"]]

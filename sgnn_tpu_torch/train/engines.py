@@ -118,23 +118,36 @@ class FullBatchEngine:
     """Adapter giving FullBatchTrainer the sampled trainers' run() contract
     (sgnn_tpu/train/engines.py:124-192): `run()` returns a TrainReport with
     every epoch's edges = the graph's edge count, and the wrapped trainer
-    is on `.base`."""
+    is on `.base`.
+
+    PARTITION_GRAPH:1 shards the graph over the ranks of this process's
+    group (an initialised one, or torchrun's environment: `torchrun
+    --nproc_per_node=N -m sgnn_tpu_torch cfg`) when it has more than one,
+    as the JAX engine over every visible device
+    (sgnn_tpu/train/engines.py:136-160), with HALO and PARTITION_BALANCE;
+    with one rank it warns and runs the single-device program, as the JAX
+    engine does with one device."""
 
     def __init__(self, cfg: RunConfig, dataset: Dataset, family: str,
                  weight_kind: WeightKind, device=None) -> None:
+        from ..parallel.mesh import make_group, process_world_size
         from .fullbatch import FullBatchTrainer
 
+        mesh = None
         if cfg.partition_graph:
-            # the port drives one card: PARTITION_GRAPH:1 runs the
-            # single-device program, as the JAX package does with one
-            # visible device (sgnn_tpu/train/engines.py:136-155)
-            get_logger("sgnn.engine").warning(
-                "PARTITION_GRAPH:1 requested but only one device is visible "
-                "— running the single-device program")
+            world = process_world_size()
+            if world > 1:
+                # `.group`, as every trainer on a group has (checkpoints)
+                self.group = mesh = make_group(device, graph=world)
+                device = mesh.device
+            else:
+                get_logger("sgnn.engine").warning(
+                    "PARTITION_GRAPH:1 requested but only one device is "
+                    "visible — running the single-device program")
         self.cfg = cfg
         self.base = FullBatchTrainer(cfg, dataset, family=family,
                                      weight_kind=weight_kind, halo=cfg.halo,
-                                     device=device)
+                                     mesh=mesh, device=device)
 
     @property
     def family(self) -> str:

@@ -56,11 +56,17 @@ from ..data.dataset import Dataset, MASK_TEST, MASK_TRAIN, MASK_VAL
 from ..data.quant import quantize_columns
 from ..graph.adjacency import Adjacency
 from ..models.gnn import GNNParams, check_heads, init_model
-from ..nn.functional import BN_EPS, dropout, log_softmax, nll_loss_masked
+from ..nn.functional import BN_EPS, dropout, log_softmax
 from ..nn.optim import make_optimizer
 from ..ops.gat import GatAggregate, gat_aggregate, pack_score_tables
 from ..ops.reductions import segment_extreme
 from ..ops.segment import Csr, SpmmCsr, csr_from_numpy, csr_transpose, spmm_csr
+from ..parallel.halo import (
+    all_reduce_sum, build_targeted_halo, halo_exchange, own_rows,
+    shard_graph, shard_on_device, sharded_aggregate,
+    sharded_aggregate_targeted, sharded_gat_layer,
+)
+from ..parallel.mesh import DataGroup
 from ..sampler.blocks import WeightKind
 from ..utils.logging import get_logger
 from .checkpoint import (
@@ -137,6 +143,29 @@ class _RowsMatmul(torch.autograd.Function):
             part = x[a:b].to(g.dtype).t().matmul(g[a:b])
             gw = part if gw is None else gw.add_(part)
         return None, gw
+
+
+def _fold_x_scale(params: GNNParams, x: torch.Tensor,
+                  x_scale: Optional[torch.Tensor]) -> GNNParams:
+    """The parameters an int8 `x` enters with: W0 · x_scale[:, None]
+    (module docstring); the same parameters for a float `x`."""
+    if x.dtype == torch.int8:
+        if x_scale is None:
+            raise ValueError("int8 features need x_scale")
+        w0 = params.weights[0] * x_scale.to(params.weights[0].dtype)[:, None]
+        return params._replace(weights=(w0, *params.weights[1:]))
+    if x_scale is not None:
+        raise ValueError(f"x_scale is for int8 features, x is {x.dtype}")
+    return params
+
+
+def _layer_product(h: torch.Tensor, wl: torch.Tensor,
+                   x_scale: Optional[torch.Tensor]):
+    """(W in the layer's dtype, the product h @ W): int8 rows go through
+    `_RowsMatmul` in x_scale's dtype."""
+    if h.dtype == torch.int8:
+        return wl.to(x_scale.dtype), _RowsMatmul.apply
+    return wl.to(h.dtype), torch.matmul
 
 
 def _gat_layer(ht: torch.Tensor, attn: torch.Tensor, csr: Csr,
@@ -220,13 +249,7 @@ def full_forward(
             raise ValueError("full_forward trains over the whole graph only")
     csr_t = graph_t if recorded else None
     train_drop = drop_rate > 0.0 and generator is not None
-    if x.dtype == torch.int8:
-        if x_scale is None:
-            raise ValueError("int8 features need x_scale")
-        w0 = params.weights[0] * x_scale.to(params.weights[0].dtype)[:, None]
-        params = params._replace(weights=(w0, *params.weights[1:]))
-    elif x_scale is not None:
-        raise ValueError(f"x_scale is for int8 features, x is {x.dtype}")
+    params = _fold_x_scale(params, x, x_scale)
 
     def hidden(t: torch.Tensor) -> torch.Tensor:
         t = torch.relu(_bn(t) if batch_norm else t)
@@ -241,12 +264,7 @@ def full_forward(
     for l, (wl, csr, rows) in enumerate(zip(params.weights, graphs,
                                             dst_rows)):
         last = l == n_layers - 1
-        if h.dtype == torch.int8:
-            wl = wl.to(x_scale.dtype)
-            matmul = _RowsMatmul.apply
-        else:
-            wl = wl.to(h.dtype)
-            matmul = torch.matmul
+        wl, matmul = _layer_product(h, wl, x_scale)
         if minmax:
             h = segment_extreme(matmul(h, wl), csr.rowptr, csr.col,
                                 aggregator)
@@ -264,9 +282,10 @@ def full_forward(
 
 
 class FullBatchTrainer:
-    """Whole-graph training on one device (the *FULLBATCH engines).
+    """Whole-graph training (the *FULLBATCH engines), on one device or
+    vertex-sharded over the ranks of a graph group.
 
-    The port of the JAX `FullBatchTrainer` with `mesh=None`: the whole
+    The port of the JAX `FullBatchTrainer`.  With `mesh=None` the whole
     graph's CSR and its transpose, the features, labels and split masks
     stay resident on the device; an epoch is one forward over every vertex,
     the masked NLL over the train vertices, one backward (K2's backward or
@@ -280,17 +299,34 @@ class FullBatchTrainer:
     from a `torch.Generator` seeded with SEED + 7919, other bits than the
     JAX package's key.
 
-    PARTITION_GRAPH (through `FullBatchEngine`, which warns) and
-    HALO:targeted run the single-device program, as the JAX package does
-    on one device: HALO is kept on `.halo` and read only under a mesh.
-    FEATURE_DTYPE:int8 keeps the features quantized on the device
-    (`.x` int8, `.x_scale` [F] in the compute dtype), folded into W0 by
-    `full_forward`.  `checkpoint_state` / `load_checkpoint_state` carry
-    the parameters, the optimizer state and the dropout generator
-    (train/checkpoint.py).  A mesh (vertex-sharded training, int8 shards
-    included) raises NotImplementedError naming ROADMAP item 6.
+    `mesh` is a graph group (parallel/mesh.make_group(graph=n): every rank
+    on the graph axis, one process a rank; a one-rank group runs the
+    sharded program with n = 1), the JAX trainer's mesh, sharded over all
+    of its ranks.  Each rank then holds the real rows of its slot block of
+    x, y and the masks (its owned vertex range) and its shard's CSR and
+    transpose (parallel/halo.py: balance by PARTITION_BALANCE, halo by
+    `halo`, all_gather or targeted), as the JAX `_init_sharded` /
+    `_forward_local` (sgnn_tpu/train/fullbatch.py:567-857): every layer
+    exchanges its rows and aggregates shard-locally; every rank draws the
+    whole [V, F] dropout mask from the same generator, as the
+    single-device trainer does, and keeps its own range (so n ranks train
+    as one device does, draw for draw, and one rank bit for bit but for
+    batch norm); batch norm takes f32 sums over the real rows,
+    all-reduced; each rank's loss is its masked NLL sum over the global
+    train count, and one `DataGroup.reduce_grads` SUM a step gives the
+    exact global gradient.
+    Every rank calls every method: each reaches the same collectives in
+    the same order.  Without a mesh, HALO is kept on `.halo` and read
+    only under one (the JAX package's single-device program).
+
+    FEATURE_DTYPE:int8 keeps the features (or each rank's rows) quantized
+    on the device (`.x` int8, `.x_scale` [F] in the compute dtype), folded
+    into W0 by the forward.  `checkpoint_state` / `load_checkpoint_state`
+    carry the parameters, the optimizer state and the dropout generator
+    (train/checkpoint.py), replicated over the ranks of a mesh.
     `device=None` means CUDA and raises without a card; `device="cpu"`
-    runs the kernels' plain versions."""
+    runs the kernels' plain versions; under a mesh the device is the
+    group's."""
 
     def __init__(
         self,
@@ -304,10 +340,6 @@ class FullBatchTrainer:
         aggregator: Optional[str] = None,
         device=None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "vertex-sharded whole-graph training (a mesh) is not ported "
-                "yet: ROADMAP Queue 1 item 6")
         halo = (halo or "all_gather").lower()
         if halo not in ("all_gather", "targeted"):
             raise ValueError(
@@ -322,7 +354,9 @@ class FullBatchTrainer:
         self.aggregator = (aggregator if aggregator is not None
                            else cfg.aggregator).lower()
         check_ported(family, self.aggregator)
-        self.device = resolve_device(device)
+        self.group = _graph_group(mesh, device)
+        self.device = (resolve_device(device) if mesh is None
+                       else self.group.device)
         if self.device.type == "cuda":
             # full f32 products, as the JAX package computes them
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -334,31 +368,46 @@ class FullBatchTrainer:
         wk = WeightKind.NONE if family == "gat" else weight_kind
         src, _, w = build_coo(self.adj, wk)
         v = self.adj.num_vertices
-        self.csr = csr_from_numpy(self.adj.indptr, src, w, v, self.device)
-        # the transposed CSR the backward runs over (min/max need none)
-        self.transpose_s = 0.0
-        self.csr_t = None
-        if family == "gat" or self.aggregator == "sum":
-            t1 = time.perf_counter()
-            rowptr_t, col_t, w_t = csr_transpose(self.adj.indptr, src, w, v)
-            self.transpose_s = time.perf_counter() - t1
-            self.csr_t = csr_from_numpy(rowptr_t, col_t, w_t, v, self.device)
         self.compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                               else torch.float32)
-        self.x_scale = None
+        # the transposed CSR the backward runs over (min/max need none)
+        transpose = family == "gat" or self.aggregator == "sum"
+        self.transpose_s = 0.0
         if self.feature_int8:
             q, scale = quantize_columns(dataset.features)
-            self.x = torch.from_numpy(q).to(self.device)
             self.x_scale = torch.from_numpy(scale).to(self.device,
                                                       self.compute_dtype)
         else:
-            self.x = torch.from_numpy(np.ascontiguousarray(
-                dataset.features, np.float32)).to(self.device,
-                                                  self.compute_dtype)
-        self.y = torch.from_numpy(dataset.labels.astype(np.int64)).to(
-            self.device)
-        self.masks = [torch.from_numpy(dataset.masks == m).to(self.device)
-                      for m in (MASK_TRAIN, MASK_VAL, MASK_TEST)]
+            q = np.ascontiguousarray(dataset.features, np.float32)
+            self.x_scale = None
+        labels = dataset.labels.astype(np.int64)
+        masks = [dataset.masks == m for m in (MASK_TRAIN, MASK_VAL, MASK_TEST)]
+        if self.group is None:
+            self.csr = csr_from_numpy(self.adj.indptr, src, w, v,
+                                      self.device)
+            self.csr_t = None
+            if transpose:
+                t1 = time.perf_counter()
+                rowptr_t, col_t, w_t = csr_transpose(self.adj.indptr, src, w,
+                                                     v)
+                self.transpose_s = time.perf_counter() - t1
+                self.csr_t = csr_from_numpy(rowptr_t, col_t, w_t, v,
+                                            self.device)
+            rows_of = np.asarray   # every vertex, in global order
+        else:
+            self._init_sharded(w, transpose)
+            rows_of = self._local_rows
+        self.x = torch.from_numpy(rows_of(q)).to(self.device)
+        if not self.feature_int8:
+            self.x = self.x.to(self.compute_dtype)
+        self.y = torch.from_numpy(rows_of(labels)).to(self.device)
+        self.masks = [torch.from_numpy(rows_of(m)).to(self.device)
+                      for m in masks]
+        # the global counts of the train/val/test vertices (f32: the loss's
+        # and the accuracies' divisors)
+        self.mask_counts = torch.tensor([max(int(m.sum()), 1) for m in masks],
+                                        dtype=torch.float32,
+                                        device=self.device)
         self.params = init_model(cfg.seed, family, cfg.layer_sizes,
                                  device=self.device)
         check_heads(self.params, family, cfg.heads)
@@ -371,10 +420,99 @@ class FullBatchTrainer:
         self.clean_metrics = cfg.metrics != "train"
         self.build_s = time.perf_counter() - t0
 
+    # -------------------------------------------------------------- sharded
+    def _init_sharded(self, w: np.ndarray, transpose: bool) -> None:
+        """This rank's shard: the plans on the host (every rank builds the
+        same), its CSR and transpose on its device, and its range."""
+        n, part = self.group.world_size, self.group.rank
+        balance = self.cfg.partition_balance
+        self.sharded = shard_graph(self.adj, n, w, balance=balance)
+        plan = self.sharded
+        if self.halo == "targeted":
+            plan = build_targeted_halo(self.adj, n, w, balance=balance)
+        t1 = time.perf_counter()
+        self.shard = shard_on_device(plan, part, self.device, transpose)
+        self.transpose_s = time.perf_counter() - t1
+        start, size = (int(c) for c in self.sharded.shard_meta[part])
+        self.range_start, self.owned = start, size
+
+    def _local_rows(self, a: np.ndarray) -> np.ndarray:
+        """This rank's real rows of a vertex-indexed array: its owned
+        range, the first `owned` rows of its slot block (the sharded
+        forward keeps only these between layers)."""
+        return np.ascontiguousarray(
+            a[self.range_start:self.range_start + self.owned])
+
+    def _shard_dropout(self, t: torch.Tensor) -> torch.Tensor:
+        """Layout-invariant dropout (sgnn_tpu/train/fullbatch.py:688-708):
+        the keep mask of the whole [V, F] activation, drawn as the
+        single-device trainer draws it, sliced to this rank's range."""
+        rate = self.cfg.drop_rate
+        draw = torch.rand((self.adj.num_vertices, t.shape[1]),
+                          generator=self.generator, device=t.device)
+        keep = draw[self.range_start:self.range_start + self.owned] < (
+            1.0 - rate)
+        return torch.where(keep, t / (1.0 - rate),
+                           torch.zeros((), dtype=t.dtype, device=t.device))
+
+    def _sync_bn(self, t: torch.Tensor) -> torch.Tensor:
+        """Synchronized batch norm (sgnn_tpu/train/fullbatch.py:710-728):
+        per-feature statistics over every rank's real rows, f32 sums
+        all-reduced."""
+        t32 = t.float()
+        v = float(self.adj.num_vertices)
+        mu = all_reduce_sum(t32.sum(0), self.group, "bn_all_reduce") / v
+        d = t32 - mu
+        var = all_reduce_sum((d * d).sum(0), self.group, "bn_all_reduce") / v
+        return (d * torch.rsqrt(var + BN_EPS)).to(t.dtype)
+
+    def _forward_sharded(self, params: GNNParams, train: bool
+                         ) -> torch.Tensor:
+        """This rank's [owned, C] f32 log-probs: `full_forward`'s layers
+        with each aggregation an exchange and a shard-local layer
+        (sgnn_tpu/train/fullbatch.py `_forward_local`).  Between layers a
+        rank keeps only its real rows, so its dense products and batch-norm
+        sums run over them alone: with one rank, every product has the
+        single-device program's shape."""
+        cfg, shard, group, owned = self.cfg, self.shard, self.group, self.owned
+        drop = train and cfg.drop_rate > 0.0
+        params = _fold_x_scale(params, self.x, self.x_scale)
+        minmax = self.family != "gat" and self.aggregator in ("min", "max")
+        agg = (sharded_aggregate_targeted if self.halo == "targeted"
+               else sharded_aggregate)
+        n_layers = len(params.weights)
+        h = self.x
+        for l, wl in enumerate(params.weights):
+            last = l == n_layers - 1
+            wl, matmul = _layer_product(h, wl, self.x_scale)
+            if minmax:  # DistAggregateDstMin/Max: shard-local after the halo
+                h = segment_extreme(halo_exchange(matmul(h, wl), shard, group),
+                                    shard.csr.rowptr, shard.csr.col,
+                                    self.aggregator)[:owned]
+            elif self.family == "gat":
+                h = sharded_gat_layer(matmul(h, wl), params.attn[l], shard,
+                                      group, 1 if last else cfg.heads)[:owned]
+                if last:
+                    h = torch.relu(h)
+            elif wl.shape[0] > wl.shape[1]:  # transform-first
+                h = agg(matmul(h, wl), shard, group)[:owned]
+            else:
+                h = torch.matmul(agg(h.to(wl.dtype), shard, group)[:owned],
+                                 wl)
+            if last:
+                h = log_softmax(h.float())
+            else:
+                h = torch.relu(self._sync_bn(h) if cfg.batch_norm else h)
+                h = self._shard_dropout(h) if drop else h
+        return h
+
     # -------------------------------------------------------------- forward
     def forward(self, params: GNNParams, train: bool) -> torch.Tensor:
-        """Whole-graph log-probs [V, C]: with dropout and the transposed CSR
-        for autograd when `train`, without both otherwise."""
+        """Log-probs, [V, C] (this rank's [owned, C] under a mesh): with
+        dropout and the transposed CSR for autograd when `train`, without
+        both otherwise."""
+        if self.group is not None:
+            return self._forward_sharded(params, train)
         return full_forward(
             params, self.family, self.x, self.csr,
             batch_norm=self.cfg.batch_norm, aggregator=self.aggregator,
@@ -389,18 +527,29 @@ class FullBatchTrainer:
         val, test accuracy); one host sync."""
         leaves = [p.detach().requires_grad_() for p in self.params.leaves()]
         logp = self.forward(self.params.replace_leaves(leaves), train=True)
-        loss = nll_loss_masked(logp, self.y, self.masks[0])
+        # the masked NLL over the global train count (`nll_loss_masked`'s
+        # arithmetic): under a mesh, this rank's share of the global mean
+        picked = logp.gather(1, self.y[:, None])[:, 0]
+        loss = torch.where(self.masks[0], -picked, 0.0).sum() / (
+            self.mask_counts[0])
         loss.backward()
+        grads = [p.grad for p in leaves]
+        if self.group is not None:
+            grads = self.group.reduce_grads(grads)
         logp = logp.detach()
         if self.cfg.drop_rate > 0.0 and self.clean_metrics:
             with torch.no_grad():
                 logp = self.forward(self.params, train=False)
         new, self.opt_state = self.optimizer.update(
-            [p.grad for p in leaves], self.opt_state, self.params.leaves())
+            grads, self.opt_state, self.params.leaves())
         self.params = self.params.replace_leaves(new)
         correct = logp.argmax(dim=-1) == self.y
-        accs = [(correct & m).sum() / m.sum().clamp_min(1) for m in self.masks]
-        out = torch.stack([loss.detach().float(), *accs]).tolist()
+        out = torch.stack([loss.detach().float(), *(
+            (correct & m).sum().float() for m in self.masks)])
+        if self.group is not None:  # the loss and the counts over the ranks
+            self.group.all_reduce_sum_(out, "metrics_all_reduce")
+        out[1:] /= self.mask_counts
+        out = out.tolist()
         return out[0], out[1], out[2], out[3]
 
     @property
@@ -418,8 +567,16 @@ class FullBatchTrainer:
     @torch.no_grad()
     def predict(self) -> np.ndarray:
         """Whole-graph [V, classes] f32 log-probs through the trainer's own
-        forward (same edge weights, AGGREGATOR, BATCH_NORM), no dropout."""
-        return self.forward(self.params, train=False).cpu().numpy()
+        forward (same edge weights, AGGREGATOR, BATCH_NORM), no dropout.
+        Under a mesh the sharded forward, all-gathered and mapped from
+        slots to global vertex order (sgnn_tpu/train/fullbatch.py:
+        906-925), on every rank."""
+        logp = self.forward(self.params, train=False)
+        if self.group is None:
+            return logp.cpu().numpy()
+        table = self.group.all_gather_rows(own_rows(logp, self.shard),
+                                           "predict_all_gather")
+        return table.cpu().numpy()[self.sharded.slot_of_vertex]
 
     def evaluate(self, nids: np.ndarray) -> float:
         """Exact whole-graph accuracy over the given vertex ids."""
@@ -432,7 +589,8 @@ class FullBatchTrainer:
 
     def checkpoint_state(self) -> dict:
         """Parameters, optimizer state and the dropout generator: what a
-        bit-identical resume needs (train/checkpoint.py)."""
+        bit-identical resume needs (train/checkpoint.py).  Replicated over
+        the ranks of a mesh: every rank draws the same masks."""
         return {"params": params_state(self.params),
                 "opt_state": opt_state_dict(self.opt_state),
                 "dropout_rng": self.generator.get_state()}
@@ -454,3 +612,21 @@ class FullBatchTrainer:
             log.info("full epoch %d: loss %.5f train %.4f val %.4f test %.4f "
                      "(%.3fs)", ep, loss, tr, va, te, dt)
         return hist
+
+
+def _graph_group(mesh, device) -> Optional[DataGroup]:
+    """The trainer's graph group, checked: a DataGroup whose ranks all sit
+    on the graph axis, on a device of the type asked for."""
+    if mesh is None:
+        return None
+    if not isinstance(mesh, DataGroup):
+        raise TypeError(f"mesh must be a graph group (parallel.mesh."
+                        f"make_group(graph=n)), not {type(mesh).__name__}")
+    if mesh.graph != mesh.world_size:
+        raise ValueError(f"mesh has {mesh.world_size} ranks, {mesh.graph} of "
+                         f"them on the graph axis: whole-graph training "
+                         f"shards over every rank (make_group(graph="
+                         f"{mesh.world_size}))")
+    if device is not None and resolve_device(device).type != mesh.device.type:
+        raise ValueError(f"device {device} is not the group's {mesh.device}")
+    return mesh

@@ -2,12 +2,13 @@
 
     python tests/_torch_dp_worker.py CASE RANK WORLD STORE IN_NPZ OUT_NPZ
 
-Launched by tests/test_torch_port_dp.py and tests/test_torch_port_dp_device.py
-(`run_ranks`), one process a rank.  It imports torch, numpy and the port,
-never JAX: the tests hold what it writes against the JAX package in their
-own process.  IN_NPZ carries the case's inputs, OUT_NPZ receives this rank's
-results.  Any error exits 1 at once, so the launcher can stop the other
-ranks instead of leaving them in a collective.
+Launched by tests/test_torch_port_dp.py, tests/test_torch_port_dp_device.py
+and tests/test_torch_port_partition.py (`run_ranks`), one process a rank.
+It imports torch, numpy and the port, never JAX: the tests hold what it
+writes against the JAX package in their own process.  IN_NPZ carries the
+case's inputs, OUT_NPZ receives this rank's results.  Any error exits 1 at
+once, so the launcher can stop the other ranks instead of leaving them in
+a collective.
 """
 
 import dataclasses
@@ -29,6 +30,16 @@ from sgnn_tpu_torch.models.gnn import params_from_numpy  # noqa: E402
 from sgnn_tpu_torch.parallel.mesh import make_group  # noqa: E402
 
 CORA_CFG = os.path.join(ROOT, "configs", "gcn_cora_sample.cfg")
+
+
+def warm_cpu_exp():
+    """One `torch.exp` over all of the process's CPU threads.  The first
+    exp of a fresh process can take another code path on the part of a
+    tensor that a not-yet-used thread computes, under load (measured: 2260
+    of 4530 elements off by up to 1.5e-4 relative, torch 2.13 on the
+    CPU; later calls agree bit for bit): a GAT layer's plain version on
+    its first call then strays past the f32 tolerance."""
+    torch.exp(torch.zeros(1 << 20))
 
 
 def tiny_ds():
@@ -219,6 +230,121 @@ def case_ckpt(inp, group):
     return out
 
 
+def _partition_plan(adj, w, n, halo, balance):
+    from sgnn_tpu_torch.parallel.halo import build_targeted_halo, shard_graph
+
+    if halo == "targeted":
+        return build_targeted_halo(adj, n, w, balance=balance)
+    return shard_graph(adj, n, w, balance=balance)
+
+
+def case_partition_layers(inp, group):
+    """The shard-local layers behind both halos on this rank's shard of
+    carried slot tables: the exchange against its one-process reference,
+    the GCN aggregation's output and input gradient, and the GAT layer's
+    output and gradients (h, W, attention: this rank's partials)."""
+    from sgnn_tpu_torch.graph.adjacency import Adjacency
+    from sgnn_tpu_torch.parallel.halo import (
+        exchange_reference, halo_exchange, shard_on_device,
+        sharded_aggregate, sharded_aggregate_targeted, sharded_gat_layer,
+    )
+    from sgnn_tpu_torch.sampler.blocks import WeightKind
+    from sgnn_tpu_torch.train.fullbatch import build_coo
+
+    group = make_group("cpu", graph=group.world_size)
+    ds = tiny_ds()
+    adj = Adjacency.from_edges(ds.edges, ds.num_vertices)
+    n, r = group.world_size, group.rank
+    out = {}
+    for halo in ("all_gather", "targeted"):
+        for wk in (WeightKind.GCN, WeightKind.NONE):
+            _, _, w = build_coo(adj, wk)
+            plan = _partition_plan(adj, w, n, halo, "degree")
+            shard = shard_on_device(plan, r, "cpu")
+            rows = plan.rows_per_shard
+            mine = slice(r * rows, (r + 1) * rows)
+            tag = f"{halo}_{wk.name}"
+            if wk == WeightKind.GCN:
+                x = torch.from_numpy(inp["x"])
+                ext = halo_exchange(x[mine].contiguous(), shard, group)
+                out[f"{tag}_exchange_equal"] = torch.equal(
+                    ext, exchange_reference(plan, r, x))
+                agg = (sharded_aggregate_targeted if halo == "targeted"
+                       else sharded_aggregate)
+                grads = []
+                for _ in range(2):   # the second run must repeat bit for bit
+                    xs = x[mine].clone().requires_grad_()
+                    y = agg(xs, shard, group)
+                    (y * torch.from_numpy(inp["c"])[mine]).sum().backward()
+                    grads.append(xs.grad)
+                out[f"{tag}_out"], out[f"{tag}_dx"] = (
+                    y.detach().numpy(), xs.grad.numpy())
+                out[f"{tag}_repeat_equal"] = torch.equal(*grads)
+                continue
+            heads = int(inp["heads"])
+            h = torch.from_numpy(inp["h"])[mine].clone().requires_grad_()
+            wl = torch.from_numpy(inp["wl"]).requires_grad_()
+            attn = torch.from_numpy(inp["attn"]).requires_grad_()
+            y = sharded_gat_layer(h @ wl, attn, shard, group, heads)
+            (y * torch.from_numpy(inp["c_gat"])[mine]).sum().backward()
+            out.update({f"{tag}_out": y.detach().numpy(),
+                        f"{tag}_dh": h.grad.numpy(),
+                        f"{tag}_dw": wl.grad.numpy(),
+                        f"{tag}_da": attn.grad.numpy()})
+    return out
+
+
+def case_partition_train(inp, group):
+    """FullBatchTrainer on the graph group for each carried configuration
+    (its JAX parameters, or its own at drop > 0): per-epoch (loss, train,
+    val, test), the final parameters and predict(); a configuration marked
+    `repeat` trains twice and reports whether the two runs' parameters are
+    bit-identical.  Then the engine's routing under PARTITION_GRAPH:1."""
+    from sgnn_tpu_torch.sampler.blocks import WeightKind
+    from sgnn_tpu_torch.train import build_trainer
+    from sgnn_tpu_torch.train.fullbatch import FullBatchTrainer
+
+    group = make_group("cpu", graph=group.world_size)
+    ds = tiny_ds()
+    out = {}
+
+    def train(c):
+        tr = FullBatchTrainer(RunConfig(**c["cfg"]), ds, family=c["family"],
+                              weight_kind=WeightKind[c["weight_kind"]],
+                              mesh=group, halo=c["halo"], device="cpu")
+        if f"{c['id']}_w_n" in inp:
+            n = int(inp[f"{c['id']}_w_n"])
+            leaves = [inp[f"{c['id']}_w{i}"] for i in range(n)]
+            nw = len(tr.params.weights)
+            tr.params = params_from_numpy(leaves[:nw], leaves[nw:],
+                                          device="cpu")
+        rows = [tr.train_epoch() for _ in range(int(c["epochs"]))]
+        return tr, np.array(rows, np.float64)
+
+    for c in json.loads(str(inp["configs"])):
+        tr, rows = train(c)
+        out[f"{c['id']}_rows"] = rows
+        out[f"{c['id']}_pred"] = tr.predict()
+        out.update(params_out(tr.params, f"{c['id']}_p"))
+        if c.get("repeat"):
+            again, rows2 = train(c)
+            out[f"{c['id']}_repeat_equal"] = bool(np.array_equal(
+                rows, rows2) and all(torch.equal(a, b) for a, b in zip(
+                    tr.params.leaves(), again.params.leaves())))
+    eng = build_trainer(RunConfig(algorithm="GCNFULLBATCH",
+                                  layer_sizes=[32, 16, 5],
+                                  vertices=ds.num_vertices,
+                                  partition_graph=True, halo="targeted",
+                                  partition_balance="equal"), ds,
+                        device="cpu")
+    out["engine"] = json.dumps({
+        "type": type(eng).__name__, "world": eng.group.world_size,
+        "graph": eng.base.group.graph, "rows": eng.base.shard.rows,
+        "targeted": eng.base.shard.send_idx is not None,
+        "offsets": eng.base.sharded.offsets.tolist()})
+    return out
+
+
 def run_ranks(case, inputs, tmp_path, world=2, timeout=120.0):
     """Run CASE on WORLD ranks, one process each (gloo over a FileStore in
     `tmp_path`: no TCP port), and return each rank's results.  A rank that
@@ -270,13 +396,15 @@ def run_ranks(case, inputs, tmp_path, world=2, timeout=120.0):
 
 CASES = {"grad_step": case_grad_step, "host_epochs": case_host_epochs,
          "fetch": case_fetch, "learn": case_learn, "shard": case_shard,
-         "ckpt": case_ckpt}
+         "ckpt": case_ckpt, "partition_layers": case_partition_layers,
+         "partition_train": case_partition_train}
 
 
 def main() -> int:
     case, rank, world, store, inp_path, out_path = sys.argv[1:7]
     rank, world = int(rank), int(world)
     torch.manual_seed(0)
+    warm_cpu_exp()
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     group = make_group("cpu")

@@ -1188,3 +1188,145 @@ def test_one_rank_nccl_dp_matches_the_single_device_engine(cuda_device,
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+# ---- vertex-partitioned whole-graph training (parallel/halo.py) ---------
+def _shard_cases(cuda_device, halo, wk, feat, part=1):
+    """Shard `part` of a 4-way degree-balanced plan of a random graph, on
+    the card and on the CPU, and what the exchange delivers to it from a
+    random slot table: a rectangular CSR (rows local slots, sources the
+    exchanged rows) whose transpose is mostly empty rows."""
+    from sgnn_tpu_torch.parallel.halo import (
+        build_targeted_halo, exchange_reference, shard_graph, shard_on_device,
+    )
+    from sgnn_tpu_torch.train.fullbatch import build_coo
+
+    ds = random_graph_dataset(3000, 10, 48, 5, seed=11)
+    adj = Adjacency.from_edges(ds.edges, ds.num_vertices)
+    _, _, w = build_coo(adj, wk)
+    build = build_targeted_halo if halo == "targeted" else shard_graph
+    plan = build(adj, 4, w, balance="degree")
+    rng = np.random.default_rng(feat)
+    table = torch.from_numpy(rng.standard_normal(
+        (4 * plan.rows_per_shard, feat)).astype(np.float32))
+    ext = exchange_reference(plan, part, table)
+    return (shard_on_device(plan, part, cuda_device),
+            shard_on_device(plan, part, "cpu"), ext, rng)
+
+
+@pytest.mark.parametrize("feat", [41, 128])
+@pytest.mark.parametrize("halo", ["all_gather", "targeted"])
+def test_shard_local_k2_on_a_rectangular_csr(cuda_device, halo, feat):
+    """K2's forward and backward over one shard's CSR and its transpose
+    (n·rows or rows + n·H_pad sources, most transposed rows empty, the
+    tail past the last edge too) against the plain versions on the same
+    CUDA tensors, and bit-identical on repeat."""
+    from sgnn_tpu_torch.parallel.halo import local_aggregate
+
+    card, _, ext, rng = _shard_cases(cuda_device, halo, WeightKind.GCN,
+                                     feat)
+    rowptr_t = card.csr_t.rowptr
+    empty = (rowptr_t[1:] == rowptr_t[:-1])
+    assert card.csr_t.num_rows == ext.shape[0] > card.rows
+    assert bool(empty.any()) and bool(empty[-1])
+    x = ext.to(cuda_device).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((card.rows, feat)).astype(
+        np.float32)).to(cuda_device)
+    before = (spmm_csr_cuda.launches, spmm_csr_bwd_cuda.launches)
+    out = local_aggregate(x, card)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (spmm_csr_cuda.launches - before[0],
+            spmm_csr_bwd_cuda.launches - before[1]) == (1, 1)
+    ref = spmm_csr_plain(x.detach(), *card.csr)
+    ref_dx = spmm_csr_plain(g, *card.csr_t)
+    torch.testing.assert_close(out.detach(), ref, **F32)
+    torch.testing.assert_close(x.grad, ref_dx, **F32)
+    assert bool((x.grad[empty] == 0).all())
+    assert torch.equal(spmm_csr_bwd(g, *card.csr_t), x.grad)
+
+
+@pytest.mark.parametrize("heads,feat", [(1, 41), (4, 128)])
+@pytest.mark.parametrize("halo", ["all_gather", "targeted"])
+def test_shard_local_gat_on_a_rectangular_csr(cuda_device, halo, heads,
+                                              feat):
+    """K3 and K4 over one shard's CSR (sources the exchanged rows with
+    their score table, destinations the shard's rows with theirs) against
+    the same layer on the CPU (the plain versions): the forward at 1e-5,
+    the gradients of the exchanged rows and of both score tables at
+    cosine > 0.999 (tests/test_mxu_gat.py:195-197), bit-identical on
+    repeat."""
+    from sgnn_tpu_torch.ops.gat import pack_score_tables
+    from sgnn_tpu_torch.parallel.halo import local_gat
+
+    card, cpu, ext, rng = _shard_cases(cuda_device, halo, WeightKind.NONE,
+                                       feat)
+    a = torch.from_numpy((rng.standard_normal(2 * feat) * 0.3).astype(
+        np.float32))
+    ts_ext, _ = pack_score_tables(ext, a[:feat], a[feat:], heads)
+    own = torch.from_numpy(rng.standard_normal((card.rows, feat)).astype(
+        np.float32))
+    _, td = pack_score_tables(own, a[:feat], a[feat:], heads)
+    g = torch.from_numpy(rng.standard_normal((card.rows, feat)).astype(
+        np.float32))
+    fns = (gat_aggregate_cuda, gat_bwd_src_cuda, gat_bwd_dst_cuda)
+    results = []
+    for shard, dev in ((cpu, "cpu"), (card, cuda_device), (card,
+                                                           cuda_device)):
+        xs = [t.detach().to(dev).requires_grad_() for t in (ext, ts_ext, td)]
+        before = [f.launches for f in fns]
+        out = local_gat(*xs, shard, heads)
+        out.backward(g.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1]
+        results.append([out.detach().cpu()] + [t.grad.cpu() for t in xs])
+
+    def cos(x, y):
+        x, y = x.double().flatten(), y.double().flatten()
+        return float(x @ y / (x.norm() * y.norm()))
+
+    (ref, *ref_grads), (got, *grads), (again, *grads2) = results
+    torch.testing.assert_close(got, ref, **F32)
+    for x, y in zip(grads, ref_grads):
+        assert cos(x, y) > 0.999
+    assert torch.equal(got, again)
+    assert all(torch.equal(x, y) for x, y in zip(grads, grads2))
+
+
+@pytest.mark.parametrize("family,halo", [("gcn", "targeted"),
+                                         ("gat", "all_gather")])
+def test_one_rank_nccl_graph_group_matches_one_device(cuda_device, family,
+                                                      halo):
+    """FullBatchTrainer on a one-rank NCCL graph group (the sharded program
+    at n = 1, a CSR with padding rows) against the single-device trainer
+    from the same seed at drop 0.5: losses and parameters within 1e-6
+    relative, the same kernel launches an epoch."""
+    import torch.distributed as dist
+
+    from sgnn_tpu_torch.parallel.mesh import make_group
+
+    ds = random_graph_dataset(3000, 10, 48, 5, seed=7)
+    cfg = RunConfig(layer_sizes=[48, 16, 5], drop_rate=0.5, heads=4,
+                    vertices=ds.num_vertices)
+    fns = (spmm_csr_cuda, spmm_csr_bwd_cuda, gat_aggregate_cuda,
+           gat_bwd_src_cuda, gat_bwd_dst_cuda)
+    group = make_group(cuda_device, graph=1)
+    try:
+        assert (group.backend, group.world_size) == ("nccl", 1)
+        trs = [FullBatchTrainer(cfg, ds, family=family, device=cuda_device),
+               FullBatchTrainer(cfg, ds, family=family, mesh=group,
+                                halo=halo, device=cuda_device)]
+        for _ in range(2):
+            got = []
+            for tr in trs:
+                before = [f.launches for f in fns]
+                got.append((tr.train_epoch(),
+                            [f.launches - b for f, b in zip(fns, before)]))
+            np.testing.assert_allclose(got[1][0], got[0][0], rtol=1e-6)
+            assert got[1][1] == got[0][1]
+        for a, b in zip(trs[1].params.leaves(), trs[0].params.leaves()):
+            assert _rel(a, b) <= 1e-6
+        assert np.abs(trs[1].predict() - trs[0].predict()).max() <= 1e-5
+    finally:
+        dist.destroy_process_group()

@@ -225,5 +225,6 @@ def test_one_rank_group_is_the_identity(one_rank):
     with pytest.raises(ValueError, match="NCCL group needs a CUDA"):
         DataGroup(rank=0, world_size=1, device=torch.device("cpu"),
                   backend="nccl")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # a graph axis of 2 ranks in a group of one
+    with pytest.raises(ValueError, match="graph=2"):
         make_group("cpu", graph=2)

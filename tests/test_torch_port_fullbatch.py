@@ -52,6 +52,7 @@ from sgnn_tpu_torch.ops.gat import (
     pack_score_tables,
 )
 from sgnn_tpu_torch.ops.reductions import segment_extreme
+from sgnn_tpu_torch.parallel.mesh import make_group
 from sgnn_tpu_torch.ops.segment import (
     PLAIN_F64_ROW_EDGES, SpmmCsr, csr_from_numpy, csr_transpose,
     spmm_csr_plain,
@@ -591,7 +592,8 @@ def test_fullbatch_one_device_runs_the_single_device_program(tiny_ds, change):
     assert len(warned) == (1 if "partition_graph" in change else 0)
     default = run_engine(RunConfig(**kw), tiny_ds, device="cpu")
     assert len(report.losses) == 2 and report.losses == default.losses
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # a mesh must be a graph group (tests/test_torch_port_partition.py)
+    with pytest.raises(TypeError, match="graph group"):
         FullBatchTrainer(RunConfig(layer_sizes=[32, 16, 5]), tiny_ds,
                          mesh=object(), device="cpu")
 
@@ -601,15 +603,24 @@ def test_fullbatch_one_device_runs_the_single_device_program(tiny_ds, change):
 ], ids=["int8", "reorder"])
 def test_fullbatch_unported_options_name_their_item(tiny_ds, change, item):
     """REORDER waits for item 7.  FEATURE_DTYPE:int8 trains on one device
-    (parity in test_torch_port_quant.py); its sharded path waits, with
-    every mesh, for item 6.  Checkpoints work (test_torch_port_checkpoint
-    .py)."""
+    (parity in test_torch_port_quant.py) and, since item 6b, sharded: on a
+    one-rank graph group it trains int8 shards as the single device does
+    (2 ranks against JAX: test_torch_port_partition.py).  Checkpoints work
+    (test_torch_port_checkpoint.py)."""
     cfg = RunConfig(algorithm="GCNFULLBATCH", layer_sizes=[32, 16, 5],
                     vertices=tiny_ds.num_vertices, **change)
     if item == "item 6":
-        assert build_trainer(cfg, tiny_ds, device="cpu").base.feature_int8
-        with pytest.raises(NotImplementedError, match=item):
-            FullBatchTrainer(cfg, tiny_ds, mesh=object(), device="cpu")
+        single = build_trainer(cfg, tiny_ds, device="cpu").base
+        assert single.feature_int8
+        group = make_group("cpu", graph=1)
+        try:
+            sharded = FullBatchTrainer(cfg, tiny_ds, mesh=group, device="cpu")
+            assert sharded.feature_int8 and sharded.x.dtype == torch.int8
+            for _ in range(2):
+                got, want = sharded.train_epoch(), single.train_epoch()
+                np.testing.assert_allclose(got, want, rtol=1e-6)
+        finally:
+            torch.distributed.destroy_process_group()
     else:
         with pytest.raises(NotImplementedError, match=item):
             build_trainer(cfg, tiny_ds, device="cpu")
