@@ -224,19 +224,58 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                shards' K2 input gradients summed held to the single one,
                each shard's kernel times beside the single-device
                kernel's;
-21. kernels  — one line listing every kernel with its launches on its main
+21. train_multihost — the multi-host drivers (parallel/multihost.py) on a
+               one-rank NCCL group that `initialize_distributed` joins at a
+               TCP coordinator on this machine (NCCL takes one rank a
+               card), at 602-128-41: the whole-graph driver (GCN
+               all_gather, GAT heads 4 targeted; 3 epochs, drop 0.5)
+               against `FullBatchTrainer`, the device-sampled driver with
+               and without SHARD_FEATURES against GCNSAMPLEALLGPU, the
+               *PCMULTI driver against the GCNSAMPLEPCMULTI engine (one
+               epoch each): losses and parameters within 1e-6 relative (0
+               expected), exact launches; the host-sampled driver's first
+               step (the JAX driver's streams) card vs CPU at train_host's
+               tolerances, then its epoch; kill-and-resume of the
+               whole-graph (2 + 2 epochs) and device-sampled (1 + 1)
+               drivers through the checkpoint pair, bit for bit a straight
+               run; the join's seconds, each epoch beside the single
+               engine's, each collective's calls, bytes and device time,
+               the checkpoint's bytes and seconds; then `python -m
+               sgnn_tpu_torch` with `--coordinator --nprocs 1 --pid 0` on
+               the Cora fullbatch and (GCNSAMPLEALLGPU) sample configs;
+22. reorder  — REORDER on the same graph: `vertex_order` none / degree /
+               bfs and `apply_vertex_order`, their host seconds; each
+               order's whole-graph build (CSC, the native transpose against
+               np.argsort's, held equal); K2 forward and backward (F = 128,
+               41), K3, B1 and B2 (H = 4 F = 128, H = 1 F = 41) on each
+               order's CSR, timed by CUDA events over 20 calls, held to
+               plain and (mapped back) to the original order's rows; K1
+               forward and dx at each order's device-sampled batch; the
+               engines: GCNFULLBATCH at drop 0 (its first loss within 1e-5
+               relative of none's, its log-probs after one epoch mapped
+               back within 1e-4), GATFULLBATCH heads 4 through
+               `run_engine`'s REORDER (`report.vertex_order` the order),
+               GSSAMPLEALLGPU one epoch: epoch and step times, sampled
+               edges/s, exact launches; then the OGB data path: a
+               planted-community graph at ogbn-arxiv's widths (20,000
+               vertices, 128 features, 40 classes) written as an OGB
+               directory, `load_ogb_dir`, `export_nts_format`,
+               `load_from_config`, and GCNSAMPLEALLGPU trained one epoch
+               through the CLI, each step's host seconds;
+23. kernels  — one line listing every kernel with its launches on its main
                path (serving for `spmm_csr`, train_device for K1,
                serving_gat for K3, train_full for K2's backward and K4,
                kernel_probes for the probes) and, for K2, K3, K4 and K1, on
-               the paths of phases 15-18 and 20 (`launches_by_path`), its
-               error and its times (`spmm_csr` and `gat_bwd_dst` also their
-               layouts and registers and local bytes at the main path's
-               shapes; `spmm_csr` also at the PushDown shape).
+               the paths of phases 15-18 and 20-22 (`launches_by_path`),
+               its error and its times (`spmm_csr` and `gat_bwd_dst` also
+               their layouts and registers and local bytes at the main
+               path's shapes; `spmm_csr` also at the PushDown shape).
 
 Every main path (phases 5-10, 13 and 14, the int8 serving, chunked
 serving, int8 sampled and int8 whole-graph paths of phases 15-16, each
-cached build and run of phase 17, each data-parallel run of phase 18 and
-each sharded run of phase 20) starts
+cached build and run of phase 17, each data-parallel run of phase 18,
+each sharded run of phase 20, each driver of phase 21 and each engine of
+phase 22) starts
 with every launch count set to 0 and reads them all at its end; the CLI
 runs in other processes, whose counts this one cannot read.  Then the card's name and power limit as
 nvidia-smi prints them, and last `{"ok": true, "device": {...}}`.  Any
@@ -257,6 +296,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -396,6 +436,636 @@ def batch_to(batch, device):
             if hasattr(getattr(obj, f.name), "to")})
     return dataclasses.replace(move(batch),
                                blocks=[move(b) for b in batch.blocks])
+
+
+# ---- 21-22. the multi-host drivers and the renumbered graph ---------------
+# Both phases take `c`, main()'s context: the Reddit-shaped dataset and its
+# Adjacency, the card, the launch counters and main()'s timing helpers.
+
+# the multi-host phase's epochs: the whole-graph drivers against the
+# single-device trainer; its resumes (half and half, through a checkpoint)
+MH_FULL_EPOCHS, MH_FULL_RESUME, MH_DEVICE_RESUME = 3, (2, 2), (1, 1)
+# the renumbered graph: CUDA-event reps a kernel time, epochs a
+# whole-graph engine, the widths timed (F) and the GAT shapes (H, F)
+REORDER_REPS, REORDER_EPOCHS = 20, 3
+REORDER_K2_FEATS, REORDER_GAT_SHAPES = (128, 41), ((4, 128), (1, 41))
+# renumbered log-probs mapped back against the original order's:
+# absolute, as SERVE_ATOL (only the order of each sum differs)
+REORDER_PRED_ATOL = 1e-4
+# the OGB data path: ogbn-arxiv's widths (128 features, 40 classes) on a
+# graph made here at its mean in-degree, nothing downloaded
+OGB_VERTICES, OGB_DEGREE, OGB_FEATS, OGB_CLASSES = 20000, 7, 128, 40
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def relu_sides(fn, branches: list, replay: bool):
+    """`fn()` with `torch.relu` recording each call's side of the kink
+    (`branches`), or replaying the recorded sides (`replay`): (its
+    result, how many elements the replay moved to the recorded side)."""
+    import torch
+
+    real_relu, moved, sides = torch.relu, [0], iter(branches)
+
+    def relu(t):
+        if not replay:
+            branches.append((t > 0).detach().cpu())
+            return real_relu(t)
+        keep = next(sides).to(t.device)
+        moved[0] += int(((t > 0) != keep).sum())
+        return torch.where(keep, t, torch.zeros((), dtype=t.dtype,
+                                                device=t.device))
+
+    torch.relu = relu
+    try:
+        return fn(), moved[0]
+    finally:
+        torch.relu = real_relu
+
+
+def collective_summary(regions: dict, epochs: int) -> dict:
+    """Each timed region's calls, bytes and device ms, per epoch."""
+    return {tag: {"calls_an_epoch": len(rows) / epochs,
+                  "bytes_an_epoch": sum(b for b, _ in rows) / epochs,
+                  "ms_an_epoch": sum(ms for _, ms in rows) / epochs}
+            for tag, rows in regions.items()}
+
+
+def phase_train_multihost(c) -> dict:
+    """The multi-host drivers on a one-rank NCCL group joined at a TCP
+    coordinator, each against its single-device engine in this run (the
+    main path's launches by driver returned)."""
+    import torch
+    import torch.distributed as dist
+
+    from sgnn_tpu_torch.parallel import multihost as mh
+    from sgnn_tpu_torch.train import build_trainer
+    from sgnn_tpu_torch.train.engines import engine_from_config
+    from sgnn_tpu_torch.train.fullbatch import FullBatchTrainer
+    from sgnn_tpu_torch.train.trainer import (
+        SampleTrainer, host_batch_to_device, loss_and_grads,
+    )
+
+    phase_t0 = time.perf_counter()
+    ds, v = c.ds, c.ds.num_vertices
+    t0 = time.perf_counter()
+    rank, world = mh.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    join_s = time.perf_counter() - t0
+    group = mh.global_mesh()
+    require((rank, world) == (0, 1) and group.backend == "nccl"
+            and group.device.type == "cuda" and group.graph == 1,
+            f"the multi-host group is {group}")
+    # NCCL makes its communicator at the first collective: timed apart, so
+    # that the drivers' collectives are steady ones
+    t0 = time.perf_counter()
+    group.all_reduce_sum_(torch.ones(1, device=group.device))
+    torch.cuda.synchronize()
+    first_collective_s = time.perf_counter() - t0
+    group.timed = True
+    runs, launches = {}, {}
+
+    def params_cmp(state_weights, want):
+        """max |Δ| and max relative error of a driver's parameters (its
+        state) against a trainer's."""
+        got = [t.to(c.dev) for t in state_weights]
+        return (max((a - b).abs().max().item() for a, b in zip(got, want)),
+                max(c.rel_err(a, b) for a, b in zip(got, want)))
+
+    def leaves_of(state):
+        return [*state["params"]["weights"], *state["params"]["attn"]]
+
+    def driver(fn, label, *args, **kw):
+        """A driver call from zeroed counts: (losses, state, the launches,
+        its epochs' host seconds, the collectives an epoch)."""
+        state, times = {}, []
+        group.region_times()
+        c.reset_counts()
+        torch.cuda.synchronize()
+        losses = fn(*args, mesh=group, state_out=state, epoch_times=times,
+                    **kw)
+        got = {n: k for n, k in c.counts().items() if k}
+        require(all(np.isfinite(losses)), f"{label}: losses {losses}")
+        return (losses, state, got, times,
+                collective_summary(group.region_times(), len(losses)))
+
+    # (1) the whole-graph driver against FullBatchTrainer, 3 epochs, drop 0.5
+    for algo, heads, halo in (("GCNFULLBATCH", 1, "all_gather"),
+                              ("GATFULLBATCH", GAT_TRAIN_HEADS, "targeted")):
+        cfg = dataclasses.replace(c.full_cfg(algo, heads, v, 0.5),
+                                  epochs=MH_FULL_EPOCHS)
+        spec = engine_from_config(cfg)
+        single = FullBatchTrainer(cfg, ds, family=spec.family,
+                                  weight_kind=spec.weight_kind, adj=c.adj)
+        s_times, s_losses = [], []
+        for _ in range(MH_FULL_EPOCHS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s_losses.append(single.train_epoch()[0])
+            torch.cuda.synchronize()
+            s_times.append(time.perf_counter() - t0)
+        losses, state, got, times, coll = driver(
+            mh.run_multihost_fullbatch_epochs, algo, cfg, ds,
+            family=spec.family, halo=halo, weight_kind=spec.weight_kind)
+        want = {n: k * MH_FULL_EPOCHS for n, k in c.per_epoch[algo].items()}
+        require(got == want, f"{algo} driver launched {got}, expected {want}")
+        p_abs, p_rel = params_cmp(leaves_of(state), single.params.leaves())
+        l_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, s_losses))
+        require(l_rel <= DP_PARAM_RTOL and p_rel <= DP_PARAM_RTOL,
+                f"{algo} driver against the single trainer: losses {l_rel}, "
+                f"parameters {p_rel}")
+        launches[f"fullbatch_{spec.family}"] = got
+        runs[f"fullbatch {algo} {halo}"] = {
+            "heads": heads, "losses": losses, "single_losses": s_losses,
+            "loss_max_rel_diff": l_rel, "params_max_abs_diff": p_abs,
+            "params_bit_identical": p_abs == 0.0 and losses == s_losses,
+            "epoch_s": times, "single_epoch_s": s_times,
+            "epoch_ms_median_after_first": statistics.median(times[1:]) * 1e3,
+            "single_epoch_ms_median_after_first":
+            statistics.median(s_times[1:]) * 1e3,
+            "collectives": coll, "launches": got}
+        del single, state
+    # (2) the device-sampled driver, replicated and row-sharded features,
+    # against GCNSAMPLEALLGPU; (3) the *PCMULTI driver against the
+    # GCNSAMPLEPCMULTI engine on this group: one epoch each
+    sd_cfg = dataclasses.replace(c.dev_cfg, algorithm="GCNSAMPLEALLGPU")
+    pc_cfg = dataclasses.replace(c.dev_cfg, algorithm="GCNSAMPLEPCMULTI")
+    for label, fn, cfg, kw, ref_cfg in (
+            ("device_dp", mh.run_multihost_device_dp_epochs, sd_cfg,
+             dict(shard_features=False), sd_cfg),
+            ("device_dp SHARD_FEATURES", mh.run_multihost_device_dp_epochs,
+             sd_cfg, dict(shard_features=True), sd_cfg),
+            ("pcmulti", mh.run_multihost_pcmulti_epochs, pc_cfg, {},
+             pc_cfg)):
+        ref = build_trainer(ref_cfg, ds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_loss = ref.train_epoch()[0]
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        ref_base = getattr(ref, "base", ref)
+        losses, state, got, times, coll = driver(fn, label, cfg, ds, epochs=1,
+                                                 family="gcn", **kw)
+        # the *PCMULTI build's one PushDown aggregate, K2
+        want = {**c.k1_expect(16, 0),
+                **({"spmm_csr": 1} if label == "pcmulti" else {})}
+        require(got == want, f"{label} driver launched {got}, expected "
+                             f"{want}")
+        p_abs, p_rel = params_cmp(leaves_of(state), ref_base.params.leaves())
+        l_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+        require(l_rel <= DP_PARAM_RTOL and p_rel <= DP_PARAM_RTOL,
+                f"{label} driver against {ref_cfg.algorithm}: loss {l_rel}, "
+                f"parameters {p_rel}")
+        launches[label.replace(" ", "_").lower()] = got
+        runs[label] = {
+            "reference": ref_cfg.algorithm, "loss": losses[0],
+            "reference_loss": ref_loss, "loss_rel_diff": l_rel,
+            "params_max_abs_diff": p_abs,
+            "params_bit_identical": p_abs == 0.0 and losses[0] == ref_loss,
+            "epoch_s": times[0], "reference_epoch_s": ref_s,
+            "reference_step_ms_median_after_first": statistics.median(
+                ref_base.step_ms[1:]),
+            "collectives": coll, "launches": got}
+        del ref, ref_base, state
+    # (4) the host-sampled driver: its first step (the JAX driver's streams)
+    # on the card against the port's CPU, then one epoch
+    host_cfg = dataclasses.replace(c.dev_cfg, algorithm="GCNSAMPLEGPU")
+    base = SampleTrainer(host_cfg, ds, family="gcn")
+    seeds = mh.multihost_epoch_seeds(host_cfg.seed, base.train_nids,
+                                     host_cfg.batch_size, 0, 0, 1)
+    base.sampler.rng = mh.multihost_step_rng(host_cfg.seed, 0, 0, 0)
+    item = base._make_batch(seeds[0])
+    card_batch, _ = base._upload(item)
+    cpu_batch = host_batch_to_device(
+        item.hb, *item.hb.payload(ds.features, ds.labels), device="cpu")
+    # relu's kink: the CPU takes the card's side of every hidden
+    # pre-activation (train_full's replay): a few lie within f32 rounding
+    # of 0, and one flipped element moves dW0 by ~3e-4 of its largest entry
+    branches = []
+    card, _ = relu_sides(lambda: loss_and_grads(base.params, "gcn",
+                                                card_batch), branches, False)
+    cpu, moved = relu_sides(lambda: loss_and_grads(
+        base.params.to("cpu"), "gcn", cpu_batch), branches, True)
+    loss_diff = abs(card.loss.item() - cpu.loss.item())
+    grad_errs = [c.rel_err(a, b) for a, b in zip(card.grads, cpu.grads)]
+    require(loss_diff <= TRAIN_LOSS_ATOL and max(grad_errs) <= TRAIN_GRAD_RTOL,
+            f"host-sampled driver's first step, card vs CPU: loss "
+            f"{loss_diff}, gradients {grad_errs}")
+    del base, card, cpu, card_batch, cpu_batch, item
+    times = []
+    group.region_times()
+    c.reset_counts()
+    losses = mh.run_multihost_dp_epochs(host_cfg, ds, epochs=1, family="gcn",
+                                        mesh=group, epoch_times=times)
+    got = {n: k for n, k in c.counts().items() if k}
+    want = c.k1_expect(len(seeds), 0)
+    require(np.isfinite(losses[0]) and got == want,
+            f"host-sampled driver: loss {losses}, launched {got}, expected "
+            f"{want}")
+    launches["host_dp"] = got
+    runs["host_dp"] = {
+        "first_step_loss_abs_diff": loss_diff, "loss_atol": TRAIN_LOSS_ATOL,
+        "first_step_grad_rel_err": grad_errs, "grad_rtol": TRAIN_GRAD_RTOL,
+        "relu_sides_replayed": moved,
+        "steps": len(seeds), "loss": losses[0], "epoch_s": times[0],
+        "step_s_mean": times[0] / len(seeds),
+        "train_host_steps_ms": [s["sample_ms"] + s["upload_train_ms"]
+                                for s in c.host_steps],
+        "collectives": collective_summary(group.region_times(), 1),
+        "launches": got}
+    # (5) kill and resume through the checkpoint pair, against a straight run
+    ckpt_root = ROOT / "build" / "chip_smoke_mh_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    gcn_full = c.full_cfg("GCNFULLBATCH", 1, v, 0.5)
+    resumes = {}
+    for label, fn, cfg, split in (
+            ("fullbatch GCNFULLBATCH", mh.run_multihost_fullbatch_epochs,
+             gcn_full, MH_FULL_RESUME),
+            ("device_dp GCNSAMPLEALLGPU", mh.run_multihost_device_dp_epochs,
+             sd_cfg, MH_DEVICE_RESUME)):
+        directory = str(ckpt_root / label.split()[0])
+        straight = {}
+        s_losses = fn(cfg, ds, epochs=sum(split), family="gcn", mesh=group,
+                      state_out=straight)
+        first = {}
+        losses = fn(cfg, ds, epochs=split[0], family="gcn", mesh=group,
+                    state_out=first)
+        t0 = time.perf_counter()
+        path = mh.multihost_checkpoint_save(directory, split[0], first)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = mh.multihost_checkpoint_restore(directory)
+        restore_s = time.perf_counter() - t0
+        require(back is not None and back["step"] == split[0],
+                f"{label}: restored {back and back['step']}")
+        resumed = {}
+        losses += fn(cfg, ds, epochs=split[1], family="gcn", mesh=group,
+                     resume_state=back, state_out=resumed)
+        bit = losses == s_losses and all(
+            torch.equal(a, b) for a, b in zip(leaves_of(resumed),
+                                              leaves_of(straight)))
+        require(bit, f"{label}: resumed {losses} against straight "
+                     f"{s_losses}, parameters bit-identical {bit}")
+        resumes[label] = {"split": list(split), "losses": losses,
+                          "bit_identical": bit,
+                          "checkpoint_bytes": os.path.getsize(path),
+                          "save_s": save_s, "restore_s": restore_s}
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    dist.destroy_process_group()
+    # (6) the CLI's coordinator flags, one rank each, both runs at once
+    cli_runs, procs = [], []
+    t0 = time.perf_counter()
+    for cfg_name, flags in (("gcn_cora_fullbatch.cfg", ()),
+                            ("gcn_cora_sample.cfg",
+                             ("--algorithm", "GCNSAMPLEALLGPU"))):
+        procs.append((cfg_name, flags, subprocess.Popen(
+            [sys.executable, "-m", "sgnn_tpu_torch", f"configs/{cfg_name}",
+             *flags, "--coordinator", f"127.0.0.1:{free_port()}",
+             "--nprocs", "1", "--pid", "0"], cwd=ROOT, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
+    try:
+        for cfg_name, flags, proc in procs:
+            _, err = proc.communicate(timeout=300)
+            final = [ln.split("] ", 1)[-1] for ln in err.splitlines()
+                     if "multihost final loss" in ln]
+            require(proc.returncode == 0 and len(final) == 1,
+                    f"CLI {cfg_name} --coordinator exited "
+                    f"{proc.returncode}: {err[-2000:]}")
+            cli_runs.append({"cfg": cfg_name, "flags": list(flags),
+                             "final": final[0],
+                             "wall_s": time.perf_counter() - t0})
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    emit({"phase": "train_multihost", "model": "602-128-41",
+          "join_s": join_s, "first_collective_s": first_collective_s,
+          "group": {"backend": group.backend,
+                                      "world_size": world,
+                                      "device": str(group.device)},
+          "param_rtol": DP_PARAM_RTOL, "runs": runs, "resume": resumes,
+          "cli": cli_runs, "phase_s": time.perf_counter() - phase_t0})
+    return launches
+
+
+def write_ogb_dir(root: pathlib.Path, ds) -> None:
+    """`ds` as an OGB node-property directory (gzip CSVs, the layout of
+    `data/ogb.load_ogb_dir`), without its self-loops, one random split."""
+    import gzip
+
+    def csv(path, rows, fmt):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with gzip.open(path, "wt", compresslevel=1) as f:
+            np.savetxt(f, rows, delimiter=",", fmt=fmt)
+
+    edges = ds.edges[ds.edges[:, 0] != ds.edges[:, 1]]
+    csv(root / "raw" / "edge.csv.gz", edges, "%d")
+    csv(root / "raw" / "node-feat.csv.gz", ds.features, "%.9g")
+    csv(root / "raw" / "node-label.csv.gz", ds.labels[:, None], "%d")
+    for name, code in (("train", 0), ("valid", 1), ("test", 2)):
+        csv(root / "split" / "random" / f"{name}.csv.gz",
+            np.nonzero(ds.masks == code)[0][:, None], "%d")
+
+
+def phase_reorder(c) -> dict:
+    """REORDER on the Reddit-shaped graph: the orders' host cost, K1-K4's
+    times on each order's CSR, the engines' times, the exactness of a
+    renumbering, the build's host sort, and the OGB data path (the main
+    path's launches by order returned)."""
+    import torch
+
+    from sgnn_tpu_torch.config import load_cfg
+    from sgnn_tpu_torch.data import (
+        export_nts_format, load_from_config, load_ogb_dir,
+        planted_community_dataset,
+    )
+    from sgnn_tpu_torch.graph import apply_vertex_order, vertex_order
+    from sgnn_tpu_torch.graph.adjacency import Adjacency
+    from sgnn_tpu_torch.ops import aggregate as agg
+    from sgnn_tpu_torch.ops.cuda import gather_agg as k1
+    from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda
+    from sgnn_tpu_torch.ops.cuda.gat_bwd import (
+        gat_bwd_dst_cuda, gat_bwd_src_cuda,
+    )
+    from sgnn_tpu_torch.ops.cuda.spmm import spmm_csr_bwd_cuda, spmm_csr_cuda
+    from sgnn_tpu_torch.ops.gat import (
+        gat_aggregate_plain, gat_bwd_operands, pack_score_tables,
+    )
+    from sgnn_tpu_torch.ops.segment import (
+        csr_from_numpy, csr_transpose, spmm_csr_plain,
+    )
+    from sgnn_tpu_torch.sampler.blocks import WeightKind
+    from sgnn_tpu_torch.train import build_trainer, run_engine
+    from sgnn_tpu_torch.train.fullbatch import build_coo
+
+    phase_t0 = time.perf_counter()
+    ds, v, dev = c.ds, c.ds.num_vertices, c.dev
+    gen = torch.Generator().manual_seed(13)
+    # the inputs in the original ids; each order reads them renumbered
+    x_in = {f: torch.randn(v, f, generator=gen) for f in REORDER_K2_FEATS}
+    g_in = {f: torch.randn(v, f, generator=gen) for f in REORDER_K2_FEATS}
+    a_in = {shape: torch.randn(2 * shape[1], generator=gen) * GAT_ATTN_SCALE
+            for shape in REORDER_GAT_SHAPES}
+    orders, kernel_rows, engine_rows, build_rows = {}, {}, {}, {}
+    launches, ref_rows = {}, {}
+    for mode in ("none", "degree", "bfs"):
+        t0 = time.perf_counter()
+        order = vertex_order(c.adj, mode)
+        order_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rds, old_to_new = ((ds, order) if mode == "none"
+                           else apply_vertex_order(ds, order))
+        apply_s = time.perf_counter() - t0
+        orders[mode] = {"order_s": order_s, "apply_s": apply_s}
+        # the whole-graph build's host steps: the CSC, the GCN weights, and
+        # the transpose by the native sort against np.argsort's
+        t0 = time.perf_counter()
+        radj = Adjacency.from_edges(rds.edges, v)
+        csc_s = time.perf_counter() - t0
+        src, _, w = build_coo(radj, WeightKind.GCN)
+        t0 = time.perf_counter()
+        rowptr_t, col_t, w_t = csr_transpose(radj.indptr, src, w, v)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = np.repeat(np.arange(v, dtype=np.int32), np.diff(radj.indptr))
+        perm = np.argsort(src, kind="stable")
+        numpy_t = (rows[perm], w[perm])
+        numpy_s = time.perf_counter() - t0
+        require(np.array_equal(numpy_t[0], col_t)
+                and np.array_equal(numpy_t[1], w_t),
+                f"{mode}: the native transpose differs from np.argsort's")
+        t0 = time.perf_counter()
+        radj.transpose()
+        adj_t_s = time.perf_counter() - t0
+        build_rows[mode] = {"csc_s": csc_s, "csr_transpose_native_s": native_s,
+                            "csr_transpose_np_argsort_s": numpy_s,
+                            "adjacency_transpose_s": adj_t_s}
+        del rows, perm, numpy_t
+        # kernel times on this order's CSR and transpose
+        perm_t = torch.from_numpy(np.asarray(order, np.int64))
+        back_t = torch.from_numpy(np.asarray(old_to_new, np.int64)).to(dev)
+        csr = csr_from_numpy(radj.indptr, src, w, v, dev)
+        csr_t = csr_from_numpy(rowptr_t, col_t, w_t, v, dev)
+        krows = []
+        for f in REORDER_K2_FEATS:
+            x = x_in[f][perm_t].to(dev)
+            g = g_in[f][perm_t].to(dev)
+            out = spmm_csr_cuda(x, *csr)
+            dx = spmm_csr_bwd_cuda(g, *csr_t)
+            torch.cuda.synchronize()
+            errs = [c.rel_err(out, spmm_csr_plain(x, *csr)),
+                    c.rel_err(dx, spmm_csr_plain(g, *csr_t))]
+            if mode == "none":
+                ref_rows[f] = (out, dx)
+            else:
+                errs += [c.rel_err(out[back_t], ref_rows[f][0]),
+                         c.rel_err(dx[back_t], ref_rows[f][1])]
+            require(max(errs) <= TOL["float32"],
+                    f"{mode} K2 F={f}: {errs}")
+            krows.append({"kernel": "spmm_csr", "F": f, "rel_err": errs,
+                          "ms": c.time_ms(lambda: spmm_csr_cuda(x, *csr),
+                                          REORDER_REPS)})
+            krows.append({"kernel": "spmm_csr_bwd", "F": f,
+                          "ms": c.time_ms(lambda: spmm_csr_bwd_cuda(
+                              g, *csr_t), REORDER_REPS)})
+            del x, g, out, dx
+        for heads, f in REORDER_GAT_SHAPES:
+            ht = x_in[f][perm_t].to(dev)
+            a = a_in[heads, f].to(dev)
+            ts, td = pack_score_tables(ht, a[:f], a[f:], heads)
+            h, z = gat_aggregate_cuda(ht, ts, td, csr.rowptr, csr.col, heads)
+            ref_h, _ = gat_aggregate_plain(ht, ts, td, csr.rowptr, csr.col,
+                                           heads)
+            gz, rz = gat_bwd_operands(g_in[f][perm_t].to(dev), h, z, heads)
+            b1 = (ht, ts, gz, td, rz, csr_t.rowptr, csr_t.col, heads)
+            b2 = (ht, ts, gz, td, rz, csr.rowptr, csr.col, heads)
+            dht, _dts = gat_bwd_src_cuda(*b1)
+            torch.cuda.synchronize()
+            errs = [c.rel_err(h, ref_h)]
+            if mode == "none":
+                ref_rows[heads, f] = (h, dht)
+            else:
+                errs += [c.rel_err(h[back_t], ref_rows[heads, f][0]),
+                         c.rel_err(dht[back_t], ref_rows[heads, f][1])]
+            require(max(errs) <= TOL["float32"],
+                    f"{mode} K3/B1 H={heads} F={f}: {errs}")
+            for name, fn in (
+                    ("gat_aggregate", lambda: gat_aggregate_cuda(
+                        ht, ts, td, csr.rowptr, csr.col, heads)),
+                    ("gat_bwd_src", lambda: gat_bwd_src_cuda(*b1)),
+                    ("gat_bwd_dst", lambda: gat_bwd_dst_cuda(*b2))):
+                krows.append({"kernel": name, "H": heads, "F": f,
+                              "ms": c.time_ms(fn, REORDER_REPS),
+                              **({"rel_err": errs} if name == "gat_aggregate"
+                                 else {})})
+            del ht, ts, td, h, z, ref_h, gz, rz, b1, b2, dht
+        del csr, csr_t, radj, src, w, rowptr_t, col_t, w_t
+        # the engines: GCNFULLBATCH at drop 0 (exactness: its first loss,
+        # its log-probs after the first epoch mapped back), GATFULLBATCH
+        # h4 through run_engine's REORDER, GSSAMPLEALLGPU one epoch
+        erows = {}
+        cfg = c.full_cfg("GCNFULLBATCH", 1, v, 0.0)
+        c.reset_counts()
+        eng = build_trainer(cfg, rds)
+        hist = []
+        for ep in range(REORDER_EPOCHS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist.append(eng.base.train_epoch()[0])
+            torch.cuda.synchronize()
+            hist.append(time.perf_counter() - t0)
+            if ep == 0:
+                pred = eng.base.predict()[np.asarray(old_to_new)]
+        gcn_losses, gcn_s = hist[0::2], hist[1::2]
+        got = {n: k for n, k in c.counts().items() if k}
+        # drop 0: no clean forward; 2 a predict()
+        want = {"spmm_csr": 2 * REORDER_EPOCHS + 2,
+                "spmm_csr_bwd": 2 * REORDER_EPOCHS}
+        require(got == want, f"{mode} GCNFULLBATCH launched {got}")
+        launches[f"{mode}_gcnfullbatch"] = got
+        if mode == "none":
+            ref_rows["loss"], ref_rows["pred"] = gcn_losses[0], pred
+        loss_rel = abs(gcn_losses[0] - ref_rows["loss"]) / ref_rows["loss"]
+        pred_abs = float(np.abs(pred - ref_rows["pred"]).max())
+        require(loss_rel <= 1e-5 and pred_abs <= REORDER_PRED_ATOL,
+                f"{mode}: first loss {loss_rel} relative from none's, "
+                f"log-probs {pred_abs}")
+        erows["GCNFULLBATCH"] = {
+            "drop": 0.0, "losses": gcn_losses, "epoch_s": gcn_s,
+            "epoch_ms_median_after_first": statistics.median(gcn_s[1:]) * 1e3,
+            "first_loss_rel_diff_vs_none": loss_rel,
+            "predict_max_abs_diff_vs_none": pred_abs, "launches": got}
+        del eng, pred
+        cfg = dataclasses.replace(c.full_cfg("GATFULLBATCH", GAT_TRAIN_HEADS,
+                                             v, 0.5), reorder=mode,
+                                  epochs=REORDER_EPOCHS)
+        c.reset_counts()
+        rep = run_engine(cfg, ds)
+        got = {n: k for n, k in c.counts().items() if k}
+        want = {n: k * REORDER_EPOCHS for n, k in
+                c.per_epoch["GATFULLBATCH"].items()}
+        require(got == want, f"{mode} GATFULLBATCH launched {got}")
+        require((rep.vertex_order is None) == (mode == "none")
+                and (mode == "none"
+                     or np.array_equal(rep.vertex_order, order)),
+                f"{mode}: run_engine's vertex_order is not the order")
+        require(all(np.isfinite(rep.losses)), f"{mode} GAT {rep.losses}")
+        launches[f"{mode}_gatfullbatch"] = got
+        erows["GATFULLBATCH h4"] = {
+            "drop": 0.5, "losses": rep.losses, "epoch_s": rep.epoch_times,
+            "epoch_ms_median_after_first": statistics.median(
+                rep.epoch_times[1:]) * 1e3, "launches": got}
+        tr = build_trainer(c.dev_cfg, rds)
+        # K1 at this order's device-sampled batch shapes
+        sample = c.first_batch(tr)
+        for layer, f in ((0, TRAIN_LAYERS[1]), (1, TRAIN_LAYERS[2])):
+            blk = sample.blocks[layer]
+            nbr, bw, s_ = blk.nbr, blk.weight, blk.num_src_pad
+            xs = torch.randn(s_, f, generator=gen).to(dev)
+            gs = torch.randn(nbr.shape[0], f, generator=gen).to(dev)
+            errs = [c.rel_err(k1.gather_agg_fwd_cuda(xs, nbr, bw),
+                              agg.gather_aggregate_plain(xs, nbr, bw)),
+                    c.rel_err(k1.gather_agg_bwd_dx_cuda(gs, nbr, bw, xs),
+                              agg.gather_agg_bwd_dx_plain(gs, nbr, bw, s_,
+                                                          xs.dtype))]
+            require(max(errs) <= TOL["float32"],
+                    f"{mode} K1 layer {layer}: {errs}")
+            krows.append({"kernel": "gather_agg_fwd", "layer": layer,
+                          "D": nbr.shape[0], "K": nbr.shape[1], "S": s_,
+                          "F": f, "rel_err": errs, "ms": c.time_ms(
+                              lambda: k1.gather_agg_fwd_cuda(xs, nbr, bw),
+                              REORDER_REPS)})
+            krows.append({"kernel": "gather_agg_bwd_dx", "layer": layer,
+                          "F": f, "ms": c.time_ms(
+                              lambda: k1.gather_agg_bwd_dx_cuda(gs, nbr, bw,
+                                                                xs),
+                              REORDER_REPS)})
+            del xs, gs
+        del sample
+        kernel_rows[mode] = krows
+        c.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, edges = tr.train_epoch()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        got = {n: k for n, k in c.counts().items() if k}
+        require(np.isfinite(loss) and got == c.k1_expect(16, 0),
+                f"{mode} GSSAMPLEALLGPU: loss {loss}, launched {got}")
+        launches[f"{mode}_gssampleallgpu"] = got
+        med = statistics.median(tr.step_ms[1:])
+        erows["GSSAMPLEALLGPU"] = {
+            "drop": 0.5, "loss": loss, "epoch_s": epoch_s,
+            "step_ms_median_after_first": med, "edges": edges,
+            "sampled_edges_per_s_steady": edges / len(tr.step_ms)
+            / (med / 1e3), "launches": got}
+        engine_rows[mode] = erows
+        del tr, rds, old_to_new, perm_t, back_t
+    ref_rows.clear()
+    # the OGB data path: write, load, export, read back, train (the CLI)
+    ogb_dir = ROOT / "build" / "chip_smoke_ogb"
+    shutil.rmtree(ogb_dir, ignore_errors=True)
+    steps = {}
+    t0 = time.perf_counter()
+    made = planted_community_dataset(OGB_VERTICES, OGB_DEGREE, OGB_FEATS,
+                                     OGB_CLASSES, seed=0)
+    write_ogb_dir(ogb_dir / "ogbn-synth", made)
+    steps["write_ogb_dir_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_ogb_dir(str(ogb_dir / "ogbn-synth"), "ogbn-synth")
+    steps["load_ogb_dir_s"] = time.perf_counter() - t0
+    require(loaded.num_vertices == OGB_VERTICES
+            and np.array_equal(loaded.features, made.features)
+            and np.array_equal(loaded.labels, made.labels)
+            and np.array_equal(loaded.masks, made.masks),
+            "the OGB directory did not load back the dataset")
+    t0 = time.perf_counter()
+    base = export_nts_format(loaded, str(ogb_dir / "nts"), "ogbn-synth")
+    steps["export_nts_format_s"] = time.perf_counter() - t0
+    cfg_path = ogb_dir / "ogbn-synth.cfg"
+    cfg_path.write_text("\n".join([
+        "ALGORITHM:GCNSAMPLEALLGPU", f"VERTICES:{OGB_VERTICES}",
+        f"LAYERS:{OGB_FEATS}-128-{OGB_CLASSES}",
+        "FANOUT:" + "-".join(map(str, TRAIN_FANOUT)), "BATCH_SIZE:1024",
+        "EPOCHS:1", "LEARN_RATE:0.01", "DROP_RATE:0.5",
+        f"EDGE_FILE:{base}.{OGB_VERTICES}.edge.self",
+        f"FEATURE_FILE:{base}.featuretable",
+        f"LABEL_FILE:{base}.labeltable", f"MASK_FILE:{base}.mask"]) + "\n")
+    t0 = time.perf_counter()
+    back = load_from_config(load_cfg(str(cfg_path)))
+    steps["load_from_config_s"] = time.perf_counter() - t0
+    require(all(np.array_equal(getattr(back, k), getattr(loaded, k))
+                for k in ("edges", "features", "labels", "masks")),
+            "the NTS export did not read back the OGB dataset")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "sgnn_tpu_torch", str(cfg_path),
+         "--report-out", str(ogb_dir / "report.json")], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    steps["cli_train_s"] = time.perf_counter() - t0
+    require(out.returncode == 0, f"the OGB cfg's CLI run exited "
+                                 f"{out.returncode}: {out.stderr[-2000:]}")
+    with open(ogb_dir / "report.json") as f:
+        report = json.load(f)
+    require(len(report["losses"]) == 1 and np.isfinite(report["losses"][0]),
+            f"the OGB cfg trained {report['losses']}")
+    shutil.rmtree(ogb_dir, ignore_errors=True)
+    emit({"phase": "reorder", "graph": {"V": v, "E": c.adj.num_edges},
+          "orders": orders, "build": build_rows, "kernels": kernel_rows,
+          "kernel_reps": REORDER_REPS, "engines": engine_rows,
+          "ogb": {"V": OGB_VERTICES, "E": int(loaded.num_edges),
+                  "F": OGB_FEATS, "classes": OGB_CLASSES, "steps": steps,
+                  "cli_loss": report["losses"][0],
+                  "cli_epoch_s": report["epoch_times"][0],
+                  "cli_train_acc": report["train_acc"][0]},
+          "phase_s": time.perf_counter() - phase_t0})
+    return launches
 
 
 def main() -> int:
@@ -3035,7 +3705,24 @@ def main() -> int:
               "layers": layer_rows},
           "phase_s": time.perf_counter() - part_t0})
 
-    # ---- 21. kernels -------------------------------------------------------
+    # ---- 21-22. the multi-host drivers and the renumbered graph (main
+    # paths, counted) -----------------------------------------------------
+    ctx = types.SimpleNamespace(
+        dev=dev, ds=ds, adj=adj, time_ms=time_ms, rel_err=rel_err,
+        reset_counts=reset_counts, counts=counts, first_batch=first_batch,
+        full_cfg=full_cfg, per_epoch=per_epoch, k1_expect=k1_expect,
+        dev_cfg=dev_cfg, host_steps=host_steps)
+    new_paths = {"train_multihost": phase_train_multihost(ctx),
+                 "reorder": phase_reorder(ctx)}
+    for phase, paths in new_paths.items():
+        for kname in ("spmm_csr", "spmm_csr_bwd", "gat_aggregate",
+                      "gat_bwd_src", "gat_bwd_dst", "gather_agg_fwd",
+                      "gather_agg_bwd_dx", "block_transpose"):
+            require(any(got.get(kname, 0) for got in paths.values()),
+                    f"{phase} never launched {kname}")
+    del ctx
+
+    # ---- 23. kernels -------------------------------------------------------
     # one logprobs() pass's work: the F=128 and the F=41 f32 SpMMs
     per_pass = [t for t in timings if t["dtype"] == "float32"]
 
@@ -3174,6 +3861,12 @@ def main() -> int:
         **{kname: {"train_full": full_counts[kname],
                    "train_partition": part_counts[kname]}
            for kname in ("gat_bwd_src", "gat_bwd_dst")}}
+    # the multi-host drivers' and the renumbered graph's paths
+    for phase, paths in new_paths.items():
+        for path, got in paths.items():
+            for kname, n in got.items():
+                if kname in by_path:
+                    by_path[kname][f"{phase}_{path}"] = n
     for k in kernels:
         if k["name"] in by_path:
             k["launches_by_path"] = by_path[k["name"]]
@@ -3185,7 +3878,11 @@ def main() -> int:
                 **{path: got.get(k["name"], 0)
                    for path, got in cache_counts.items()},
                 **{f"dp_{path}": got.get(k["name"], 0)
-                   for path, got in dp_counts.items()}}
+                   for path, got in dp_counts.items()},
+                **{f"{phase}_{path}": got.get(k["name"], 0)
+                   for phase, paths in new_paths.items()
+                   for path, got in paths.items()
+                   if got.get(k["name"], 0)}}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,15 +8,21 @@ plain versions on the CPU instead (there is no other way to the CPU).
 
 Exit codes, as the JAX CLI's: 0 on success; 1 when `--infer` finds no
 checkpoint, when training diverges under `--checkpoint-dir` (the message
-names the last good checkpoint), and when the cfg asks for what the port
-does not run yet (the message names its ROADMAP item); 2 for bad
-arguments.  Under `--checkpoint-dir` the run's report covers the epochs
-this call trained.
+names the last good checkpoint), and when the cfg asks for a layout the
+port does not run (a mixed data × graph group); 2 for bad arguments.
+Under `--checkpoint-dir` the run's report covers the epochs this call
+trained.
 
 The *MULTI engines train data-parallel: on a one-rank group by default,
 on N ranks under `torchrun --nproc-per-node N -m sgnn_tpu_torch cfg`
-(one card a rank); rank 0 writes the checkpoints and the report.  The
-multi-host flags (--coordinator/--nprocs/--pid) are item 6c.
+(one card a rank); rank 0 writes the checkpoints and the report.  Across
+hosts, `--coordinator host:port --nprocs N --pid P` on every process
+joins the N ranks through a TCP store at the coordinator
+(parallel/multihost.py) and dispatches as the JAX CLI does: a *FULLBATCH
+engine to the vertex-partitioned driver, an engine that samples on the
+device to the device-sampled data-parallel one (SHARD_FEATURES honoured),
+any other to the host-sampled one; it logs the final loss.  `--nprocs`
+and `--pid` without `--coordinator` are ignored, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -25,10 +31,6 @@ import argparse
 import contextlib
 import json
 import sys
-
-MULTIHOST_NOT_PORTED = (
-    "multi-host training (--coordinator/--nprocs/--pid) is not ported yet: "
-    "ROADMAP Queue 1 item 6 (6c; one host's ranks run under torchrun)")
 
 
 def main(argv=None) -> int:
@@ -50,10 +52,14 @@ def main(argv=None) -> int:
     ap.add_argument("--algorithm", default=None,
                     help="override the cfg ALGORITHM string")
     ap.add_argument("--coordinator", default=None,
-                    help="multi-host training: not ported yet (ROADMAP "
-                         "Queue 1 item 6)")
-    ap.add_argument("--nprocs", type=int, default=None)
-    ap.add_argument("--pid", type=int, default=None)
+                    help="multi-host training: the host:port of the TCP "
+                         "store rank 0 hosts (launch one process a card "
+                         "with --nprocs/--pid; reference MPI bootstrap, "
+                         "dep/gemini/mpi.hpp:51)")
+    ap.add_argument("--nprocs", type=int, default=None,
+                    help="with --coordinator: the number of processes")
+    ap.add_argument("--pid", type=int, default=None,
+                    help="with --coordinator: this process's rank")
     ap.add_argument("--infer", metavar="CKPT_DIR", default=None,
                     help="pure serving: restore trained params from "
                          "CKPT_DIR (no training) and run exact whole-graph "
@@ -80,10 +86,6 @@ def main(argv=None) -> int:
     from .utils.logging import get_logger
 
     log = get_logger("sgnn.cli")
-    if (args.coordinator is not None or args.nprocs is not None
-            or args.pid is not None):
-        log.error("%s", MULTIHOST_NOT_PORTED)
-        return 1
     cfg = load_cfg(args.config)
     if args.algorithm:
         cfg.algorithm = args.algorithm
@@ -122,6 +124,8 @@ def _run(args, cfg, ds, log, device) -> int:
     from .train.inference import exact_accuracy, layerwise_inference
 
     spec = engine_from_config(cfg)
+    if args.coordinator:
+        return _run_multihost(args, cfg, ds, log, spec, device)
     if args.infer:
         # pure serving: restore params from a checkpoint and run exact
         # inference — the train→checkpoint→serve workflow
@@ -211,6 +215,31 @@ def _run(args, cfg, ds, log, device) -> int:
         with open(args.report_out, "w") as f:
             json.dump(rec, f, indent=1)
         log.info("wrote run report to %s", args.report_out)
+    return 0
+
+
+def _run_multihost(args, cfg, ds, log, spec, device) -> int:
+    """Join the ranks at the coordinator and train with the driver the
+    engine takes (sgnn_tpu/__main__.py:101-131)."""
+    from .parallel.multihost import (
+        initialize_distributed, run_multihost_device_dp_epochs,
+        run_multihost_dp_epochs, run_multihost_fullbatch_epochs,
+    )
+
+    initialize_distributed(args.coordinator, args.nprocs, args.pid,
+                           device=device)
+    if spec.fullbatch:
+        losses = run_multihost_fullbatch_epochs(
+            cfg, ds, epochs=cfg.epochs, family=spec.family, halo=cfg.halo,
+            weight_kind=spec.weight_kind, device=device)
+    elif spec.device_sampling:
+        losses = run_multihost_device_dp_epochs(
+            cfg, ds, epochs=cfg.epochs, family=spec.family,
+            shard_features=cfg.shard_features, device=device)
+    else:
+        losses = run_multihost_dp_epochs(cfg, ds, epochs=cfg.epochs,
+                                         family=spec.family, device=device)
+    log.info("multihost final loss: %.5f", losses[-1])
     return 0
 
 

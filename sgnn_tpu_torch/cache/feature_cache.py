@@ -80,6 +80,28 @@ class FeatureCache:
         use_hot = (slots >= 0) & src_valid
         return torch.where(use_hot[:, None], hot, x0_cold)
 
+    def gather_host_cold(self, features: np.ndarray, srcs: np.ndarray,
+                         src_valid: np.ndarray) -> Tuple[np.ndarray,
+                                                         np.ndarray]:
+        """Host side, uncompacted: (x0_cold [S, F], is_cold [S] bool), the
+        cold rows gathered and the cached ones zeros (`merge_device` then
+        overlays them); hits and misses counted as the reference's
+        total_sample_num / total_cache_hit (cuda/ntsCUDA.hpp:182)."""
+        slots = self.slot_map[np.maximum(srcs, 0)]
+        cold = (slots < 0) & src_valid
+        x0 = np.zeros((srcs.shape[0], features.shape[1]), features.dtype)
+        x0[cold] = features[srcs[cold]]
+        ncold = int(cold.sum())
+        self.misses += ncold
+        self.hits += int(src_valid.sum()) - ncold
+        return x0, cold
+
+    @property
+    def hit_rate(self) -> float:
+        """Hits over lookups so far (0 before any)."""
+        tot = self.hits + self.misses
+        return self.hits / tot if tot else 0.0
+
     # ----------------------------------------------- compacted cold path
     def gather_cold_compact(self, features: np.ndarray, srcs: np.ndarray,
                             src_valid: np.ndarray) -> Tuple[np.ndarray,

@@ -40,6 +40,13 @@ def read_edge_binary(path: str, num_vertices: Optional[int] = None) -> np.ndarra
     return edges
 
 
+def write_edge_binary(path: str, edges: np.ndarray) -> None:
+    """Write [E, 2] (src, dst) pairs as little-endian uint32 words, the
+    format `read_edge_binary` reads."""
+    with open(path, "wb") as f:
+        f.write(np.asarray(edges, dtype=np.uint32).astype("<u4").tobytes())
+
+
 def read_feature_table(path: str, num_vertices: int, feature_dim: int) -> np.ndarray:
     """Read `id f0 ... f_{D-1}` lines into a dense [V, D] float32 matrix.
 

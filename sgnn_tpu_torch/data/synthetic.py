@@ -51,6 +51,39 @@ def random_graph_dataset(
     return _attach_random_payload(ds, feature_dim, num_classes, rng)
 
 
+def powerlaw_graph_dataset(
+    num_vertices: int,
+    avg_degree: int,
+    feature_dim: int,
+    num_classes: int,
+    alpha: float = 0.8,
+    seed: int = 0,
+    self_loops: bool = True,
+    name: str = "synthetic-powerlaw",
+) -> Dataset:
+    """Digraph with Zipf-skewed endpoints: a small vertex set is "hot"
+    (the regime of NeutronOrch's hotness-aware cache, reference
+    core/ntsBaseOp.hpp:409 preSample).  Half the edges are mirrored so the
+    hubs are hot on both sides."""
+    rng = np.random.default_rng(seed)
+    e = num_vertices * avg_degree
+    # Zipf-ish sampling via inverse-CDF on ranks
+    u = rng.random(e)
+    ranks = np.floor(num_vertices * u ** (1.0 / (1.0 - alpha))).astype(np.int64)
+    ranks = np.clip(ranks, 0, num_vertices - 1)
+    # ranks → ids through a permutation: the hot vertices spread over ids
+    perm = rng.permutation(num_vertices)
+    src = perm[ranks]
+    dst = rng.integers(0, num_vertices, size=e, dtype=np.int64)
+    half = e // 2
+    src[:half], dst[:half] = dst[:half].copy(), src[:half].copy()
+    edges = np.stack([src, dst], axis=1).astype(np.int32)
+    ds = Dataset(num_vertices=num_vertices, edges=edges, name=name)
+    if self_loops:
+        ds = ds.add_self_loops()
+    return _attach_random_payload(ds, feature_dim, num_classes, rng)
+
+
 def planted_community_dataset(
     num_vertices: int,
     avg_degree: int,

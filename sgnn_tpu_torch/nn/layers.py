@@ -1,12 +1,14 @@
-"""Parameter initialisation.
+"""Parameter initialisation and the bias-free linear layer.
 
 Reference: Parameter (core/NtsScheduler.hpp:680) holds one weight matrix per
-layer, xavier_uniform-initialised (NtsScheduler.hpp:733, gain 1.0).
+layer, xavier_uniform-initialised (NtsScheduler.hpp:733, gain 1.0), and
+its forward is x·W.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -22,3 +24,20 @@ def xavier_uniform_init(
     a = gain * math.sqrt(6.0 / (in_dim + out_dim))
     out = torch.empty((in_dim, out_dim), dtype=dtype, device=generator.device)
     return out.uniform_(-a, a, generator=generator)
+
+
+class Dense(NamedTuple):
+    """A bias-free linear layer (reference Parameter::forward = x·W): a
+    plain value holding its [in, out] weight, as the JAX package's."""
+
+    w: torch.Tensor
+
+    @staticmethod
+    def init(generator: torch.Generator, in_dim: int, out_dim: int,
+             dtype: torch.dtype = torch.float32) -> "Dense":
+        return Dense(w=xavier_uniform_init(generator, in_dim, out_dim,
+                                           dtype=dtype))
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """x·W in x's dtype."""
+        return x @ self.w.to(x.dtype)

@@ -13,6 +13,12 @@ The gradient follows JAX's scatter-extremal rule (the VJP of
 edges whose message equals the extreme (a tie shares it), and a row with
 no edges passes none.  Forward and backward walk the edges in chunks of
 PLAIN_CHUNK_EDGES, bounding the [chunk, F] temporaries.
+
+`gather_min` / `gather_max` are the same reductions over a sampled block's
+dense [D, K] slots (`nbr`, `edge_mask`), and `edge_view` is its [D, K, F]
+edge-major view (reference ntsEdgeTensor, NtsEdgeTensor.hpp:22): the JAX
+package's `sgnn_tpu/ops/reductions.py:23-43,122`, torch ops whose autograd
+splits a tie's cotangent evenly, as jnp.min/max's does.
 """
 
 from __future__ import annotations
@@ -77,3 +83,33 @@ def segment_extreme(x: torch.Tensor, rowptr: torch.Tensor, col: torch.Tensor,
         raise ValueError(f"segment_extreme: x must be a 2-D float tensor, "
                          f"got {x.dtype} {tuple(x.shape)}")
     return SegmentExtreme.apply(x, rowptr, col, kind)
+
+
+def gather_min(x_src: torch.Tensor, nbr: torch.Tensor,
+               edge_mask: torch.Tensor) -> torch.Tensor:
+    """out[d] = min over valid slots k of x_src[nbr[d, k]]; a row with no
+    valid slot is 0."""
+    return _gather_extreme(x_src, nbr, edge_mask, "min")
+
+
+def gather_max(x_src: torch.Tensor, nbr: torch.Tensor,
+               edge_mask: torch.Tensor) -> torch.Tensor:
+    """out[d] = max over valid slots k of x_src[nbr[d, k]]; a row with no
+    valid slot is 0."""
+    return _gather_extreme(x_src, nbr, edge_mask, "max")
+
+
+def _gather_extreme(x_src, nbr, edge_mask, kind):
+    gathered = edge_view(x_src, nbr)                       # [D, K, F]
+    fin = torch.finfo(x_src.dtype)
+    fill = torch.tensor(fin.max if kind == "min" else fin.min,
+                        dtype=x_src.dtype, device=x_src.device)
+    masked = torch.where(edge_mask[:, :, None], gathered, fill)
+    out = (torch.amin if kind == "min" else torch.amax)(masked, dim=1)
+    return torch.where(edge_mask.any(dim=1)[:, None], out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def edge_view(x_src: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """The [D, K, F] edge-major view of the source rows: x_src[nbr]."""
+    return x_src[nbr.long()]

@@ -112,15 +112,18 @@ def unique_inverse(ids: np.ndarray):
 def csr_transpose(rowptr: np.ndarray, col: np.ndarray, w: np.ndarray,
                   num_src: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The same edges as a CSR keyed by source, on the host: `(rowptr_t
-    [num_src+1] int64, col_t [E] int32 destinations, w_t [E] f32)`.  A
-    stable argsort by source keeps each source's edges in ascending
-    destination order, as `sgnn_tpu/train/fullbatch.py::csr_order` (whose
-    native counting sort the port leaves for ROADMAP Queue 1 item 7)."""
+    [num_src+1] int64, col_t [E] int32 destinations, w_t [E] f32)`.  The
+    native library's stable counting sort by source
+    (`sampler.native.stable_argsort`, bit-identical to `np.argsort(col,
+    kind="stable")`) keeps each source's edges in ascending destination
+    order, as `sgnn_tpu/train/fullbatch.py::csr_order`."""
+    from ..sampler.native import stable_argsort
+
     rowptr = np.asarray(rowptr, np.int64)
     col = np.asarray(col)
     rows = np.repeat(np.arange(rowptr.size - 1, dtype=np.int32),
                      np.diff(rowptr))
-    perm = np.argsort(col, kind="stable")
+    perm = stable_argsort(col, num_src)
     rowptr_t = np.zeros(num_src + 1, np.int64)
     np.cumsum(np.bincount(col, minlength=num_src), out=rowptr_t[1:])
     return rowptr_t, rows[perm], np.asarray(w, np.float32)[perm]

@@ -15,7 +15,8 @@ picks the device, and a rank without a card raises there instead of
 falling back to the CPU.
 
 `make_group` joins, in this order:
-  1. an already initialised default group (a launcher or a test made it);
+  1. an already initialised default group (a launcher, a test or
+     `parallel/multihost.initialize_distributed` made it);
   2. torchrun's environment (WORLD_SIZE/RANK/LOCAL_RANK): `env://`, one
      card a rank, `cuda:{LOCAL_RANK}`;
   3. otherwise a one-rank group over an in-process `HashStore` (no TCP
@@ -133,7 +134,10 @@ class DataGroup:
         return t
 
     def barrier(self) -> None:
-        dist.barrier()
+        if self.backend == "nccl":
+            dist.barrier(device_ids=[self.device.index])
+        else:
+            dist.barrier()
 
     def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """The gradient TOTAL over the ranks, the JAX package's `psum_grads`
@@ -190,6 +194,9 @@ def make_group(device=None, graph: int = 1) -> DataGroup:
         if backend != backend_for(dev):
             raise ValueError(f"the initialised {backend} group does not "
                              f"serve a {dev.type} rank")
+        if dev.type == "cuda" and dev.index is None:
+            # the card the process joined on (multihost.rank_device)
+            dev = torch.device("cuda", torch.cuda.current_device())
     elif "WORLD_SIZE" in os.environ and "RANK" in os.environ:
         if dev.type == "cuda":
             dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))

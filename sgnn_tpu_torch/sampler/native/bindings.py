@@ -128,6 +128,43 @@ def build_csc(edges: np.ndarray, num_vertices: int):
     return indptr, indices, out_degree
 
 
+
+def stable_argsort(keys: np.ndarray, key_range: int) -> np.ndarray:
+    """Stable argsort of int32 keys in [0, key_range): an OpenMP counting
+    sort, [n] int32, bit-identical to `np.argsort(keys, kind="stable")`
+    (the transposed CSR of a whole-graph build, ops/segment.csr_transpose).
+    A key outside the range raises ValueError."""
+    k = np.ascontiguousarray(keys, dtype=np.int32)
+    n = int(k.shape[0])
+    if n and (int(k.max()) >= key_range or int(k.min()) < 0):
+        raise ValueError(f"key out of range [0, {key_range})")
+    perm = np.empty(n, dtype=np.int32)
+    load_library().sgnn_stable_argsort(_ptr(k, ctypes.c_int32), n, key_range,
+                                       _ptr(perm, ctypes.c_int32))
+    return perm
+
+
+def transpose_csc(indptr: np.ndarray, indices: np.ndarray,
+                  num_vertices: int):
+    """The CSC keyed by source: (indptr_t [V+1] int64, indices_t [E] int32
+    destinations), bit-identical to `build_csc` over the reversed edge
+    list, which it never materialises."""
+    ip = np.ascontiguousarray(indptr, dtype=np.int64)
+    ix = np.ascontiguousarray(indices, dtype=np.int32)
+    n_edges = int(ix.shape[0])
+    if ip.shape != (num_vertices + 1,) or (n_edges and int(ip[-1]) != n_edges):
+        raise ValueError(f"indptr must be [{num_vertices + 1}] ending at "
+                         f"{n_edges}")
+    if n_edges and (int(ix.max()) >= num_vertices or int(ix.min()) < 0):
+        raise ValueError(f"source id out of range [0, {num_vertices})")
+    indptr_t = np.empty(num_vertices + 1, dtype=np.int64)
+    indices_t = np.empty(n_edges, dtype=np.int32)
+    load_library().sgnn_csc_transpose(
+        _ptr(ip, ctypes.c_int64), _ptr(ix, ctypes.c_int32), num_vertices,
+        n_edges, _ptr(indptr_t, ctypes.c_int64),
+        _ptr(indices_t, ctypes.c_int32))
+    return indptr_t, indices_t
+
 _MODE = {  # (WeightKind.value, degree_mode) → sgnn_weights mode enum
     ("gcn", "sampled"): 0,
     ("mean", "sampled"): 1,

@@ -64,6 +64,9 @@ def load_library() -> ctypes.CDLL:
         "sgnn_num_threads": ([], ctypes.c_int),
         "sgnn_gather_rows": ([p_u8, c_i64, p_i32, c_i64, p_u8, p_u8], None),
         "sgnn_csc_build": ([p_i32, c_i64, c_i64, p_i64, p_i32, p_i32], None),
+        "sgnn_stable_argsort": ([p_i32, c_i64, c_i64, p_i32], None),
+        "sgnn_csc_transpose": ([p_i64, p_i32, c_i64, c_i64, p_i64, p_i32],
+                               None),
     }
     for name, (args, res) in sigs.items():
         fn = getattr(lib, name)

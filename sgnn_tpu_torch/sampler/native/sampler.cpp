@@ -5,8 +5,7 @@
 // without-replacement draw of edge positions, bitmap dedup of sources,
 // local reindexing — OpenMP-parallel, exposed through a C ABI consumed via
 // ctypes (sgnn_tpu_torch/sampler/native/bindings.py).  The PyTorch port's own
-// copy of sgnn_tpu/sampler/native/sampler.cpp, less the argsort and CSC
-// transpose helpers that only the whole-graph paths use.
+// copy of sgnn_tpu/sampler/native/sampler.cpp.
 //
 // Differences from the reference (deliberate):
 //  - exact without-replacement uses Floyd's algorithm instead of the
@@ -269,6 +268,56 @@ void sgnn_weights(const int32_t* nbr_local, const uint8_t* valid,
   delete[] out_counts;
 }
 
+// Stable parallel argsort of int32 keys in [0, key_range): the same
+// per-(thread, key) cursor counting sort as sgnn_csc_build below, with the
+// payload being each element's position.  Output is bit-identical to
+// numpy's argsort(keys, kind="stable").  Used for the static CSR-order
+// permutations that let whole-graph SpMM backward scatters run as sorted
+// segment sums (reference csc_to_csr, core/coocsc.hpp:82).
+void sgnn_stable_argsort(const int32_t* keys, int64_t n, int64_t key_range,
+                         int32_t* perm) {
+#if defined(_OPENMP)
+  int nthreads = omp_get_max_threads();
+#else
+  int nthreads = 1;
+#endif
+  const int64_t budget = (int64_t)256 << 20;
+  while (nthreads > 1 &&
+         (int64_t)nthreads * key_range * (int64_t)sizeof(int64_t) > budget)
+    --nthreads;
+  int64_t* cursor = new int64_t[(size_t)key_range * nthreads]();
+  const int64_t chunk = (n + nthreads - 1) / nthreads;
+#pragma omp parallel num_threads(nthreads)
+  {
+#if defined(_OPENMP)
+    const int tid = omp_get_thread_num();
+#else
+    const int tid = 0;
+#endif
+    int64_t* cnt = cursor + (size_t)key_range * tid;
+    const int64_t lo = tid * chunk;
+    const int64_t hi = lo + chunk < n ? lo + chunk : n;
+    for (int64_t e = lo; e < hi; ++e) cnt[keys[e]] += 1;
+#pragma omp barrier
+#pragma omp single
+    {
+      int64_t run = 0;
+      for (int64_t k = 0; k < key_range; ++k) {
+        for (int t = 0; t < nthreads; ++t) {
+          int64_t* c = cursor + (size_t)key_range * t + k;
+          const int64_t cn = *c;
+          *c = run;
+          run += cn;
+        }
+      }
+    }  // implicit barrier
+    for (int64_t e = lo; e < hi; ++e) {
+      perm[cnt[keys[e]]++] = static_cast<int32_t>(e);
+    }
+  }
+  delete[] cursor;
+}
+
 // Stable parallel CSC build from an interleaved COO edge list
 // (src = edges[2e], dst = edges[2e+1]).  Plays the role of the reference's
 // graph-builder CSC construction (Graph::load_directed per-socket CSC
@@ -339,6 +388,70 @@ void sgnn_csc_build(const int32_t* edges, int64_t n_edges,
       for (int t = 0; t < nthreads; ++t)
         acc += cursor[(size_t)num_vertices * t + v];
       out_degree[v] = static_cast<int32_t>(acc);
+    }
+  }
+  delete[] cursor;
+}
+
+// Transpose a CSC in place of the reversed-edge-list rebuild (reference
+// Graph::transpose / generate_backward_structure, core/graph.hpp:1115/:4332).
+// Same stable counting-sort scheme as sgnn_csc_build, keyed by the source
+// ids (indices); the payload — each edge's destination column — is derived
+// by walking indptr alongside the edge chunk, so the [E, 2] reversed edge
+// list is never materialised.  Output is bit-identical to
+// sgnn_csc_build(stack([dst_of_edge, indices]), ...).
+void sgnn_csc_transpose(const int64_t* indptr, const int32_t* indices,
+                        int64_t num_vertices, int64_t n_edges,
+                        int64_t* indptr_t, int32_t* indices_t) {
+#if defined(_OPENMP)
+  int nthreads = omp_get_max_threads();
+#else
+  int nthreads = 1;
+#endif
+  const int64_t budget = (int64_t)256 << 20;
+  while (nthreads > 1 &&
+         (int64_t)nthreads * num_vertices * (int64_t)sizeof(int64_t) > budget)
+    --nthreads;
+  int64_t* cursor = new int64_t[(size_t)num_vertices * nthreads]();
+  const int64_t chunk = (n_edges + nthreads - 1) / nthreads;
+#pragma omp parallel num_threads(nthreads)
+  {
+#if defined(_OPENMP)
+    const int tid = omp_get_thread_num();
+#else
+    const int tid = 0;
+#endif
+    int64_t* cnt = cursor + (size_t)num_vertices * tid;
+    const int64_t lo = tid * chunk;
+    const int64_t hi = lo + chunk < n_edges ? lo + chunk : n_edges;
+    for (int64_t e = lo; e < hi; ++e) cnt[indices[e]] += 1;
+#pragma omp barrier
+#pragma omp single
+    {
+      int64_t run = 0;
+      indptr_t[0] = 0;
+      for (int64_t v = 0; v < num_vertices; ++v) {
+        for (int t = 0; t < nthreads; ++t) {
+          int64_t* c = cursor + (size_t)num_vertices * t + v;
+          const int64_t n = *c;
+          *c = run;
+          run += n;
+        }
+        indptr_t[v + 1] = run;
+      }
+    }  // implicit barrier
+    if (lo < hi) {
+      // column owning edge `lo`: largest d with indptr[d] <= lo
+      int64_t d_lo = 0, d_hi = num_vertices;  // invariant: indptr[d_lo]<=lo
+      while (d_lo < d_hi) {
+        const int64_t mid = d_lo + (d_hi - d_lo + 1) / 2;
+        if (indptr[mid] <= lo) d_lo = mid; else d_hi = mid - 1;
+      }
+      int64_t d = d_lo;
+      for (int64_t e = lo; e < hi; ++e) {
+        while (indptr[d + 1] <= e) ++d;
+        indices_t[cnt[indices[e]]++] = static_cast<int32_t>(d);
+      }
     }
   }
   delete[] cursor;

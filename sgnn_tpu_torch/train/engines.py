@@ -10,8 +10,8 @@ GSSAMPLECACHE, GSSAMPLEPDCACHE and GATSAMPLEPDCACHE (sampled with the
 hot-vertex cache), GCNSAMPLEALLMULTI, GATSAMPLEALLMULTI, GCNSAMPLEPCMULTI,
 GSSAMPLEPCMULTI and GATSAMPLEPCMULTI (data-parallel over
 `torch.distributed`, parallel/) and GCNFULLBATCH, GSFULLBATCH and
-GATFULLBATCH (whole graph, `FullBatchEngine`): all 17.  An option the port
-does not take yet raises NotImplementedError naming its ROADMAP item.
+GATFULLBATCH (whole graph, `FullBatchEngine`): all 17, each under every
+REORDER value (`run_engine` renumbers the graph first).
 
 Placement: *SAMPLESINGLE → bias-corrected Adam (CPU engines); *SAMPLEGPU →
 host sampler; *ALLGPU → device sampler; *PDCACHE / *CACHE → the device
@@ -104,14 +104,6 @@ def engine_from_config(cfg: RunConfig) -> EngineSpec:
 def resolve_degree_mode(cfg: RunConfig) -> str:
     """UP_DEGREE → degree source for edge weights (GraphSegment.cpp:273)."""
     return "sampled" if cfg.up_degree else "global"
-
-
-def _not_ported(spec: EngineSpec, cfg: RunConfig) -> Optional[str]:
-    """The ROADMAP item a configuration waits for, or None if the port
-    trains it."""
-    if (cfg.reorder or "none").lower() not in ("none", ""):
-        return "REORDER: graph/reorder.py (ROADMAP Queue 1 item 7)"
-    return None
 
 
 class FullBatchEngine:
@@ -228,9 +220,6 @@ def build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     advisor fires.  The *MULTI engines join this process's data-parallel
     group (`_build_multi`)."""
     spec = engine_from_config(cfg)
-    missing = _not_ported(spec, cfg)
-    if missing is not None:
-        raise NotImplementedError(missing)
     degree_mode = resolve_degree_mode(cfg)
     if spec.fullbatch:
         return FullBatchEngine(cfg, dataset, spec.family, spec.weight_kind,
@@ -351,11 +340,25 @@ def run_engine(cfg: RunConfig, dataset: Dataset,
                epochs: Optional[int] = None, device=None):
     """Build and run the trainer an ALGORITHM string names (main.cpp
     parity).  RUNS repeats the whole run with fresh state and returns the
-    last run's report."""
+    last run's report.
+
+    REORDER degree or bfs renumbers the vertices first (graph/reorder.py:
+    the order, then the remapped dataset, then the trainer, as
+    sgnn_tpu/train/engines.py:378-395); the report's per-vertex rows are
+    then in the new ids, and `report.vertex_order` (order[new_id] =
+    old_id) translates them back.  With none it is None."""
     n_runs = max(getattr(cfg, "runs", 1), 1)
+    mode = getattr(cfg, "reorder", "none")
+    order = None
+    if mode and mode.lower() not in ("none", ""):
+        from ..graph.reorder import apply_vertex_order, vertex_order
+
+        order = vertex_order(dataset, mode)
+        dataset, _ = apply_vertex_order(dataset, order)
     report = None
     for r in range(n_runs):
         report = build_trainer(cfg, dataset, device=device).run(epochs=epochs)
+        report.vertex_order = order
         if n_runs > 1:
             get_logger("sgnn.engine").info(
                 "run %d/%d: avg epoch %.4fs (TIME_SKIP=%d)",

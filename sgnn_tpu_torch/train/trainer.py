@@ -68,6 +68,10 @@ class TrainReport:
     # TIME_SKIP: the first `time_skip` epochs (start-up) are left out of
     # the average epoch time
     time_skip: int = 1
+    # REORDER: order[new_id] = old_id when `run_engine` renumbered the
+    # vertices (graph/reorder.py): row new_id of any per-vertex result
+    # belongs to the original vertex order[new_id]; None otherwise
+    vertex_order: Optional[np.ndarray] = None
 
     @property
     def avg_epoch_time(self) -> float:

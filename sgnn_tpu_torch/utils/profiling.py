@@ -8,14 +8,18 @@ sgnn_tpu/utils/profiling.py).
     use (`train/device_trainer.feature_capacity`,
     `train/inference.layerwise_inference`),
   - `device_memory_stats` — the card's memory in the JAX package's keys
-    (`cache/feature_cache.hbm_feature_capacity`).
+    (`cache/feature_cache.hbm_feature_capacity`), and `log_memory`, one
+    log line of what this process holds on the card,
+  - `Counters` — named monotonic counters (cache hits, sampled edges,
+    bytes moved) with a one-line summary (reference Cuda_Stream::total_*).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -69,3 +73,43 @@ def memory_budget(device: torch.device,
         free, _ = torch.cuda.mem_get_info(device)
         return free // 2
     return CPU_BUDGET_BYTES
+
+
+def log_memory(prefix: str = "", device=None) -> None:
+    """Log this process's bytes on the card (`torch.cuda.memory_stats`:
+    allocated now, at the peak, and reserved by the caching allocator)
+    beside the card's total.  `device=None` means CUDA and raises without
+    a card, as every entry point does; the CPU has nothing to log."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return
+    stats = torch.cuda.memory_stats(dev)
+    gib = float(1 << 30)
+    _, total = torch.cuda.mem_get_info(dev)
+    log.info("%scard memory: %.3f GiB allocated (peak %.3f), %.3f GiB "
+             "reserved, of %.3f GiB", prefix,
+             stats.get("allocated_bytes.all.current", 0) / gib,
+             stats.get("allocated_bytes.all.peak", 0) / gib,
+             stats.get("reserved_bytes.all.current", 0) / gib, total / gib)
+
+
+class Counters:
+    """Named monotonic counters (reference Cuda_Stream::total_* parity)."""
+
+    def __init__(self) -> None:
+        self._c: Dict[str, int] = collections.defaultdict(int)
+
+    def add(self, name: str, value: int = 1) -> None:
+        self._c[name] += int(value)
+
+    def get(self, name: str) -> int:
+        return self._c[name]
+
+    def ratio(self, num: str, den: str) -> float:
+        d = self._c[den]
+        return self._c[num] / d if d else 0.0
+
+    def summary(self) -> str:
+        return " | ".join(f"{k}={v}" for k, v in sorted(self._c.items()))

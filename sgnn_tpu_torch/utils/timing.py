@@ -19,6 +19,22 @@ from typing import Callable, Dict, Sequence
 import torch
 
 
+class Timer:
+    """Seconds on the host clock since construction or the last reset."""
+
+    def __init__(self) -> None:
+        self.t0 = time.perf_counter()
+
+    def elapsed(self) -> float:
+        return time.perf_counter() - self.t0
+
+    def reset(self) -> float:
+        """The seconds elapsed, restarting the count."""
+        now = time.perf_counter()
+        dt, self.t0 = now - self.t0, now
+        return dt
+
+
 class PhaseTimer:
     """Accumulate named phase durations: `with pt.phase("sample"): ...`."""
 

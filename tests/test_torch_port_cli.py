@@ -120,8 +120,13 @@ def test_cli_exact_eval_and_profile(tmp_path, cli_log):
 
 def test_cli_unported_items_exit_nonzero(tmp_path, cli_log):
     """The PD-cache cfg (item 5) and a *MULTI cfg (item 6a, a one-rank
-    group that the call makes and ends) train now; the multi-host flags
-    (item 6c) still exit 1 naming their item."""
+    group that the call makes and ends) train; so do the multi-host flags
+    (item 6c): `--coordinator` joins its one rank over TCP and trains with
+    the host-sampled driver (GCNSAMPLEGPU), logging the final loss, and
+    `--nprocs` or `--pid` alone are ignored, as in the JAX CLI.  Only bad
+    arguments exit nonzero."""
+    import socket
+
     import torch.distributed as dist
 
     pd = os.path.join(CONFIGS, "gcn_cora_sample.cfg")
@@ -135,10 +140,21 @@ def test_cli_unported_items_exit_nonzero(tmp_path, cli_log):
     assert not any("item" in r.getMessage() for r in cli_log.records)
     cli_log.clear()
     cfg = _cfg_file(tmp_path, "mh.cfg", "GCNSAMPLEGPU")
-    for flags in (["--coordinator", "localhost:1234"], ["--nprocs", "2"],
-                  ["--pid", "0"]):
-        assert main([cfg, "--cpu", *flags]) == 1
-    assert sum("item 6" in r.getMessage() for r in cli_log.records) == 3
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert main([cfg, "--cpu", "--coordinator", f"127.0.0.1:{port}",
+                 "--nprocs", "1", "--pid", "0"]) == 0
+    assert not dist.is_initialized()
+    assert sum(r.getMessage().startswith("multihost final loss")
+               for r in cli_log.records) == 1
+    cli_log.clear()
+    for flags in (["--nprocs", "2"], ["--pid", "0"]):
+        assert main([cfg, "--cpu", *flags]) == 0
+    assert sum(r.getMessage().startswith("final: train")
+               for r in cli_log.records) == 2
+    assert not any("multihost" in r.getMessage() or "item" in r.getMessage()
+                   for r in cli_log.records)
     with pytest.raises(SystemExit) as ei:
         main([cfg, "--epochs", "x"])
     assert ei.value.code == 2

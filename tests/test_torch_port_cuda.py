@@ -1330,3 +1330,74 @@ def test_one_rank_nccl_graph_group_matches_one_device(cuda_device, family,
         assert np.abs(trs[1].predict() - trs[0].predict()).max() <= 1e-5
     finally:
         dist.destroy_process_group()
+
+
+def test_one_rank_nccl_multihost_fullbatch_is_the_single_trainer(
+        cuda_device, tmp_path):
+    """`initialize_distributed` at a TCP coordinator joins a one-rank NCCL
+    group; the whole-graph driver on it (GCN, drop 0.5, 3 epochs) is bit
+    for bit the single-device FullBatchTrainer, and its checkpoint resumes
+    to the same parameters."""
+    import socket
+
+    import torch.distributed as dist
+
+    from sgnn_tpu_torch.parallel import multihost as mh
+
+    ds = random_graph_dataset(3000, 10, 48, 5, seed=7)
+    cfg = RunConfig(layer_sizes=[48, 16, 5], drop_rate=0.5, epochs=3,
+                    vertices=ds.num_vertices)
+    single = FullBatchTrainer(cfg, ds, device=cuda_device)
+    want = [single.train_epoch()[0] for _ in range(3)]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert mh.initialize_distributed(f"127.0.0.1:{port}", 1, 0) == (0, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        state = {}
+        before = spmm_csr_cuda.launches
+        got = mh.run_multihost_fullbatch_epochs(cfg, ds, state_out=state)
+        assert spmm_csr_cuda.launches - before == 12   # 4 an epoch
+        assert got == want
+        for a, b in zip(state["params"]["weights"], single.params.weights):
+            assert torch.equal(a, b.cpu())
+        mh.multihost_checkpoint_save(str(tmp_path), 3, state)
+        back = mh.multihost_checkpoint_restore(str(tmp_path))
+        more = mh.run_multihost_fullbatch_epochs(cfg, ds, epochs=1,
+                                                 resume_state=back)
+        assert more == [single.train_epoch()[0]]
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mode", ["degree", "bfs"])
+def test_reordered_k2_matches_plain(cuda_device, mode):
+    """K2's forward and backward over a renumbered power-law graph's CSR
+    and transpose against their plain versions, and the renumbered rows
+    mapped back against the original graph's kernel rows."""
+    from sgnn_tpu_torch.data.synthetic import powerlaw_graph_dataset
+    from sgnn_tpu_torch.graph import apply_vertex_order, vertex_order
+    from sgnn_tpu_torch.train.fullbatch import build_coo
+
+    ds = powerlaw_graph_dataset(20000, 12, 8, 4, seed=3)
+    order = vertex_order(ds, mode)
+    rds, old_to_new = apply_vertex_order(ds, order)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(ds.num_vertices, 64, generator=gen)
+    outs = []
+    for d, xd in ((ds, x), (rds, x[torch.from_numpy(order).long()])):
+        adj = Adjacency.from_edges(d.edges, d.num_vertices)
+        src, _, w = build_coo(adj, WeightKind.GCN)
+        v = d.num_vertices
+        csr = csr_from_numpy(adj.indptr, src, w, v, cuda_device)
+        csr_t = csr_from_numpy(*csr_transpose(adj.indptr, src, w, v), v,
+                               cuda_device)
+        xc = xd.to(cuda_device)
+        out = spmm_csr_cuda(xc, *csr)
+        dx = spmm_csr_bwd_cuda(xc, *csr_t)
+        torch.testing.assert_close(out, spmm_csr_plain(xc, *csr), **F32)
+        torch.testing.assert_close(dx, spmm_csr_plain(xc, *csr_t), **F32)
+        outs.append(out.cpu())
+    back = outs[1][torch.from_numpy(old_to_new).long()]
+    torch.testing.assert_close(back, outs[0], **F32)

@@ -599,13 +599,18 @@ def test_fullbatch_one_device_runs_the_single_device_program(tiny_ds, change):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(feature_dtype="int8"), "item 6"), (dict(reorder="degree"), "item 7"),
+    (dict(feature_dtype="int8"), "item 6"),
+    (dict(reorder="degree", drop_rate=0.0), "item 7"),
 ], ids=["int8", "reorder"])
 def test_fullbatch_unported_options_name_their_item(tiny_ds, change, item):
-    """REORDER waits for item 7.  FEATURE_DTYPE:int8 trains on one device
-    (parity in test_torch_port_quant.py) and, since item 6b, sharded: on a
-    one-rank graph group it trains int8 shards as the single device does
-    (2 ranks against JAX: test_torch_port_partition.py).  Checkpoints work
+    """Both options once waited for their item and train now.
+    FEATURE_DTYPE:int8 trains on one device (parity in
+    test_torch_port_quant.py) and, since item 6b, sharded: on a one-rank
+    graph group it trains int8 shards as the single device does (2 ranks
+    against JAX: test_torch_port_partition.py).  REORDER (item 7):
+    `run_engine` renumbers the graph first and reports the order; at drop
+    0 the first loss is the unrenumbered one up to summation order (JAX
+    parity: test_torch_port_remainder.py).  Checkpoints work
     (test_torch_port_checkpoint.py)."""
     cfg = RunConfig(algorithm="GCNFULLBATCH", layer_sizes=[32, 16, 5],
                     vertices=tiny_ds.num_vertices, **change)
@@ -622,8 +627,18 @@ def test_fullbatch_unported_options_name_their_item(tiny_ds, change, item):
         finally:
             torch.distributed.destroy_process_group()
     else:
-        with pytest.raises(NotImplementedError, match=item):
-            build_trainer(cfg, tiny_ds, device="cpu")
+        from sgnn_tpu_torch.graph import vertex_order
+
+        report = run_engine(cfg, tiny_ds, epochs=2, device="cpu")
+        np.testing.assert_array_equal(report.vertex_order,
+                                      vertex_order(tiny_ds, "degree"))
+        plain = run_engine(dataclasses.replace(cfg, reorder="none"), tiny_ds,
+                           epochs=2, device="cpu")
+        assert plain.vertex_order is None
+        np.testing.assert_allclose(report.losses[0], plain.losses[0],
+                                   rtol=RTOL)
+        assert isinstance(build_trainer(cfg, tiny_ds, device="cpu"),
+                          FullBatchEngine)
     tr = FullBatchTrainer(RunConfig(layer_sizes=[32, 16, 5]), tiny_ds,
                           device="cpu")
     state = tr.checkpoint_state()

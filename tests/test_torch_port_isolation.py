@@ -1,6 +1,7 @@
-"""Port isolation: sgnn_tpu_torch and chip_smoke.py import neither JAX nor
-the JAX package, every port module imports with both blocked, and the
-entry points run on CUDA unless the caller asks for the CPU."""
+"""Port isolation: sgnn_tpu_torch, chip_smoke.py, the port's scripts and
+its multi-host test worker import neither JAX nor the JAX package, every
+port module imports with both blocked, and the entry points run on CUDA
+unless the caller asks for the CPU."""
 
 import ast
 import dataclasses
@@ -33,7 +34,8 @@ from sgnn_tpu_torch.train.inference import (
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "sgnn_tpu_torch"
 FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "scripts").glob("torch_*.py")))
+         + sorted((ROOT / "scripts").glob("torch_*.py"))
+         + [ROOT / "tests" / "_torch_mh_worker.py"])
 
 
 def _imported_modules(path):
@@ -88,7 +90,9 @@ def test_every_port_module_imports_with_jax_blocked():
             "sgnn_tpu_torch.parallel", "sgnn_tpu_torch.parallel.mesh",
             "sgnn_tpu_torch.parallel.dp",
             "sgnn_tpu_torch.parallel.dp_device",
-            "sgnn_tpu_torch.parallel.sharded_features"} <= set(mods)
+            "sgnn_tpu_torch.parallel.sharded_features",
+            "sgnn_tpu_torch.parallel.multihost",
+            "sgnn_tpu_torch.graph.reorder", "sgnn_tpu_torch.data.ogb"} <= set(mods)
 
 
 def test_native_sampler_builds_inside_the_checkout():

@@ -144,13 +144,19 @@ def test_unported_engines_name_their_item(cora, algo):
     dict(feature_cache_rate=0.2, hbm_budget=3_000_000),
 ], ids=["pushdown", "advisor-route", "reorder", "int8", "feature-cache"])
 def test_unported_options_name_their_item(cora, change):
-    """REORDER still waits for item 7.  PUSHDOWN, ESTIMATOR_ADVISOR:route
-    (Cora's 1024-seed batches reach every vertex) and the partial feature
-    cache, with f32 or int8 rows, waited for item 5 and train now."""
+    """Each option once waited for its item and trains now.  REORDER (item
+    7): `run_engine` renumbers Cora by in-degree and reports the order.
+    PUSHDOWN, ESTIMATOR_ADVISOR:route (Cora's 1024-seed batches reach
+    every vertex) and the partial feature cache, with f32 or int8 rows,
+    waited for item 5."""
     cfg = _cfg(algorithm="GCNSAMPLEGPU", **change)
     if "reorder" in change:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            build_trainer(cfg, cora, device="cpu")
+        from sgnn_tpu_torch.graph import vertex_order
+
+        report = run_engine(cfg, cora, epochs=1, device="cpu")
+        np.testing.assert_array_equal(report.vertex_order,
+                                      vertex_order(cora, "degree"))
+        assert np.isfinite(report.losses[0]) and report.edges_per_epoch[0]
         return
     tr = build_trainer(cfg, cora, device="cpu")
     loss, _, edges = tr.train_epoch()
