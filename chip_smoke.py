@@ -25,13 +25,15 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
 3. kernel_k1 — K1's three kernels (`gather_agg_fwd`, `_bwd_dx`, `_bwd_dw`)
                against their plain versions at K in {1, 10, 25}, F in {7, 41,
                128, 602}, f32 and bf16, D not a multiple of 8, zero-weight
-               slots and hub sources of 10^4 slots each, forward and dx
+               slots and hub sources of 10^4 slots each, forward, dx and dw
                bit-identical on repeat; then at the two full-width training
                shapes (GraphSAGE 602-128-41, fanout 25-10, batch 10000: a
                device-sampled batch's blocks), each held to plain and timed
                beside plain, a library call and the bound, dx as called
                (its transpose, `block_transpose`, included) and the
-               transpose alone, bit-identical to its plain version;
+               transpose alone, bit-identical to its plain version; each
+               with its share of the bound, dw with its layout, registers
+               and local bytes;
 4. kernel_k3 — K3 (`gat_aggregate_cuda`) against `gat_aggregate_plain` on
                skewed random CSR graphs (hub rows of 6000 edges, rows with
                no edges, sources != destinations in one case) at (H, F) in
@@ -122,13 +124,15 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                shared memory and in device memory at T=2048 and in device
                memory at T=232,965 and 2^22 (E = 2^20), shuffle at the nine
                shapes, tile_spmm at configuration 0 and each bisect case,
-               gat_tile at the probe's tile and at 4096 tiles; the
-               deterministic ones bit-identical on repeat; then the path:
+               gat_tile at the probe's tile and at 4096 tiles; all
+               bit-identical on repeat, tile_spmm's scatter cases also bit
+               for bit `tile_spmm_ordered` (its order of sums); then the path:
                the three `scripts/torch_probe_*.py` timing runs from zeroed
                counts (CUDA-graph replays, their kernel runs counted), each
                kernel beside its plain version and one library call timed
-               the same way, the bound, and P-T's ns/edge beside K2
-               forward's;
+               the same way, the bound (P-T's also beside the slab-row
+               bytes a gather reads), P-T's sum kernel's registers and
+               local bytes, and P-T's ns/edge beside K2 forward's;
 15. serving_extras — on the same graph, GCN 602-128-41 (seed-0 weights)
                and GAT heads 4 (serving_gat's attention): int8 residency
                (`InferenceServer(dtype="int8")`): its feature bytes (a
@@ -1375,6 +1379,7 @@ def main() -> int:
                 dx = k1.gather_agg_bwd_dx_cuda(g, nbr, w, x)
                 dx_again = k1.gather_agg_bwd_dx_cuda(g, nbr, w, x)
                 dw = k1.gather_agg_bwd_dw_cuda(g, x, nbr)
+                dw_again = k1.gather_agg_bwd_dw_cuda(g, x, nbr)
                 torch.cuda.synchronize()
                 key = str(dt).removeprefix("torch.")
                 errs = {
@@ -1384,7 +1389,8 @@ def main() -> int:
                         g, nbr, w, s_chk, torch.float32)),
                     "dw": rel_err(dw, agg.gather_agg_bwd_dw_plain(g, x, nbr))}
                 k1_checks.append({"K": k, "F": feat, "dtype": key,
-                                  "rel_err": errs, "tol": TOL[key]})
+                                  "rel_err": errs, "tol": TOL[key],
+                                  "dw_layout": k1.dw_layout(g, x, k)})
                 for what, err in errs.items():
                     require(err <= TOL[key], f"K1 {what} vs plain K={k} "
                                              f"F={feat} {key}: {err}")
@@ -1392,6 +1398,8 @@ def main() -> int:
                         "K1 forward is not deterministic")
                 require(torch.equal(dx, dx_again),
                         "K1 dx is not deterministic")
+                require(torch.equal(dw, dw_again),
+                        "K1 dw is not deterministic")
 
     # the full-width training shapes: the blocks of one device-sampled
     # GSSAMPLEALLGPU batch (its own generator: the trainer's draws in
@@ -1471,17 +1479,21 @@ def main() -> int:
                                            f"training shape layer {layer}: "
                                            f"{err}")
             bound_s = max(once / hbm, flops / F32_FLOPS_PER_S)
+            ms = time_ms(fn, 20)
             k1_shapes.append({
                 "name": kname, "layer": layer, "D": d_, "K": k_, "S": s_,
                 "F": feat, "nnz": nnz, "dtype": "float32",
                 "max_abs_err": (got.float() - ref.float()).abs().max().item(),
                 "rel_err": err, "tol": TOL["float32"],
-                "ms": time_ms(fn, 20), "plain_ms": time_ms(plain, 3),
+                "ms": ms, "plain_ms": time_ms(plain, 3),
                 "library_ms": time_ms(lib, 20) if lib is not None else None,
                 "bound_ms": bound_s * 1e3,
                 "bound_by": ("bytes" if once / hbm >= flops / F32_FLOPS_PER_S
                              else "operations"),
-                "gather_bound_ms": gathered / hbm * 1e3})
+                "gather_bound_ms": gathered / hbm * 1e3,
+                "pct_of_bound": 100.0 * bound_s * 1e3 / ms,
+                **({"layout": k1.dw_layout(g, x, k_)}
+                   if kname == "gather_agg_bwd_dw" else {})})
             del got, ref
     del sample, fwd_csr, bwd_csr, pattern
     emit({"phase": "kernel_k1", "checks": k1_checks,
@@ -2435,13 +2447,18 @@ def main() -> int:
         got, again, ref = fn(*args), fn(*args), plain(*args)
         err = rel_err(got, ref)
         require(err <= PROBE_F32_TOL, f"tile_spmm {case}: rel err {err}")
-        if fn is pr.tile_gather:   # plain stores: deterministic
-            require(torch.equal(got, again) and torch.equal(got, ref),
-                    f"tile_gather {case} not bit-identical")
+        require(torch.equal(got, again), f"tile_spmm {case} is not "
+                                         f"bit-identical on repeat")
+        if fn is pr.tile_gather:   # plain stores
+            require(torch.equal(got, ref),
+                    f"tile_gather {case} not bit-identical to plain")
+        else:   # sorted by row, each row summed in (step, edge) order
+            require(torch.equal(got, pr.tile_spmm_ordered(*args)),
+                    f"tile_spmm {case} is not its ordered sum bit for bit")
         probe_checks["tile_spmm"].append({
             "case": case, "rel_err": err,
             "max_abs_err": (got - ref).abs().max().item(),
-            "repeat_bit_identical": torch.equal(got, again)})
+            "repeat_bit_identical": True})
     for n_tiles in (1, pr.GAT_TILES):
         g_args = gat_mod.tile_args(dev, n_tiles)
         (out, z), again = pr.gat_tile(*g_args), pr.gat_tile(*g_args)
@@ -2535,11 +2552,15 @@ def main() -> int:
                       + (e_n * 2 if t_w is not None else 0)
                       + t_r0.numel() * 4 + d_blk * feat * 4)
             ops = e_n * feat * (2 if t_w is not None else 1)
+        bound = probe_bound(nbytes, ops)
         tile_rows.append({
             "case": case, **rec, "max_abs_err": chk["max_abs_err"],
             "plain_ms": cuda_graph_ms(lambda: plain(*args), tile_mod.REPS),
-            "library_ms": cuda_graph_ms(lib, tile_mod.REPS),
-            **probe_bound(nbytes, ops)})
+            "library_ms": cuda_graph_ms(lib, tile_mod.REPS), **bound,
+            "pct_of_bound": 100.0 * bound["bound_ms"] / rec["ms"],
+            # any design reads a slab row an edge (from L1/L2)
+            "slab_row_bytes": e_n * feat * 2,
+            "gather_bound_ms": (nbytes + e_n * feat * 2) / hbm * 1e3})
     g_slab, g_ts, g_td, g_src, g_dst, _ = g_args   # the GAT_TILES tiles
     live_d = int((g_dst < pr.GAT_W).sum())
     live_both = int(((g_dst < pr.GAT_W) & (g_src < pr.GAT_S_BLK)).sum())
@@ -2563,6 +2584,7 @@ def main() -> int:
           "gather_sum": gather_rows, "shuffle": shuffle_rows,
           "tile_spmm": tile_rows, "gat_tile": gat_rows,
           "tile_spmm_ns_per_edge": p_tile[0]["ns_per_edge"],
+          "tile_sum_resources": probe_k.tile_sum_resources(),
           "k2_fwd_ns_per_edge": k2_f128["ms"] * 1e6 / k2_f128["E"],
           "launches": probe_counts,
           "phase_s": time.perf_counter() - probe_t0,
@@ -3731,14 +3753,16 @@ def main() -> int:
         return None if None in vals else sum(vals)
 
     def line(name, rows, source, replaces, n, what):
+        ms, bound_ms = total(rows, "ms"), total(rows, "bound_ms")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n,
                 "max_abs_err": max(t["max_abs_err"] for t in rows),
-                "ms": total(rows, "ms"), "plain_ms": total(rows, "plain_ms"),
-                "bound_ms": total(rows, "bound_ms"),
+                "ms": ms, "plain_ms": total(rows, "plain_ms"),
+                "bound_ms": bound_ms,
                 "bound_by": ("bytes" if all(t["bound_by"] == "bytes"
                                             for t in rows) else "operations"),
-                "library_ms": total(rows, "library_ms"), "shapes": what}
+                "library_ms": total(rows, "library_ms"),
+                "pct_of_bound": 100.0 * bound_ms / ms, "shapes": what}
 
     step_shapes = ("one training step's two layers: (D, K, S, F) = " + ", ".join(
         f"({t['D']}, {t['K']}, {t['S']}, {t['F']})" for t in k1_shapes
@@ -3768,6 +3792,9 @@ def main() -> int:
                                 "csr_sum.cuh" if kname == "gather_agg_bwd_dx"
                                 else "gather_agg.cu"), replaces, n,
                             step_shapes + note))
+        if kname == "gather_agg_bwd_dw":
+            kernels[-1]["layouts"] = [t["layout"] for t in k1_shapes
+                                      if t["name"] == kname]
     # one single-head f32 GAT logprobs pass: F=128 + F=41, both at H=1
     k3_pass = [t for t in k3_shapes
                if t["dtype"] == "float32" and t["H"] == 1]
@@ -3821,7 +3848,11 @@ def main() -> int:
              "(scripts/probe_onehot_parts.py:55,:93,:146; "
              "probe_onehot_parts2.py:57,:83,:110) at 8192 edges each; "
              "library: torch.sparse.mm (index_select for c1); all "
-             "columns by CUDA-graph replay"),
+             "columns by CUDA-graph replay; gather_bound_ms counts a slab "
+             "row read an edge, as any design on this card reads it; "
+             "launches counts calls: a scatter call launches "
+             "tile_group_kernel and tile_bucket_sum_kernel, c1's call "
+             "tile_gather_kernel"),
             ("probe_gat_tile", gat_rows, "probe_tile.cu",
              "scripts/probe_gat_kernel_parts.py:98",
              f"{pr.GAT_TILES} independent tiles of the probe's shape "
@@ -3829,6 +3860,9 @@ def main() -> int:
              f"all columns by CUDA-graph replay")):
         kernels.append(line(kname, rows, f"sgnn_tpu_torch/csrc/{source}",
                             replaces, probe_counts[kname], what))
+        if kname == "probe_tile_spmm":
+            kernels[-1].update(registers=probe_k.tile_sum_resources(),
+                               gather_bound_ms=total(rows, "gather_bound_ms"))
     # the launches of each kernel on the paths of the serving and training
     # extras (each counted from zeros; `launches` stays the main path's)
     by_path = {

@@ -37,7 +37,6 @@ kernels.  Needs a CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import json
 import pathlib
 import statistics
@@ -52,9 +51,6 @@ sys.path.insert(0, str(ROOT))
 
 from sgnn_tpu_torch.data.synthetic import reddit_like_dataset  # noqa: E402
 from sgnn_tpu_torch.graph.adjacency import Adjacency  # noqa: E402
-from sgnn_tpu_torch.ops.cuda.build import (  # noqa: E402
-    CSRC_DIR, NVCC_FLAGS, find_nvcc,
-)
 from sgnn_tpu_torch.ops.gat import (  # noqa: E402
     gat_bwd_dst_plain, pack_score_tables,
 )
@@ -63,6 +59,9 @@ from sgnn_tpu_torch.ops.segment import (  # noqa: E402
 )
 from sgnn_tpu_torch.sampler.blocks import WeightKind  # noqa: E402
 from sgnn_tpu_torch.train.fullbatch import build_coo  # noqa: E402
+from torch_variant_tools import (  # noqa: E402
+    build_variants, event_ms, rel_err,
+)
 
 REPS = 20
 TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
@@ -138,76 +137,11 @@ PATCHES = {
 }
 
 
-def patched(text: str, replacements) -> str:
-    """`text` with each (old, new) replaced; old is a string, or a (start,
-    end) pair replacing start through end; each must occur exactly once."""
-    for old, new in replacements:
-        if isinstance(old, tuple):
-            start, end = old
-            if text.count(start) != 1 or text.count(end) != 1:
-                raise RuntimeError(f"anchor not unique: {start!r} / {end!r}")
-            a = text.index(start)
-            text = text[:a] + new + text[text.index(end, a) + len(end):]
-        else:
-            if text.count(old) != 1:
-                raise RuntimeError(f"not found exactly once: {old!r}")
-            text = text.replace(old, new)
-    return text
-
-
-def build_variants():
-    """nvcc every variant (in parallel) with the port's flags; {(source,
-    variant): CDLL}."""
-    nvcc = find_nvcc()
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    headers = b"".join(f.read_bytes() for f in sorted(CSRC_DIR.glob("*.cuh")))
-    procs = {}
-    for source, variants in PATCHES.items():
-        text = (CSRC_DIR / f"{source}.cu").read_text()
-        for name, reps in variants:
-            src = patched(text, reps)
-            h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + headers
-                               + src.encode()).hexdigest()[:16]
-            cu = OUT_DIR / f"{source}-{h}.cu"
-            cu.write_text(src)
-            lib = cu.with_suffix(".so")
-            procs[source, name] = (subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(lib),
-                 str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), lib)
-    out = {}
-    for key, (proc, lib) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
-        out[key] = ctypes.CDLL(str(lib))
-    return out
-
-
-def time_ms(fn) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(REPS):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / REPS
-
-
-def rel_err(got, ref) -> float:
-    ref = ref.float()
-    return ((got.float() - ref).abs().max()
-            / ref.abs().max().clamp_min(1e-30)).item()
-
-
 def timed(cases):
     """{name: mean ms} over the list in order and then reversed."""
     runs = {name: [] for name, _ in cases}
     for name, fn in list(cases) + list(reversed(cases)):
-        runs[name].append(time_ms(fn))
+        runs[name].append(event_ms(fn, REPS))
     return {name: statistics.mean(r) for name, r in runs.items()}, runs
 
 
@@ -239,7 +173,9 @@ def main() -> int:
     dev = torch.device("cuda")
     built = {}
     compiling = threading.Thread(
-        target=lambda: built.update(build_variants()))
+        target=lambda: built.update(
+            (key, ctypes.CDLL(str(lib))) for key, lib in
+            build_variants(PATCHES, OUT_DIR).items()))
     compiling.start()
     ds = reddit_like_dataset(seed=0, scale=1.0)
     adj = Adjacency.from_edges(ds.edges, ds.num_vertices)

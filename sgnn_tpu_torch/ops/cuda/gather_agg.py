@@ -10,7 +10,10 @@ Four entry points, each launching its kernels on PyTorch's current stream:
 - `gather_agg_bwd_dx_cuda(g, nbr, w, x)` → dx [S, F] in x's dtype: the
   transpose, then csrc/csr_sum.cuh's sum of g's rows along it, written
   once and bit-identical from run to run;
-- `gather_agg_bwd_dw_cuda(g, x, nbr)`    → dw [D, K] f32.
+- `gather_agg_bwd_dw_cuda(g, x, nbr)`    → dw [D, K] f32, a lane group
+  a destination row and one butterfly reduction of its K sums
+  (`dw_layout` names the layout and the instance's registers and local
+  bytes), bit-identical from run to run.
 
 Each checks device, dtype, contiguity and shapes and raises on anything
 the kernel does not take; index bounds are the caller's (see
@@ -31,7 +34,7 @@ from .build import build
 from .spmm import CSR_SUM_ARGTYPES, launch_csr_sum
 
 # dx's transpose sorts the slots' keys by a stable LSD radix sort: digits of
-# RADIX_BITS, tiles of SORT_TILE_SLOTS slots a block (csrc/gather_agg.cu's
+# RADIX_BITS, tiles of SORT_TILE_SLOTS slots a block (csrc/rank_tile.cuh's
 # kRadixBits and kTileItems)
 RADIX_BITS, SORT_TILE_SLOTS = 9, 2048
 
@@ -45,6 +48,8 @@ _ARGS = {
     "sgnn_block_transpose_scatter": [_P] * 6 + [_I64, _I32, _I32, _I64, _P],
     "sgnn_block_transpose_fill": [_P] * 5 + [_I64, _I32, _I64, _P],
     "sgnn_gather_agg_bwd_dx": CSR_SUM_ARGTYPES,
+    "sgnn_gather_agg_dw_layout": ([_P, _P, _I64, _I32, _I32]
+                                  + [ctypes.POINTER(_I32)] * 5),
 }
 
 
@@ -170,6 +175,24 @@ def gather_agg_bwd_dx_cuda(g: torch.Tensor, nbr: torch.Tensor,
             "gather_agg_bwd_dx", g, *csr_t, d * k, stream)
     gather_agg_bwd_dx_cuda.launches += 1
     return dx
+
+
+def dw_layout(g: torch.Tensor, x: torch.Tensor, k: int) -> dict:
+    """How the dw kernel (`csrc/gather_agg.cu` `dw_layout`) lays out a
+    destination row: `lanes` a row (32 / lanes rows a warp), `vec` columns
+    a load (4: one 16-/8-byte vector where F % 4 == 0 and g and x are
+    aligned; 1: scalar), `slots` partial sums a row (K rounded up to 8, 16
+    or 32); and the `registers` and `local_bytes` (spills) a thread of
+    that kernel instance, as the loaded module reports them."""
+    got = [ctypes.c_int() for _ in range(5)]
+    fn, err = _entry("sgnn_gather_agg_dw_layout")
+    with torch.cuda.device(x.device):
+        rc = fn(g.data_ptr(), x.data_ptr(), x.shape[1], k,
+                DTYPE_CODES[x.dtype], *(ctypes.byref(v) for v in got))
+    if rc != 0:
+        raise RuntimeError(f"gather_agg_dw_layout failed: {err(rc).decode()}")
+    return dict(zip(("lanes", "vec", "slots", "registers", "local_bytes"),
+                    (v.value for v in got)))
 
 
 def gather_agg_bwd_dw_cuda(g: torch.Tensor, x: torch.Tensor,

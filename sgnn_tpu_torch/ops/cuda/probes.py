@@ -3,17 +3,22 @@
 
 - `gather_sum_cuda(table, idx, resident)` → out [n_tiles, F] f32 (P-G);
 - `shuffle_cuda(x, axis)` → y [m, n] f32, SHUFFLE_STEPS steps (P-S);
-- `tile_spmm_cuda(slab, src, dst, w, r0, d_blk)` → out [d_blk, F] f32, by
-  f32 atomics (not bit-deterministic); with `d_blk=None` (dst, w, r0
-  None) the gather alone, [n·E_T, F] (P-T and its bisect cases);
+- `tile_spmm_cuda(slab, src, dst, w, r0, d_blk)` → out [d_blk, F] f32,
+  d_blk <= MAX_TILE_ROWS, F % 8 == 0: the edges stably sorted by output
+  row, then each row's ordered sum, written once (bit-identical from run
+  to run; `tile_sum_resources` reads the sum kernel's registers and local
+  bytes); with `d_blk=None` (dst, w, r0 None) the gather alone, [n·E_T,
+  F], F % 4 == 0 (P-T and its bisect cases);
 - `gat_tile_cuda(slab, ts, td, src, dst, heads)` → (out [N, W, F], z [N,
   W, C]) f32 (P-A).
 
-Each launches one kernel on PyTorch's current stream, checks device,
+Each launches its kernels on PyTorch's current stream, checks device,
 dtype, contiguity, shapes and alignment first and raises on anything the
 kernel does not take, and raises if the launch is refused.  Index bounds
 are the caller's.  Each has a `.launches` counter, raised by one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else; it counts calls, so a scatter call
+of `tile_spmm_cuda`, which launches two kernels (the grouping, then the
+sum), counts one.
 """
 
 from __future__ import annotations
@@ -29,13 +34,15 @@ from ..probes import (
     check_tile_args,
 )
 from .build import build
+from .gather_agg import RADIX_BITS, SORT_TILE_SLOTS
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # entry point: (source, argument types before the stream)
 _SIGS = {
     "sgnn_probe_gather_sum": ("probe_gather", [_P] * 3 + [_I] * 5),
     "sgnn_probe_shuffle": ("probe_gather", [_P] * 2 + [_I] * 3),
-    "sgnn_probe_tile_spmm": ("probe_tile", [_P] * 6 + [_L] + [_I] * 4),
+    "sgnn_probe_tile_gather": ("probe_tile", [_P] * 3 + [_L, _I]),
+    "sgnn_probe_tile_spmm": ("probe_tile", [_P] * 8 + [_L] + [_I] * 4),
     "sgnn_probe_gat_tile": ("probe_tile", [_P] * 7 + [_I] * 7),
 }
 # csrc/probe_gather.cu: the resident table's column slice and the shared
@@ -43,8 +50,12 @@ _SIGS = {
 # of staged indices), so at most RESIDENT_MAX_ROWS rows
 SLICE_COLS = 8
 RESIDENT_MAX_ROWS = (232448 - 1024 - 8192) // (SLICE_COLS * 4)
-# csrc/probe_tile.cu: the score tables' widest
+# csrc/probe_tile.cu: the score tables' widest; the tile sum's out rows a
+# bucket (2^BUCKET_ROW_BITS), and so its largest out block: 2^RADIX_BITS
+# buckets
 MAX_TABLE_COLS = 8
+BUCKET_ROW_BITS = 5
+MAX_TILE_ROWS = 1 << (BUCKET_ROW_BITS + RADIX_BITS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,29 +138,64 @@ def tile_spmm_cuda(slab: torch.Tensor, src: torch.Tensor,
                    dst: Optional[torch.Tensor], w: Optional[torch.Tensor],
                    r0: Optional[torch.Tensor],
                    d_blk: Optional[int]) -> torch.Tensor:
-    """The tile SpMM (or, `d_blk=None`, the gather alone) on the card."""
+    """The tile SpMM on the card: each tile of SORT_TILE_SLOTS edges
+    groups its edges by bucket of 2^BUCKET_ROW_BITS out rows, stably; then
+    a block a bucket walks the tiles' segments in order, groups them by
+    row in shared memory, sums each row in (step, edge) order and writes
+    it once.  With `d_blk=None` the gather alone."""
     who = "tile_spmm_cuda"
     _require_cuda(slab, who)
     check_tile_args(slab, src, dst, w, r0, d_blk)
-    feat = slab.shape[1]
-    if feat % 4:
-        raise ValueError(f"{who}: F must be a multiple of 4, got {feat}")
-    _aligned(slab, 8, who, "slab")
-    gather = d_blk is None
-    if gather:
-        out = torch.empty((src.numel(), feat), dtype=torch.float32,
-                          device=slab.device)
-    else:
-        out = torch.zeros((d_blk, feat), dtype=torch.float32,
-                          device=slab.device)
-    if src.numel() == 0 or feat == 0:
+    n, feat = src.numel(), slab.shape[1]
+    # the gather stores 4 columns a lane; the sum loads 8 (16 bytes)
+    vec = 4 if d_blk is None else 8
+    if feat % vec:
+        raise ValueError(f"{who}: F must be a multiple of {vec}, got {feat}")
+    if n >= 1 << 31:
+        raise ValueError(f"{who}: at most 2^31 - 1 edges, got {n}")
+    if d_blk is not None and d_blk > MAX_TILE_ROWS:
+        raise ValueError(f"{who}: at most {MAX_TILE_ROWS} out rows, got "
+                         f"{d_blk}")
+    _aligned(slab, 2 * vec, who, "slab")
+    dev = slab.device
+    if d_blk is None:
+        out = torch.empty((n, feat), dtype=torch.float32, device=dev)
+        if n == 0 or feat == 0:
+            return out
+        _launch("sgnn_probe_tile_gather", dev, slab.data_ptr(),
+                src.data_ptr(), out.data_ptr(), n, feat)
+        tile_spmm_cuda.launches += 1
         return out
-    n_sub = 1 if gather else r0.shape[1]
-    _launch("sgnn_probe_tile_spmm", slab.device, slab.data_ptr(),
-            src.data_ptr(), _ptr(dst), _ptr(w), _ptr(r0), out.data_ptr(),
-            src.numel(), src.shape[1], n_sub, feat, int(gather))
-    tile_spmm_cuda.launches += 1
+    if n == 0 or feat == 0:
+        return torch.zeros((d_blk, feat), dtype=torch.float32, device=dev)
+    out = torch.empty((d_blk, feat), dtype=torch.float32, device=dev)
+    tiles = -(-n // SORT_TILE_SLOTS)
+    # scratch: each edge's pair in its tile's slots, grouped by bucket, and
+    # each tile's bucket offsets
+    local = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    offsets = torch.empty(tiles * ((1 << RADIX_BITS) + 1), dtype=torch.int32,
+                          device=dev)
+    _launch("sgnn_probe_tile_spmm", dev, slab.data_ptr(), src.data_ptr(),
+            _ptr(dst), _ptr(w), r0.data_ptr(), local.data_ptr(),
+            offsets.data_ptr(), out.data_ptr(), n, src.shape[1], r0.shape[1],
+            d_blk, feat)
+    tile_spmm_cuda.launches += 1  # one call: both kernels
     return out
+
+
+def tile_sum_resources() -> dict:
+    """The tile sum kernel's `registers` and `local_bytes` (spills) a
+    thread, as the loaded module reports them."""
+    got = [ctypes.c_int() for _ in range(2)]
+    lib = build("probe_tile").lib
+    fn = lib.sgnn_probe_tile_sum_attrs
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    rc = fn(*(ctypes.byref(v) for v in got))
+    if rc != 0:
+        raise RuntimeError(f"sgnn_probe_tile_sum_attrs failed: CUDA error "
+                           f"{rc}")
+    return dict(zip(("registers", "local_bytes"), (v.value for v in got)))
 
 
 def gat_tile_cuda(slab: torch.Tensor, ts: torch.Tensor, td: torch.Tensor,

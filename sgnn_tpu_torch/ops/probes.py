@@ -18,9 +18,12 @@ csrc/probe_tile.cu; wrappers in ops/cuda/probes.py):
 - **P-T** `tile_spmm(slab, src, dst, w, r0, d_blk)` —
   `profile_onehot_spmm.py:43` `onehot_spmm`: `out[r0[s, e // e_sub] +
   dst[s, e], :] += f32(w[s, e]) · f32(slab[src[s, e], :])` over every
-  step s and edge e, into one [d_blk, F] f32 block.  `tile_gather(slab,
-  src)` is the gather alone, and `tile_part_args` maps each bisect case of
-  `probe_onehot_parts.py` and `probe_onehot_parts2.py` onto the two.
+  step s and edge e, into one [d_blk, F] f32 block.  The kernel sorts the
+  edges by output row (stable) and sums each row in that order, so its
+  result is bit for bit `tile_spmm_ordered` (`tile_row_order` is the
+  sort).  `tile_gather(slab, src)` is the gather alone, and
+  `tile_part_args` maps each bisect case of `probe_onehot_parts.py` and
+  `probe_onehot_parts2.py` onto the two.
 - **P-A** `gat_tile(slab, ts, td, src, dst, heads)` —
   `probe_gat_kernel_parts.py:38` `kernel`, one GAT tile per leading index:
   `u = exp(clip(leaky_relu(ts[s] + bf16(td[d])), ±60))` over the table's
@@ -274,11 +277,44 @@ def tile_spmm_plain(slab: torch.Tensor, src: torch.Tensor,
     return out.index_add_(0, tile_rows(src, dst, r0).reshape(-1), msgs)
 
 
+def tile_row_order(src: torch.Tensor, dst: Optional[torch.Tensor],
+                   r0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The edges sorted by output row, stably: `(rows, order)`, int64
+    [n·E_T] each, `rows` ascending and `order` the flat edge ids, a row's
+    edges in (step, edge) order, as the card's kernel sorts them."""
+    return torch.sort(tile_rows(src, dst, r0).reshape(-1), stable=True)
+
+
+def tile_spmm_ordered(slab: torch.Tensor, src: torch.Tensor,
+                      dst: Optional[torch.Tensor], w: Optional[torch.Tensor],
+                      r0: torch.Tensor, d_blk: int) -> torch.Tensor:
+    """The tile SpMM summed in the card kernel's order: each row's
+    messages added one at a time in `tile_row_order`, from f32 zeros.  The
+    products of two bf16 values are exact in f32, so the kernel's FMAs
+    round as these adds do: its result equals this one bit for bit."""
+    rows, order = tile_row_order(src, dst, r0)
+    msgs = tile_gather_plain(slab, src)
+    if w is not None:
+        msgs = msgs * w.reshape(-1, 1).float()
+    msgs = msgs[order]
+    counts = torch.bincount(rows, minlength=d_blk)
+    # each sorted edge's place in its row
+    place = (torch.arange(rows.numel(), device=rows.device)
+             - (torch.cumsum(counts, 0) - counts)[rows])
+    out = torch.zeros((d_blk, slab.shape[1]), dtype=torch.float32,
+                      device=slab.device)
+    for j in range(int(counts.max()) if rows.numel() else 0):
+        at = place == j     # one edge of each row that has a j-th
+        out[rows[at]] += msgs[at]
+    return out
+
+
 def tile_spmm(slab: torch.Tensor, src: torch.Tensor,
               dst: Optional[torch.Tensor], w: Optional[torch.Tensor],
               r0: torch.Tensor, d_blk: int) -> torch.Tensor:
     """`out[r0[s, e // e_sub] + dst[s, e]] += w[s, e] · slab[src[s, e]]`,
-    f32 [d_blk, F]; on the card by f32 atomics (not bit-deterministic)."""
+    f32 [d_blk, F]; on the card sorted by row and summed in order, each
+    row written once (bit-identical from run to run)."""
     if _dispatch("tile_spmm", slab) == "cpu":
         check_tile_args(slab, src, dst, w, r0, d_blk)
         return tile_spmm_plain(slab, src, dst, w, r0, d_blk)

@@ -258,6 +258,37 @@ def test_gather_agg_kernels_match_plain(cuda_device, dtype, tol, feat, k):
     assert _rel(dw, agg.gather_agg_bwd_dw_plain(g, x, nbr)) <= tol
     assert torch.equal(out, agg.gather_agg_fwd(x, nbr, w))  # deterministic
     assert torch.equal(dx, agg.gather_agg_bwd_dx(g, nbr, w, x))
+    assert torch.equal(dw, agg.gather_agg_bwd_dw(g, x, nbr))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("feat,k", [(7, 25), (41, 10), (64, 3), (128, 40),
+                                    (602, 17)])
+def test_dw_layouts_match_plain(cuda_device, dtype, tol, feat, k):
+    # every lane count, both column paths (g and x aligned or one element
+    # off), 8 / 16 / 32 partial sums a row, K > 32 in two passes and runs
+    # of repeated sources
+    rng = np.random.default_rng(7 * feat + k)
+    d, s = 333, 500
+    x, nbr, _, g = _block(rng, d, k, s, feat, hubs=(9,))
+    nbr[::3, k // 2:] = 0     # the sampler's padding: runs of one source
+    nbr[7] = 4
+    nbr = nbr.to(cuda_device)
+    want = {7: 8, 41: 16, 64: 32, 128: 32, 602: 32}[feat]  # scalar
+    for aligned in (True, False):
+        xs, gs = (_placed(t.numpy(), dtype, cuda_device, aligned)
+                  for t in (x, g))
+        lay = k1.dw_layout(gs, xs, k)
+        vec = 4 if aligned and feat % 4 == 0 else 1
+        assert (lay["vec"], lay["slots"]) == (vec, 8 if k <= 8 else
+                                              16 if k <= 16 else 32)
+        assert lay["registers"] > 0
+        if vec == 1:
+            assert lay["lanes"] == want
+        dw = k1.gather_agg_bwd_dw_cuda(gs, xs, nbr)
+        assert _rel(dw, agg.gather_agg_bwd_dw_plain(gs, xs, nbr)) <= tol
+        assert torch.equal(dw, k1.gather_agg_bwd_dw_cuda(gs, xs, nbr))
 
 
 def test_gather_aggregate_grads_card_vs_cpu(cuda_device):
@@ -884,7 +915,11 @@ def test_probe_tile_spmm_matches_plain(cuda_device, cfg):
     t = pr.to_torch(pr.tile_inputs(n, s_blk, d_blk, e_t, e_sub, w_win, n,
                                    feat), cuda_device)
     args = (t["slab"], t["src"], t["dst"], t["w"], t["r0"], d_blk)
-    assert _rel(pr.tile_spmm(*args), pr.tile_spmm_plain(*args)) <= 1e-5
+    out = pr.tile_spmm(*args)
+    assert _rel(out, pr.tile_spmm_plain(*args)) <= 1e-5
+    # sorted by row and summed in order: the ordered plain sum bit for bit
+    assert torch.equal(out, pr.tile_spmm_ordered(*args))
+    assert torch.equal(out, pr.tile_spmm(*args))
     gathered = pr.tile_gather(t["slab"], t["src"])
     assert torch.equal(gathered, pr.tile_gather_plain(t["slab"], t["src"]))
     assert torch.equal(gathered, pr.tile_gather(t["slab"], t["src"]))
@@ -897,7 +932,28 @@ def test_probe_tile_parts_match_plain(cuda_device):
                                      t["r0s"], 48, 512)
         plain = (pr.tile_gather_plain if part == "c1"
                  else pr.tile_spmm_plain)
-        assert _rel(fn(*args), plain(*args)) <= 1e-5, part
+        out = fn(*args)
+        assert _rel(out, plain(*args)) <= 1e-5, part
+        assert torch.equal(out, fn(*args)), part
+        if part != "c1":
+            assert torch.equal(out, pr.tile_spmm_ordered(*args)), part
+
+
+def test_probe_tile_spmm_config0_matches_plain(cuda_device):
+    # configuration 0 at its size: 512 steps of 2048 edges into [8192, 128]
+    s_blk, d_blk, e_t, e_sub, w_win = pr.TILE_CONFIGS["0"]
+    t = pr.to_torch(pr.tile_inputs(0, s_blk, d_blk, e_t, e_sub, w_win),
+                    cuda_device)
+    args = (t["slab"], t["src"], t["dst"], t["w"], t["r0"], d_blk)
+    before = prc.tile_spmm_cuda.launches
+    out = pr.tile_spmm(*args)
+    again = pr.tile_spmm(*args)
+    torch.cuda.synchronize()
+    assert prc.tile_spmm_cuda.launches == before + 2
+    assert _rel(out, pr.tile_spmm_plain(*args)) <= 1e-5
+    assert torch.equal(out, again)
+    assert torch.equal(out, pr.tile_spmm_ordered(*args))
+    assert prc.tile_sum_resources()["registers"] > 0
 
 
 @pytest.mark.parametrize("kw", [{}, dict(n_tiles=16, s_blk=100, w_win=50,
@@ -930,6 +986,11 @@ def test_probe_kernels_reject_bad_args(cuda_device):
     src = torch.zeros(2, 4, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="slab must be"):
         pr.tile_gather(slab, src)
+    # one bucket pass of the sum takes out blocks of up to MAX_TILE_ROWS
+    r0 = torch.zeros(2, 1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="out rows"):
+        pr.tile_spmm(slab.to(torch.bfloat16), src, None, None, r0,
+                     prc.MAX_TILE_ROWS + 1)
     with pytest.raises(ValueError, match="heads"):
         pr.gat_tile(torch.ones(1, 4, 8, dtype=torch.bfloat16,
                                device=cuda_device),

@@ -6,7 +6,9 @@ package's probe scripts, on the same numpy inputs, on the CPU.
 - P-S `shuffle` against a restatement of probe_dyngather_shapes.py's
   `probe` closure (it cannot be imported) and `jnp.take_along_axis`;
 - P-T `tile_spmm` against `onehot_spmm` (profile_onehot_spmm.py:43) in
-  interpret mode and its `reference`; the bisect cases of
+  interpret mode and its `reference`; `tile_row_order` (the card
+  kernel's order) against numpy's stable argsort and `tile_spmm_ordered`
+  against a sequential numpy sum; the bisect cases of
   probe_onehot_parts.py and probe_onehot_parts2.py (closures inside
   `main`) against restatements citing their lines, and `reference` where
   it applies;
@@ -265,6 +267,43 @@ def test_tile_part_inputs_draw_as_the_scripts():
     np.testing.assert_array_equal(got["src"], src[:, 0])
     np.testing.assert_array_equal(got["w"], np.asarray(w8, np.float32)[:, 0])
     np.testing.assert_array_equal(got["r0s"], r0s)
+
+
+@pytest.mark.parametrize("n_steps,e_t,e_sub,d_blk,w_win",
+                         [(3, 64, 16, 96, 40), (5, 48, 48, 120, 70)])
+def test_tile_row_order_is_numpy_stable_argsort(n_steps, e_t, e_sub, d_blk,
+                                                w_win):
+    # the card kernel's order of sums: each row's edges in (step, edge)
+    # order; rows repeat within a step and across steps
+    a = pr.tile_inputs(n_steps, 32, d_blk, e_t, e_sub, w_win, n_steps, 8)
+    t = pr.to_torch(a, "cpu")
+    rows, order = pr.tile_row_order(t["src"], t["dst"], t["r0"])
+    want = (np.repeat(a["r0"], e_sub, axis=1) + a["dst"]).reshape(-1)
+    np.testing.assert_array_equal(order.numpy(),
+                                  np.argsort(want, kind="stable"))
+    np.testing.assert_array_equal(rows.numpy(), np.sort(want))
+
+
+@pytest.mark.parametrize("part", ["a", "c2"])
+def test_tile_spmm_ordered_is_the_sequential_sum(part):
+    # added one message at a time in tile_row_order, from f32 zeros: the
+    # plain index_add_ within F32_REL, and a numpy loop bit for bit
+    s_blk, e_t, w_win, d_blk, steps = PART_SIZES
+    t = pr.to_torch(pr.tile_part_inputs(11, s_blk, e_t, w_win, d_blk,
+                                        steps), "cpu")
+    fn, args = pr.tile_part_args(part, t["slab"], t["src"], t["w"],
+                                 t["r0s"], w_win, d_blk)
+    got = pr.tile_spmm_ordered(*args)
+    assert _rel(got.numpy(), pr.tile_spmm_plain(*args).numpy()) <= F32_REL
+    slab, src, dst, w, r0, _ = args
+    rows = pr.tile_rows(src, dst, r0).reshape(-1).numpy()
+    msgs = slab.float().numpy()[src.reshape(-1).numpy()]
+    if w is not None:
+        msgs = msgs * w.float().numpy().reshape(-1, 1)
+    want = np.zeros((d_blk, slab.shape[1]), np.float32)
+    for i in np.argsort(rows, kind="stable"):
+        want[rows[i]] = want[rows[i]] + msgs[i]
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_tile_part_args_rejects_unknown_part():
