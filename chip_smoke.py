@@ -19,8 +19,10 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                to the plain version at the same tolerances, bit-identical
                on repeat, timed beside it, one library call
                (`torch.sparse.mm`, timed here only, never called by the
-               port) and the bound (bytes over HBM bandwidth, flops over
-               f32 rate), with its layout and its registers and local
+               port) and the bound (bytes once over HBM bandwidth,
+               operations over f32 rate: every kernel's bound is
+               `sgnn_tpu_torch.utils.roofline.kernel_bound`'s), with its
+               layout and its registers and local
                (spill) bytes a thread, read from the loaded kernel;
 3. kernel_k1 — K1's three kernels (`gather_agg_fwd`, `_bwd_dx`, `_bwd_dw`)
                against their plain versions at K in {1, 10, 25}, F in {7, 41,
@@ -51,7 +53,11 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                scale=1.0)` through `InferenceServer.logprobs()`: f32 pass
                time, two kernel launches per pass, agreement with the port's
                CPU pass, then a bf16 server's pass time, its log-probs held to
-               the f32 pass within 0.05 and its argmax agreement;
+               the f32 pass within 0.05 and its argmax agreement; each
+               pass's `roofline` reading (`roofline.stage_roofline` as
+               bench.py reads its stages: ns per edge and the per-edge
+               bytes model's rate, rows in 32-byte sectors, beside the
+               same model under the TPU's 128-lane padding);
 6. queries   — `query(nids)` for requests of 8, 64 and 512 vertices, each
                held to the whole-graph rows, with p50 latency per size;
 7. serving_gat — GAT 602-128-41 (seed-0 weights, seeded nonzero attention
@@ -72,7 +78,7 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                the first step's, K1 launched 2 forward + 2 dx per step and 2
                forward per eval batch; per-step median time, sampled
                edges/s, overflow count and train accuracy; dx's transpose
-               launched once per dx;
+               launched once per dx; the epoch's `roofline` reading;
 10. train_gat — GATSAMPLEALLGPU (device sampler), GAT 602-128-41, heads 4,
                fanout 25-10, batch 10000: the first batch's loss and every
                weight's and attention vector's gradient on the card held to
@@ -118,6 +124,7 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                2 B1, 2 B2 for GAT) and 2 forward launches per `predict()`;
                median epoch time after the first, whole-graph edges/s,
                accuracies, peak memory, the transposed CSR's build time;
+               the GCNFULLBATCH epoch's `roofline` reading;
 14. kernel_probes — the rate probes' four kernels (`ops/probes.py`,
                csrc/probe_gather.cu, probe_tile.cu) against their plain
                versions at the probes' shapes: gather_sum with the table in
@@ -133,7 +140,17 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                the same way, the bound (P-T's also beside the slab-row
                bytes a gather reads), P-T's sum kernel's registers and
                local bytes, and P-T's ns/edge beside K2 forward's;
-15. serving_extras — on the same graph, GCN 602-128-41 (seed-0 weights)
+15. row_access_floor — the card's random-row-access floor, the
+               counterpart of the TPU figure in sgnn_tpu/utils/roofline.py:
+               a random f32 row gather of width 128 from a [V, 128] table
+               over the graph's 11,880,013 edge sources in the CSR's order,
+               cut to whole 2048-edge tiles (the cut printed), through
+               P-G's device-memory gather-sum (`ops/probes.gather_sum`,
+               resident=False) and `embedding_bag`, each held to the plain
+               version on the leading tiles and timed by CUDA events: ns
+               per row of each, the floor (the lesser) beside the module's
+               `ROW_ACCESS_FLOOR_NS`;
+16. serving_extras — on the same graph, GCN 602-128-41 (seed-0 weights)
                and GAT heads 4 (serving_gat's attention): int8 residency
                (`InferenceServer(dtype="int8")`): its feature bytes (a
                quarter of f32's), pass time beside the f32 pass, exactly 2
@@ -147,7 +164,7 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                whole-graph pass's (lower); `whole_graph=None` choosing the
                whole-graph pass at this size and the chunked one under a
                budget of half the estimate;
-16. train_extras — int8 GSSAMPLEALLGPU (602-128-41 / 25-10 / 10000, drop
+17. train_extras — int8 GSSAMPLEALLGPU (602-128-41 / 25-10 / 10000, drop
                0.5): one epoch and evaluate, finite and falling losses,
                K1's launches as in train_device, median step time beside
                the f32 one, feature bytes; int8 GCNFULLBATCH: the first
@@ -160,7 +177,7 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                save, restore into a new trainer, 1 more, parameters held
                at 1e-4 relative (bit identity printed), the seconds and
                bytes of a save and a restore;
-17. train_cache — the hot-vertex cache engines at the training widths
+18. train_cache — the hot-vertex cache engines at the training widths
                (602-128-41 / 25-10 / 10000, drop 0.5, CACHE_RATE 0.1,
                PIPELINE_NUM 4: 4 super-batch plans): GSSAMPLECACHE's build
                (presample, the hot CSRs, the PushDown aggregates: exactly 4
@@ -178,7 +195,7 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                host aggregates, no K2) for 3 steps each; hit rates, step
                times, edges/s beside train_device's, the feature cache's
                bytes shipped against full shipping;
-18. train_dp — the *MULTI engines at the training widths on a one-rank
+19. train_dp — the *MULTI engines at the training widths on a one-rank
                NCCL group (`parallel.mesh.make_group`; a rank built on the
                CPU with NCCL raises): GCNSAMPLEALLMULTI and
                GATSAMPLEALLMULTI heads 4, one epoch each beside their
@@ -197,7 +214,7 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                each: 4 refreshes, hit rate, median step, edges/s; and
                GCNSAMPLEPCMULTI under PD_REFRESH:host through the
                host-sampled wrapper, 3 steps: step seconds;
-19. cli      — `python -m sgnn_tpu_torch` in subprocesses on the shipped
+20. cli      — `python -m sgnn_tpu_torch` in subprocesses on the shipped
                Cora configs: gs_cora_sample.cfg for 2 epochs with
                checkpoints and a report, resumed to 3 (one more epoch),
                then `--infer` (predictions [2708, 7], rows summing to 1);
@@ -205,7 +222,7 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                trace written); gat_cora_sample.cfg with `--exact-eval`;
                gcn_cora_sample.cfg (GCNSAMPLEPDCACHE) trained to its end;
                each run's accuracies and wall time;
-20. train_partition — vertex-partitioned whole-graph training
+21. train_partition — vertex-partitioned whole-graph training
                (parallel/halo.py) at the same widths: (a) on a one-rank
                NCCL graph group (`make_group(graph=1)`), GCNFULLBATCH,
                GSFULLBATCH and GATFULLBATCH heads 4 under HALO:all_gather
@@ -228,7 +245,7 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                shards' K2 input gradients summed held to the single one,
                each shard's kernel times beside the single-device
                kernel's;
-21. train_multihost — the multi-host drivers (parallel/multihost.py) on a
+22. train_multihost — parallel/multihost.py's four epoch loops on a
                one-rank NCCL group that `initialize_distributed` joins at a
                TCP coordinator on this machine (NCCL takes one rank a
                card), at 602-128-41: the whole-graph driver (GCN
@@ -247,7 +264,7 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                the checkpoint's bytes and seconds; then `python -m
                sgnn_tpu_torch` with `--coordinator --nprocs 1 --pid 0` on
                the Cora fullbatch and (GCNSAMPLEALLGPU) sample configs;
-22. reorder  — REORDER on the same graph: `vertex_order` none / degree /
+23. reorder  — REORDER on the same graph: `vertex_order` none / degree /
                bfs and `apply_vertex_order`, their host seconds; each
                order's whole-graph build (CSC, the native transpose against
                np.argsort's, held equal); K2 forward and backward (F = 128,
@@ -266,20 +283,20 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                directory, `load_ogb_dir`, `export_nts_format`,
                `load_from_config`, and GCNSAMPLEALLGPU trained one epoch
                through the CLI, each step's host seconds;
-23. kernels  — one line listing every kernel with its launches on its main
+24. kernels  — one line listing every kernel with its launches on its main
                path (serving for `spmm_csr`, train_device for K1,
                serving_gat for K3, train_full for K2's backward and K4,
                kernel_probes for the probes) and, for K2, K3, K4 and K1, on
-               the paths of phases 15-18 and 20-22 (`launches_by_path`),
+               the paths of phases 16-19 and 21-23 (`launches_by_path`),
                its error and its times (`spmm_csr` and `gat_bwd_dst` also
                their layouts and registers and local bytes at the main
                path's shapes; `spmm_csr` also at the PushDown shape).
 
 Every main path (phases 5-10, 13 and 14, the int8 serving, chunked
-serving, int8 sampled and int8 whole-graph paths of phases 15-16, each
-cached build and run of phase 17, each data-parallel run of phase 18,
-each sharded run of phase 20, each driver of phase 21 and each engine of
-phase 22) starts
+serving, int8 sampled and int8 whole-graph paths of phases 16-17, each
+cached build and run of phase 18, each data-parallel run of phase 19,
+each sharded run of phase 21, each multi-host run of phase 22 and each
+engine of phase 23) starts
 with every launch count set to 0 and reads them all at its end; the CLI
 runs in other processes, whose counts this one cannot read.  Then the card's name and power limit as
 nvidia-smi prints them, and last `{"ok": true, "device": {...}}`.  Any
@@ -303,13 +320,6 @@ import time
 import types
 
 import numpy as np
-
-# published H100/H200 HBM bandwidths (NVIDIA data sheets), by device name
-HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
-                   ("H100", 3.35e12), ("H200", 4.8e12))
-# f32 rate outside the tensor cores (H100 SXM data sheet): the SpMM's FMAs
-# run there for both dtypes, bf16 being widened to f32 on load
-F32_FLOPS_PER_S = 67e12
 
 # tolerances of the kernel against its plain version, relative max-abs:
 # f32 — both sum in f32, the kernel in CSR edge order with FMAs, the plain
@@ -389,6 +399,10 @@ FULL_EXACT_SCALE, FULL_EPOCHS = 0.25, 5
 # (tests/test_mxu_spmm.py:57): a one-ulp difference in expf can flip
 # bf16(u); its z 1e-5.  P-S moves data and must be bit-identical.
 PROBE_F32_TOL, PROBE_BF16_TOL = 1e-5, 5e-3
+# row_access_floor: the leading tiles of the gather-sum held to its plain
+# version (at PROBE_F32_TOL), and the CUDA-event calls each time averages
+FLOOR_CHECK_TILES = 64
+FLOOR_REPS = 20
 # int8 residency against f32: argmax agreement above the JAX package's
 # bound (tests/test_quant.py:241); per-column rounding moves each feature
 # by at most half a level, which flips the class of a vertex whose top two
@@ -422,13 +436,6 @@ def emit(obj) -> None:
 def require(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError("chip_smoke: " + msg)
-
-
-def hbm_rate(name: str) -> float:
-    for key, rate in HBM_BYTES_PER_S:
-        if key in name:
-            return rate
-    raise RuntimeError(f"chip_smoke: no HBM bandwidth known for {name!r}")
 
 
 def batch_to(batch, device):
@@ -1129,6 +1136,7 @@ def main() -> int:
     from sgnn_tpu_torch.train.trainer import (
         host_batch_to_device, loss_and_grads,
     )
+    from sgnn_tpu_torch.utils import roofline
     from sgnn_tpu_torch.utils.timing import PhaseTimer, cuda_graph_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
@@ -1139,7 +1147,30 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    hbm = hbm_rate(name)
+    hbm = roofline.hbm_bytes_per_s(name)
+
+    def bound(kernel, dtype_bytes=4, **shape) -> dict:
+        """`kernel`'s bound at `shape` on this card: its bytes once and
+        operations, bound_ms, bound_by, and gather_bound_ms (a source row
+        read an edge)."""
+        return roofline.kernel_bound(kernel, name, dtype_bytes, **shape)
+
+    spmm_models = (roofline.spmm_bytes_model,
+                   roofline.lane_padded_spmm_bytes_model)
+    sampled_models = (roofline.sampled_bytes_model,
+                      roofline.lane_padded_sampled_bytes_model)
+
+    def stage_reading(seconds, edges, models, *args, row_ops, **kw) -> dict:
+        """bench.py's roofline field of a stage (`roofline.stage_roofline`,
+        rows in 32-byte sectors), with the same bytes model under the TPU
+        model's 128-lane padding beside it; `models`: that (sector, lane)
+        pair.  Per-edge readings: above 100% of the peak where L2 serves
+        repeated rows."""
+        sector, lanes = (m(*args, **kw) for m in models)
+        return {**roofline.stage_roofline(seconds, edges, sector, row_ops),
+                "jax_padded_model_bytes_mb": round(lanes / 2**20, 1),
+                "jax_padded_pct_hbm_peak": roofline.stage_roofline(
+                    seconds, edges, lanes, row_ops)["pct_hbm_peak"]}
 
     # ---- 1. build ---------------------------------------------------------
     built = build_all()
@@ -1337,21 +1368,15 @@ def main() -> int:
             # round w, another function, so it is timed in f32 only
             library_ms = (time_ms(lambda: torch.sparse.mm(lib_csr, x), 20)
                           if dt == torch.float32 else None)
-            once = e * 8 + 8 * (v + 1) + 2 * v * feat * b
-            gathered = e * 8 + 8 * (v + 1) + e * feat * b + v * feat * b
-            flops = 2 * e * feat
-            bound_ms = max(once / hbm, flops / F32_FLOPS_PER_S) * 1e3
+            k2_bound = bound("k2_fwd", b, V=v, E=e, F=feat)
             timings.append({
                 "F": feat, "dtype": key, "V": v, "E": e, "layout": how,
                 "registers": resources(f"spmm_csr F={feat} {key}", lay),
                 "max_abs_err": err_abs, "rel_err": err, "tol": TOL[key],
                 "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": bound_ms,
-                "bound_by": ("bytes" if once / hbm >= flops / F32_FLOPS_PER_S
-                             else "operations"),
-                "gather_bound_ms": gathered / hbm * 1e3,
-                "pct_of_bound": 100.0 * bound_ms / ms})
+                **k2_bound,
+                "pct_of_bound": 100.0 * k2_bound["bound_ms"] / ms})
     emit({"phase": "kernel", "checks": checks, "row_checks": row_checks,
           "reddit_shapes": timings,
           "hbm_bytes_per_s": hbm, "data_build_s": data_s})
@@ -1447,7 +1472,6 @@ def main() -> int:
         want = agg.block_transpose_plain(nbr, w, s_)
         require(all(torch.equal(a, b_) for a, b_ in zip(got, want)),
                 f"block_transpose differs from plain at layer {layer}")
-        t_bytes = d_ * k_ * 16 + 8 * (s_ + 1)
         k1_shapes.append({
             "name": "block_transpose", "layer": layer, "D": d_, "K": k_,
             "S": s_, "F": feat, "nnz": nnz, "dtype": "int32/float32",
@@ -1455,30 +1479,27 @@ def main() -> int:
             "ms": time_ms(lambda: k1.block_transpose_cuda(nbr, w, s_), 20),
             "plain_ms": time_ms(
                 lambda: agg.block_transpose_plain(nbr, w, s_), 3),
-            "library_ms": None, "bound_ms": t_bytes / hbm * 1e3,
-            "bound_by": "bytes"})
+            "library_ms": None, **bound("k1_transpose", D=d_, K=k_, S=s_)})
         del got, want
-        once = d_ * k_ * 8 + s_ * feat * b + d_ * feat * b
-        gathered = d_ * k_ * 8 + nnz * feat * b + d_ * feat * b
-        for kname, fn, plain, lib, flops in (
+        for kname, fn, plain, lib, work in (
                 ("gather_agg_fwd", lambda: k1.gather_agg_fwd_cuda(x, nbr, w),
                  lambda: agg.gather_aggregate_plain(x, nbr, w),
-                 lambda: torch.sparse.mm(fwd_csr, x), 2 * nnz * feat),
+                 lambda: torch.sparse.mm(fwd_csr, x), "k1_fwd"),
                 ("gather_agg_bwd_dx",
                  lambda: k1.gather_agg_bwd_dx_cuda(g, nbr, w, x),
                  lambda: agg.gather_agg_bwd_dx_plain(g, nbr, w, s_, x.dtype),
-                 lambda: torch.sparse.mm(bwd_csr, g), 2 * nnz * feat),
+                 lambda: torch.sparse.mm(bwd_csr, g), "k1_dx"),
                 ("gather_agg_bwd_dw",
                  lambda: k1.gather_agg_bwd_dw_cuda(g, x, nbr),
                  lambda: agg.gather_agg_bwd_dw_plain(g, x, nbr),
-                 dw_library, 2 * d_ * k_ * feat)):
+                 dw_library, "k1_dw")):
             got, ref = fn(), plain()
             torch.cuda.synchronize()
             err = rel_err(got, ref)
             require(err <= TOL["float32"], f"K1 {kname} vs plain at the "
                                            f"training shape layer {layer}: "
                                            f"{err}")
-            bound_s = max(once / hbm, flops / F32_FLOPS_PER_S)
+            k1_bound = bound(work, b, D=d_, K=k_, S=s_, F=feat, nnz=nnz)
             ms = time_ms(fn, 20)
             k1_shapes.append({
                 "name": kname, "layer": layer, "D": d_, "K": k_, "S": s_,
@@ -1487,11 +1508,8 @@ def main() -> int:
                 "rel_err": err, "tol": TOL["float32"],
                 "ms": ms, "plain_ms": time_ms(plain, 3),
                 "library_ms": time_ms(lib, 20) if lib is not None else None,
-                "bound_ms": bound_s * 1e3,
-                "bound_by": ("bytes" if once / hbm >= flops / F32_FLOPS_PER_S
-                             else "operations"),
-                "gather_bound_ms": gathered / hbm * 1e3,
-                "pct_of_bound": 100.0 * bound_s * 1e3 / ms,
+                **k1_bound,
+                "pct_of_bound": 100.0 * k1_bound["bound_ms"] / ms,
                 **({"layout": k1.dw_layout(g, x, k_)}
                    if kname == "gather_agg_bwd_dw" else {})})
             del got, ref
@@ -1598,14 +1616,6 @@ def main() -> int:
                 require(comp_err <= TOL[key], "the composition does not "
                                               f"compute K3: {comp_err}")
                 comp_ms = time_ms(lambda: k3_composition(ht, ts, td), 10)
-            b = ht.element_size()
-            once = (v * feat * b * 2 + 4 * heads * v * 3 + 8 * (v + 1)
-                    + 4 * e)
-            # 2 flops per (edge, column); per (edge, head) the score add,
-            # leaky_relu, the clip's two compares, exp and the z add; one
-            # divide per output element
-            flops = 2 * e * feat + 6 * e * heads + v * feat
-            bound_s = max(once / hbm, flops / F32_FLOPS_PER_S)
             k3_shapes.append({
                 "F": feat, "H": heads, "dtype": key, "V": v, "E": e,
                 "columns": ("vector" if vector_columns(ht, heads)
@@ -1618,10 +1628,8 @@ def main() -> int:
                     ht, ts, td, g_rowptr, g_col, heads), 3),
                 "library_ms": None, "composition_ms": comp_ms,
                 "composition_rel_err": comp_err,
-                "bound_ms": bound_s * 1e3,
-                "bound_by": ("bytes" if once / hbm >= flops / F32_FLOPS_PER_S
-                             else "operations"),
-                "gather_bound_ms": (e * feat * b + once) / hbm * 1e3})
+                **bound("k3", ht.element_size(), V=v, E=e, F=feat,
+                        H=heads)})
             del got, ref
     emit({"phase": "kernel_k3", "checks": k3_checks,
           "serving_shapes": k3_shapes,
@@ -1668,6 +1676,11 @@ def main() -> int:
     agree = float(np.mean(bfull.argmax(1) == full.argmax(1)))
     del bsrv, blogp
     serving_pass_ms = statistics.median(pass_s[1:]) * 1e3
+    # bench.py:577-584's reading of a pass: two SpMM layers over E edges
+    serve_roofline = {
+        key: stage_reading(statistics.median(times[1:]), 2 * e, spmm_models,
+                           e, v, TRAIN_LAYERS[1:], b, row_ops=2.0)
+        for key, times, b in (("f32", pass_s, 4), ("bf16", bpass_s, 2))}
     emit({"phase": "serving", "model": "gcn 602-128-41",
           "graph": {"V": v, "E": e}, "f32_pass_ms": pass_s[0] * 1e3,
           "f32_pass_ms_median_last3": statistics.median(pass_s[1:]) * 1e3,
@@ -1675,7 +1688,7 @@ def main() -> int:
           "launches_per_pass": 2, "cpu_pass_max_abs_diff": cpu_err,
           "tol": SERVE_ATOL, "host_cpu_pass_s": cpu_s,
           "bf16_vs_f32_max_abs_diff": bf16_err, "bf16_tol": BF16_SERVE_ATOL,
-          "bf16_argmax_agreement": agree})
+          "bf16_argmax_agreement": agree, "roofline": serve_roofline})
 
     # ---- 6. per-request queries (main path, counted) ------------------------
     rng = np.random.default_rng(0)
@@ -1878,6 +1891,7 @@ def main() -> int:
             f"epoch + evaluate launched {counts()}")
     transpose_launches = k1.block_transpose_cuda.launches
     med_step_ms = f32_step_ms = statistics.median(dev_trainer.step_ms[1:])
+    e_bot = int(edges * TRAIN_FANOUT[0] / sum(TRAIN_FANOUT))
     dev_edges_per_s = edges / steps / (med_step_ms / 1e3)
     f32_train_feature_bytes = (dev_trainer.dev_features.numel()
                                * dev_trainer.dev_features.element_size())
@@ -1894,7 +1908,13 @@ def main() -> int:
           "eval_batches": eval_batches,
           "k1_launches": dict(zip(("fwd", "dx", "dw"), dev_launches)),
           "transpose_launches": transpose_launches,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          # bench.py:143-156's reading of the epoch: the fanout's split of
+          # its edges between the bottom (602-wide rows) and the top hop
+          "roofline": stage_reading(
+              epoch_s, edges, sampled_models,
+              [e_bot, edges - e_bot], TRAIN_LAYERS[0], TRAIN_LAYERS[1],
+              dtype_bytes=4, row_ops=2.0)})
     del dev_trainer
 
     # ---- 10. device-sampled GAT training (main path, counted) --------------
@@ -2027,8 +2047,6 @@ def main() -> int:
         err = rel_err(out, ref)
         require(err <= TOL["float32"], f"K2 bwd vs plain at the training "
                                        f"shape F={feat}: {err}")
-        once = e * 8 + 8 * (v + 1) + 2 * v * feat * 4
-        flops = 2 * e * feat
         k2b_shapes.append({
             "F": feat, "dtype": "float32", "V": v, "E": e,
             "max_row": max_row,
@@ -2037,25 +2055,13 @@ def main() -> int:
             "ms": time_ms(lambda: spmm_csr_bwd_cuda(g, r_t, c_t, w_t), 20),
             "plain_ms": time_ms(lambda: spmm_csr_plain(g, r_t, c_t, w_t), 3),
             "library_ms": time_ms(lambda: torch.sparse.mm(lib_csr_t, g), 20),
-            "bound_ms": max(once / hbm, flops / F32_FLOPS_PER_S) * 1e3,
-            "bound_by": ("bytes" if once / hbm >= flops / F32_FLOPS_PER_S
-                         else "operations"),
-            "gather_bound_ms": (e * 8 + 8 * (v + 1) + e * feat * 4
-                                + v * feat * 4) / hbm * 1e3})
+            **bound("k2_bwd", V=v, E=e, F=feat)})
         del out, ref
     del lib_csr_t
     emit({"phase": "kernel_k2_bwd", "checks": k2b_checks,
           "training_shapes": k2b_shapes, "csr_transpose_s": transpose_s})
 
     # ---- 12. K4 against its plain versions ---------------------------------
-    def k4_bounds(feat, heads, b):
-        """(B1, B2) as (bytes, operations), each input read once and each
-        output written once; per (edge, head) ~10 operations for the score,
-        leaky_relu, the clip, exp and q."""
-        common = 16 * heads * v + 8 * (v + 1) + 4 * e
-        return ((v * feat * (b + 8) + common, 4 * e * feat + 10 * e * heads),
-                (v * feat * (b + 4) + common, 2 * e * feat + 10 * e * heads))
-
     k4_checks = []
     for heads, feat in K3_GRID:
         for dt in (torch.float32, torch.bfloat16):
@@ -2220,13 +2226,11 @@ def main() -> int:
             comp_ms = time_ms(lambda: torch.autograd.grad(
                 out, leaves, cot, retain_graph=True), 3)
             del out, leaves, cot
-        for kname, fn, plain, (nbytes, ops), got_i, ref_i in (
+        for kname, fn, plain, work, got_i, ref_i in (
                 ("gat_bwd_src", lambda: gat_bwd_src_cuda(*b1),
-                 lambda: gat_bwd_src_plain(*b1), k4_bounds(feat, heads, 4)[0],
-                 got[:2], ref[:2]),
+                 lambda: gat_bwd_src_plain(*b1), "b1", got[:2], ref[:2]),
                 ("gat_bwd_dst", lambda: gat_bwd_dst_cuda(*b2),
-                 lambda: gat_bwd_dst_plain(*b2), k4_bounds(feat, heads, 4)[1],
-                 got[2:], ref[2:])):
+                 lambda: gat_bwd_dst_plain(*b2), "b2", got[2:], ref[2:])):
             k4_shapes.append({
                 "name": kname, "F": feat, "H": heads, "dtype": "float32",
                 "V": v, "E": e,
@@ -2244,10 +2248,7 @@ def main() -> int:
                 "ms": time_ms(fn, 20), "plain_ms": time_ms(plain, 3),
                 "library_ms": None,
                 "composition_bwd_ms": comp_ms,
-                "bound_ms": max(nbytes / hbm, ops / F32_FLOPS_PER_S) * 1e3,
-                "bound_by": ("bytes" if nbytes / hbm >= ops / F32_FLOPS_PER_S
-                             else "operations"),
-                "gather_bound_ms": (nbytes + e * feat * 4) / hbm * 1e3})
+                **bound(work, V=v, E=e, F=feat, H=heads)})
         del got, ref
     emit({"phase": "kernel_k4", "checks": k4_checks, "b2_rows": b2_checks,
           "b1_hub": b1_hub,
@@ -2389,10 +2390,17 @@ def main() -> int:
         "gather_agg_fwd", "gather_agg_bwd_dx", "gather_agg_bwd_dw",
         "block_transpose")),
             f"whole-graph training launched K1: {full_counts}")
+    # bench.py:413-420's reading of a GCNFULLBATCH epoch: two SpMM layers
+    # forward over E edges each, the backward's scatter in the model
+    gcn_ms = next(r for r in full_runs if r["engine"] == "GCNFULLBATCH")[
+        "epoch_ms_median_after_first"]
     emit({"phase": "train_full", "model": "602-128-41",
           "loss_atol": TRAIN_LOSS_ATOL, "grad_rtol": TRAIN_GRAD_RTOL,
           "exact_scale": FULL_EXACT_SCALE, "exact": full_exact,
-          "runs": full_runs, "launches": full_counts})
+          "runs": full_runs, "launches": full_counts,
+          "roofline": {"GCNFULLBATCH": stage_reading(
+              gcn_ms / 1e3, 2 * e, spmm_models, e, v, TRAIN_LAYERS[1:], 4,
+              backward=True, row_ops=3.0)}})
 
     # ---- 14. rate probes (main path: the probe scripts, counted) ----------
     def load_script(stem: str):
@@ -2407,11 +2415,6 @@ def main() -> int:
     gather_mod = load_script("torch_probe_gather")
     tile_mod = load_script("torch_probe_tile_spmm")
     gat_mod = load_script("torch_probe_gat_tile")
-
-    def probe_bound(nbytes: float, ops: float) -> dict:
-        return {"bound_ms": max(nbytes / hbm, ops / F32_FLOPS_PER_S) * 1e3,
-                "bound_by": ("bytes" if nbytes / hbm >= ops / F32_FLOPS_PER_S
-                             else "operations")}
 
     # each kernel against its plain version on the same CUDA tensors, at
     # the probes' shapes; these launches are not the path's
@@ -2505,8 +2508,8 @@ def main() -> int:
             "library_ms": cuda_graph_ms(
                 lambda: torch.nn.functional.embedding_bag(
                     idx, table, mode="sum"), gather_mod.REPS),
-            **probe_bound(touched * feat * 4 + e_n * 4
-                          + idx.shape[0] * feat * 4, e_n * feat)})
+            **bound("p_g", rows_read=touched, E=e_n, F=feat,
+                    tiles=idx.shape[0])})
     shuffle_rows = []
     for rec in p_shuffle:
         m, n, axis = rec["m"], rec["n"], rec["axis"]
@@ -2524,7 +2527,7 @@ def main() -> int:
             "library_ms": cuda_graph_ms(
                 lambda: torch.gather(stacked, axis + 1, every),
                 gather_mod.REPS),
-            **probe_bound(2 * m * n * 4, 0)})
+            **bound("p_s", m=m, n=n)})
         del every, stacked
     tile_rows = []
     for (case, fn, args), rec, chk in zip(tile_cases, p_tile,
@@ -2536,7 +2539,8 @@ def main() -> int:
             flat = t_src.reshape(-1)
             lib = lambda: torch.index_select(slab_f32, 0, flat)  # noqa: E731
             plain = pr.tile_gather_plain
-            nbytes, ops = t_slab.numel() * 2 + e_n * 4 + e_n * feat * 4, 0
+            t_bound = bound("p_t_gather", 2, slab_rows=t_slab.shape[0],
+                            F=feat, E=e_n)
         else:
             _, _, t_dst, t_w, t_r0, d_blk = args
             rows = pr.tile_rows(t_src, t_dst, t_r0).reshape(-1)
@@ -2547,20 +2551,18 @@ def main() -> int:
                 (d_blk, t_slab.shape[0])).coalesce()
             lib = lambda: torch.sparse.mm(coo, slab_f32)  # noqa: E731
             plain = pr.tile_spmm_plain
-            nbytes = (t_slab.numel() * 2 + e_n * 4
-                      + (e_n * 4 if t_dst is not None else 0)
-                      + (e_n * 2 if t_w is not None else 0)
-                      + t_r0.numel() * 4 + d_blk * feat * 4)
-            ops = e_n * feat * (2 if t_w is not None else 1)
-        bound = probe_bound(nbytes, ops)
+            t_bound = bound("p_t", 2, slab_rows=t_slab.shape[0], F=feat,
+                            E=e_n, windows=t_r0.numel(), out_rows=d_blk,
+                            dst=t_dst is not None, weighted=t_w is not None)
         tile_rows.append({
             "case": case, **rec, "max_abs_err": chk["max_abs_err"],
             "plain_ms": cuda_graph_ms(lambda: plain(*args), tile_mod.REPS),
-            "library_ms": cuda_graph_ms(lib, tile_mod.REPS), **bound,
-            "pct_of_bound": 100.0 * bound["bound_ms"] / rec["ms"],
-            # any design reads a slab row an edge (from L1/L2)
-            "slab_row_bytes": e_n * feat * 2,
-            "gather_bound_ms": (nbytes + e_n * feat * 2) / hbm * 1e3})
+            "library_ms": cuda_graph_ms(lib, tile_mod.REPS),
+            # gather_bound_ms: any design reads a slab row an edge (from
+            # L1/L2)
+            **t_bound,
+            "pct_of_bound": 100.0 * t_bound["bound_ms"] / rec["ms"],
+            "slab_row_bytes": e_n * feat * 2})
     g_slab, g_ts, g_td, g_src, g_dst, _ = g_args   # the GAT_TILES tiles
     live_d = int((g_dst < pr.GAT_W).sum())
     live_both = int(((g_dst < pr.GAT_W) & (g_src < pr.GAT_S_BLK)).sum())
@@ -2570,10 +2572,9 @@ def main() -> int:
         "plain_ms": cuda_graph_ms(lambda: pr.gat_tile_plain(*g_args),
                                   gat_mod.REPS),
         "library_ms": None,
-        **probe_bound(g_slab.numel() * 2 + g_ts.numel() * 2
-                      + g_td.numel() * 4 + g_src.numel() * 8
-                      + pr.GAT_TILES * pr.GAT_W * (pr.PROBE_F + g_cols) * 4,
-                      live_d * g_cols * 6 + live_both * pr.PROBE_F * 2)}]
+        **bound("p_a", 2, tiles=g_slab.shape[0], S=g_slab.shape[1],
+                W=g_td.shape[1], E=g_src.shape[1], F=g_slab.shape[2],
+                cols=g_cols, live_dst=live_d, live_both=live_both)}]
     del g_args, g_slab, g_ts, g_td, g_src, g_dst, gather_cases
     k2_f128 = next(t for t in timings
                    if t["F"] == 128 and t["dtype"] == "float32")
@@ -2593,7 +2594,54 @@ def main() -> int:
                     "(utils.timing.cuda_graph_ms); launches count the "
                     "replays' kernel runs"})
 
-    # ---- 15. serving extras (two main paths, counted) ---------------------
+    # ---- 15. the card's random-row-access floor ----------------------------
+    # the counterpart of the TPU figure in sgnn_tpu/utils/roofline.py
+    # (measured by scripts/profile_gat_serving2.py:129): a random f32 row
+    # gather of width 128 from a table of the graph's V rows, over its edge
+    # sources in the CSR's order, through P-G's device-memory gather-sum
+    # (the stream cut to whole GATHER_TILE tiles), beside embedding_bag
+    floor_t0 = time.perf_counter()
+    n_floor = e // pr.GATHER_TILE * pr.GATHER_TILE
+    floor_idx = torch.from_numpy(
+        adj.indices[:n_floor].astype(np.int32)).to(dev).view(
+            -1, pr.GATHER_TILE)
+    floor_table = torch.randn(v, pr.PROBE_F, device=dev,
+                              generator=torch.Generator(dev).manual_seed(0))
+    reset_counts()
+    got = pr.gather_sum(floor_table, floor_idx, False)
+    ref = pr.gather_sum_plain(floor_table, floor_idx[:FLOOR_CHECK_TILES])
+    bag = torch.nn.functional.embedding_bag(
+        floor_idx[:FLOOR_CHECK_TILES], floor_table, mode="sum")
+    floor_errs = [rel_err(got[:FLOOR_CHECK_TILES], ref), rel_err(bag, ref)]
+    require(max(floor_errs) <= PROBE_F32_TOL,
+            f"row_access_floor: gather_sum and embedding_bag against plain "
+            f"{floor_errs} > {PROBE_F32_TOL}")
+    del got, ref, bag
+    floor_ms = time_ms(lambda: pr.gather_sum(floor_table, floor_idx, False),
+                       FLOOR_REPS)
+    bag_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
+        floor_idx, floor_table, mode="sum"), FLOOR_REPS)
+    floor_counts = counts()
+    require(floor_counts["probe_gather_sum"] == FLOOR_REPS + 2
+            and sum(floor_counts.values()) == FLOOR_REPS + 2,
+            f"row_access_floor launched {floor_counts}, expected "
+            f"{FLOOR_REPS + 2} gather_sum")
+    floor_ns = {"gather_sum": floor_ms * 1e6 / n_floor,
+                "embedding_bag": bag_ms * 1e6 / n_floor}
+    emit({"phase": "row_access_floor", "T": v, "F": pr.PROBE_F,
+          "dtype": "float32", "edges": e, "edges_timed": n_floor,
+          "edges_cut": e - n_floor, "tile": pr.GATHER_TILE,
+          "gather_sum_ms": floor_ms, "embedding_bag_ms": bag_ms,
+          "ns_per_row": floor_ns,
+          "floor_ns_per_row": min(floor_ns.values()),
+          "module_row_access_floor_ns": roofline.ROW_ACCESS_FLOOR_NS,
+          "row_gb_s": n_floor * pr.PROBE_F * 4 / (floor_ms * 1e-3) / 1e9,
+          "rel_err": floor_errs, "checked_tiles": FLOOR_CHECK_TILES,
+          "tol": PROBE_F32_TOL, "launches": floor_counts["probe_gather_sum"],
+          "nvidia_smi": smi, "phase_s": time.perf_counter() - floor_t0})
+    del floor_idx, floor_table
+
+    # ---- 16. serving extras (two main paths, counted) ---------------------
     extras_t0 = time.perf_counter()
     # (a) int8 residency: GCN, and GAT heads 4 with serving_gat's attention
     reset_counts()
@@ -2730,7 +2778,7 @@ def main() -> int:
           "tol": SERVE_ATOL, "argmax_floor": INT8_ARGMAX_AGREE,
           "phase_s": time.perf_counter() - extras_t0})
 
-    # ---- 16. training extras (int8 paths counted; resume) -----------------
+    # ---- 17. training extras (int8 paths counted; resume) -----------------
     extras_t0 = time.perf_counter()
     # (a) int8 GSSAMPLEALLGPU, one epoch and evaluate
     int8_cfg = dataclasses.replace(dev_cfg, feature_dtype="int8")
@@ -2869,7 +2917,7 @@ def main() -> int:
                      "checkpoint_bytes": save_bytes},
           "phase_s": time.perf_counter() - extras_t0})
 
-    # ---- 17. cached training (main paths, counted) ------------------------
+    # ---- 18. cached training (main paths, counted) ------------------------
     cache_t0 = time.perf_counter()
 
     def build_cached(cfg):
@@ -2977,8 +3025,6 @@ def main() -> int:
     lib_csr = torch.sparse_csr_tensor(csr.rowptr, csr.col.long(), csr.w,
                                       size=(c0.num_cached, x.shape[0]))
     e0, f0, c_rows = int(c0.col.size), x.shape[1], c0.num_cached
-    once = e0 * 8 + 8 * (c_rows + 1) + (x.shape[0] + c_rows) * f0 * 4
-    flops = 2 * e0 * f0
     out = spmm_csr_cuda(x, *csr)
     ref = spmm_csr_plain(x, *csr)
     pd_shape = {
@@ -2991,11 +3037,8 @@ def main() -> int:
         "ms": time_ms(lambda: spmm_csr_cuda(x, *csr), 20),
         "plain_ms": time_ms(lambda: spmm_csr_plain(x, *csr), 3),
         "library_ms": time_ms(lambda: torch.sparse.mm(lib_csr, x), 20),
-        "bound_ms": max(once / hbm, flops / F32_FLOPS_PER_S) * 1e3,
-        "bound_by": ("bytes" if once / hbm >= flops / F32_FLOPS_PER_S
-                     else "operations"),
-        "gather_bound_ms": (e0 * 8 + e0 * f0 * 4 + c_rows * f0 * 4)
-        / hbm * 1e3}
+        **bound("k2_pushdown", x.element_size(), C=c_rows, V=x.shape[0],
+                E=e0, F=f0)}
     del out, ref, lib_csr
     # the first cached batch: its loss and every gradient, card vs CPU on
     # the same blocks and cache rows, drop 0
@@ -3124,7 +3167,7 @@ def main() -> int:
           "k2_pushdown_shape": pd_shape,
           "phase_s": time.perf_counter() - cache_t0})
 
-    # ---- 18. data-parallel training (main paths, counted) -----------------
+    # ---- 19. data-parallel training (main paths, counted) -----------------
     dp_t0 = time.perf_counter()
     group = make_group()
     require(group.backend == "nccl" and group.world_size == 1
@@ -3339,7 +3382,7 @@ def main() -> int:
         "param_rtol": DP_PARAM_RTOL,
         "phase_s": time.perf_counter() - dp_t0})
 
-    # ---- 19. the CLI on the shipped Cora configs (subprocesses) ------------
+    # ---- 20. the CLI on the shipped Cora configs (subprocesses) ------------
     extras_t0 = time.perf_counter()
     cli_dir = ROOT / "build" / "chip_smoke_cli"
     shutil.rmtree(cli_dir, ignore_errors=True)
@@ -3397,7 +3440,7 @@ def main() -> int:
     emit({"phase": "cli", "runs": runs,
           "phase_s": time.perf_counter() - extras_t0})
 
-    # ---- 20. vertex-partitioned whole-graph training (main path, counted) --
+    # ---- 21. vertex-partitioned whole-graph training (main path, counted) --
     # (a) the whole sharded trainer on a one-rank NCCL graph group: each
     # engine under both halos against the single-device trainer from the
     # same seed; (b) the shard-local layers of a 4-way partition, one shard
@@ -3744,7 +3787,7 @@ def main() -> int:
                     f"{phase} never launched {kname}")
     del ctx
 
-    # ---- 23. kernels -------------------------------------------------------
+    # ---- 24. kernels -------------------------------------------------------
     # one logprobs() pass's work: the F=128 and the F=41 f32 SpMMs
     per_pass = [t for t in timings if t["dtype"] == "float32"]
 
