@@ -26,6 +26,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 from ...utils.logging import get_logger
+from ...utils import timing
 
 log = get_logger("sgnn.cuda")
 
@@ -79,41 +80,51 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
     with _lock:
         todo = [n for n in names if n not in _built]
         if todo:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            nvcc = find_nvcc() if any(not _lib_path(n).exists()
-                                      for n in todo) else None
-            procs = {}
-            t0 = time.perf_counter()
-            for n in todo:
-                out = _lib_path(n)
-                if out.exists():
-                    continue
-                tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                       str(CSRC_DIR / f"{n}.cu")]
-                procs[n] = (subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True), tmp, out)
-            logs, failed = {}, []
-            for n, (proc, tmp, out) in procs.items():
-                logs[n] = proc.communicate()[0]
-                if proc.returncode != 0:
-                    failed.append(n)
-                else:
-                    os.replace(tmp, out)
-            if failed:
-                raise RuntimeError("nvcc failed for " + ", ".join(failed)
-                                   + ":\n" + "\n".join(logs[n] for n in failed))
-            seconds = time.perf_counter() - t0
-            if procs:
-                log.info("nvcc built %s in %.1f s", ", ".join(procs), seconds)
-            for n in todo:
-                path = _lib_path(n)
-                _built[n] = Built(
-                    name=n, path=path, lib=ctypes.CDLL(str(path)),
-                    seconds=seconds if n in procs else 0.0,
-                    log=logs.get(n, "cached"))
+            _load(todo)
         return {n: _built[n] for n in names}
+
+
+def _load(todo: list) -> None:
+    """Build what is not on disk and load every library of `todo`, inside
+    the `kernels.load` span; counters `kernels.built` (nvcc runs) and
+    `kernels.loaded`."""
+    with timing.span("kernels.load", always=True):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = find_nvcc() if any(not _lib_path(n).exists()
+                                  for n in todo) else None
+        procs = {}
+        t0 = time.perf_counter()
+        for n in todo:
+            out = _lib_path(n)
+            if out.exists():
+                continue
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+        logs, failed = {}, []
+        for n, (proc, tmp, out) in procs.items():
+            logs[n] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(n)
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed for " + ", ".join(failed)
+                               + ":\n" + "\n".join(logs[n] for n in failed))
+        seconds = time.perf_counter() - t0
+        if procs:
+            log.info("nvcc built %s in %.1f s", ", ".join(procs), seconds)
+        for n in todo:
+            path = _lib_path(n)
+            _built[n] = Built(
+                name=n, path=path, lib=ctypes.CDLL(str(path)),
+                seconds=seconds if n in procs else 0.0,
+                log=logs.get(n, "cached"))
+        timing.RECORDER.counters.add("kernels.built", len(procs))
+        timing.RECORDER.counters.add("kernels.loaded", len(todo))
 
 
 def build(name: str) -> Built:

@@ -32,6 +32,7 @@ from ..sampler.blocks import SampledBatch, WeightKind, pad_to
 from ..sampler.device import device_sample_batch
 from ..utils.logging import get_logger
 from ..utils.profiling import memory_budget
+from ..utils.timing import span
 from .trainer import SampleTrainer
 
 log = get_logger("sgnn.dev")
@@ -147,6 +148,8 @@ class DeviceSampleTrainer(SampleTrainer):
         self.step_ms: List[float] = []
         self.step_losses: List[float] = []
         self.last_overflow = 0
+        # the epochs `_train_steps` has run: the spans' epoch identifier
+        self.epochs_run = 0
         # x0 from row-sharded features (parallel/dp_device.py), else None
         self.fetch_x0: Optional[Callable[[SampledBatch], SampledBatch]] = None
 
@@ -211,27 +214,39 @@ class DeviceSampleTrainer(SampleTrainer):
         bottom hop with `omit_map`).  With `fetch_x0` set (row-sharded
         features, parallel/dp_device.py) the sampler gathers no rows and
         x0 comes from it."""
-        batch = device_sample_batch(
-            self.sample_generator, seeds, valid, self.dev_indptr,
-            self.dev_indices, self.dev_in_deg, self.dev_out_deg,
-            self.dev_features, self.dev_labels, tuple(self.cfg.fanout),
-            self.src_pads, self.weight_kind, degree_mode=self.dev_degree_mode,
-            feat_scale=self._feat_scale, compute_dtype=self.compute_dtype,
-            omit_map=omit_map, gather_features=self.fetch_x0 is None)
-        return batch if self.fetch_x0 is None else self.fetch_x0(batch)
+        with span("sample", self.device):
+            batch = device_sample_batch(
+                self.sample_generator, seeds, valid, self.dev_indptr,
+                self.dev_indices, self.dev_in_deg, self.dev_out_deg,
+                self.dev_features, self.dev_labels, tuple(self.cfg.fanout),
+                self.src_pads, self.weight_kind,
+                degree_mode=self.dev_degree_mode,
+                feat_scale=self._feat_scale, compute_dtype=self.compute_dtype,
+                omit_map=omit_map, gather_features=self.fetch_x0 is None)
+            return batch if self.fetch_x0 is None else self.fetch_x0(batch)
+
+    def train_step(self, batch: SampledBatch,
+                   cache_emb: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`SampleTrainer.train_step` inside the `train_step` span (the
+        host-sampled loop times it as a phase at its call instead)."""
+        with span("train_step"):
+            return super().train_step(batch, cache_emb)
 
     def _seed_batches(self, nids: np.ndarray, shuffle: bool):
         nids = np.asarray(nids, dtype=np.int32)
         if shuffle:
             nids = self.sampler.rng.permutation(nids)
-        for i in range(0, nids.shape[0], self.cfg.batch_size):
-            chunk = nids[i:i + self.cfg.batch_size]
-            seeds = np.zeros(self.seed_pad, np.int32)
-            seeds[: chunk.size] = chunk
-            valid = np.zeros(self.seed_pad, bool)
-            valid[: chunk.size] = True
-            yield (torch.from_numpy(seeds).to(self.device),
-                   torch.from_numpy(valid).to(self.device))
+        for k, i in enumerate(range(0, nids.shape[0], self.cfg.batch_size)):
+            with span("seeds", step=k):
+                chunk = nids[i:i + self.cfg.batch_size]
+                seeds = np.zeros(self.seed_pad, np.int32)
+                seeds[: chunk.size] = chunk
+                valid = np.zeros(self.seed_pad, bool)
+                valid[: chunk.size] = True
+                pair = (torch.from_numpy(seeds).to(self.device),
+                        torch.from_numpy(valid).to(self.device))
+            yield pair
 
     def _train_order(self) -> np.ndarray:
         """The epoch's seed order (BATCH_TYPE)."""
@@ -247,9 +262,13 @@ class DeviceSampleTrainer(SampleTrainer):
     def train_epoch(self) -> Tuple[float, float, int]:
         """One epoch → (mean loss, train acc, sampled edges), with one host
         sync at its end (or one per step when `fused_epoch` is False)."""
-        loss, correct, total, edges = self._train_steps(
-            self._seed_batches(self._train_order(), False))
+        loss, correct, total, edges = self._train_steps(self._epoch_batches())
         return loss, correct / max(total, 1), edges
+
+    def _epoch_batches(self):
+        """The epoch's padded (seeds, valid) pairs; the order is drawn at
+        the first pair, inside the `device_epoch` span."""
+        yield from self._seed_batches(self._train_order(), False)
 
     def _train_steps(self, batches) -> Tuple[float, int, int, int]:
         """`_device_step` over the padded (seeds, valid) pairs of
@@ -257,33 +276,38 @@ class DeviceSampleTrainer(SampleTrainer):
         data-parallel wrapper feeds it each rank's own seeds
         (parallel/dp_device.py) and sums the counts over the ranks."""
         cuda = self.device.type == "cuda"
-        losses, accs, edges, overflow = [], [], [], []
-        events = []
-        if cuda:
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-        for i, (seeds, valid) in enumerate(batches):
-            with self.timers.phase("device_step"):
-                batch, loss, acc = self._device_step(i, seeds, valid)
-                if not self.fused_epoch and cuda:
-                    torch.cuda.synchronize(self.device)
+        epoch = self.epochs_run
+        self.epochs_run += 1
+        with span("device_epoch", epoch=epoch):
+            losses, accs, edges, overflow = [], [], [], []
+            events = []
             if cuda:
                 events.append(torch.cuda.Event(enable_timing=True))
                 events[-1].record()
-            losses.append(loss)
-            accs.append(acc)
-            edges.append(batch.num_sampled_edges())
-            overflow.append(batch.overflow)
-        if not losses:
-            return 0.0, 0, 0, 0
-        stacked = torch.stack(losses)
-        mean_loss = float(stacked.mean())   # the epoch's sync
-        self.step_losses = stacked.tolist()
-        correct, total = torch.stack(accs).sum(dim=0).tolist()
-        self.last_overflow = int(torch.stack(overflow).sum())
-        self.step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-        return mean_loss, int(correct), int(total), int(torch.stack(
-            edges).sum())
+            for i, (seeds, valid) in enumerate(batches):
+                with self.timers.phase("device_step", epoch, i):
+                    batch, loss, acc = self._device_step(i, seeds, valid)
+                    if not self.fused_epoch and cuda:
+                        torch.cuda.synchronize(self.device)
+                if cuda:
+                    events.append(torch.cuda.Event(enable_timing=True))
+                    events[-1].record()
+                losses.append(loss)
+                accs.append(acc)
+                edges.append(batch.num_sampled_edges())
+                overflow.append(batch.overflow)
+            if not losses:
+                return 0.0, 0, 0, 0
+            with span("epoch_sync"):
+                stacked = torch.stack(losses)
+                mean_loss = float(stacked.mean())   # the epoch's sync
+                self.step_losses = stacked.tolist()
+                correct, total = torch.stack(accs).sum(dim=0).tolist()
+                self.last_overflow = int(torch.stack(overflow).sum())
+                self.step_ms = [a.elapsed_time(b)
+                                for a, b in zip(events, events[1:])]
+                n_edges = int(torch.stack(edges).sum())
+        return mean_loss, int(correct), int(total), n_edges
 
     @torch.no_grad()
     def evaluate(self, nids: np.ndarray) -> float:

@@ -34,6 +34,7 @@ from ..config import RunConfig
 from ..data.dataset import Dataset
 from ..sampler.blocks import WeightKind
 from ..utils.logging import get_logger
+from ..utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,8 +168,11 @@ class FullBatchEngine:
     def load_checkpoint_state(self, state: dict) -> None:
         self.base.load_checkpoint_state(state)
 
+    @property
+    def timers(self):
+        return self.base.timers
+
     def run(self, epochs: Optional[int] = None):
-        from ..utils.timing import PhaseTimer
         from .trainer import TrainReport
 
         hist = self.base.run(epochs)
@@ -179,7 +183,7 @@ class FullBatchEngine:
             test_acc=[h["test"] for h in hist],
             losses=[h["loss"] for h in hist],
             edges_per_epoch=[int(self.base.adj.num_edges)] * len(hist),
-            timers=PhaseTimer(),
+            timers=self.base.timers,
             time_skip=self.cfg.time_skip)
 
 
@@ -218,7 +222,13 @@ def build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     PUSHDOWN:1 on a plain sampled engine is the cached trainer on that
     engine's sampler; ESTIMATOR_ADVISOR:route turns PUSHDOWN on when the
     advisor fires.  The *MULTI engines join this process's data-parallel
-    group (`_build_multi`)."""
+    group (`_build_multi`).  The build is the `build` span, recorded with
+    or without a profiler session (utils/timing.py)."""
+    with span("build", always=True):
+        return _build_trainer(cfg, dataset, device)
+
+
+def _build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     spec = engine_from_config(cfg)
     degree_mode = resolve_degree_mode(cfg)
     if spec.fullbatch:

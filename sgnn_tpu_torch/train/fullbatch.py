@@ -69,6 +69,7 @@ from ..parallel.halo import (
 from ..parallel.mesh import DataGroup
 from ..sampler.blocks import WeightKind
 from ..utils.logging import get_logger
+from ..utils.timing import PhaseTimer, span
 from .checkpoint import (
     load_opt_state, load_params, opt_state_dict, params_state,
 )
@@ -418,6 +419,10 @@ class FullBatchTrainer:
         self.optimizer = make_optimizer(cfg, bias_correction=True)
         self.opt_state = self.optimizer.init(self.params.leaves())
         self.clean_metrics = cfg.metrics != "train"
+        # its phase totals stay empty, as the JAX package's; the epochs
+        # `train_epoch` has run are the spans' epoch identifier
+        self.timers = PhaseTimer()
+        self.epochs_run = 0
         self.build_s = time.perf_counter() - t0
 
     # -------------------------------------------------------------- sharded
@@ -525,31 +530,42 @@ class FullBatchTrainer:
     def train_epoch(self) -> Tuple[float, float, float, float]:
         """One forward/backward/update over the whole graph → (loss, train,
         val, test accuracy); one host sync."""
-        leaves = [p.detach().requires_grad_() for p in self.params.leaves()]
-        logp = self.forward(self.params.replace_leaves(leaves), train=True)
-        # the masked NLL over the global train count (`nll_loss_masked`'s
-        # arithmetic): under a mesh, this rank's share of the global mean
-        picked = logp.gather(1, self.y[:, None])[:, 0]
-        loss = torch.where(self.masks[0], -picked, 0.0).sum() / (
-            self.mask_counts[0])
-        loss.backward()
-        grads = [p.grad for p in leaves]
-        if self.group is not None:
-            grads = self.group.reduce_grads(grads)
-        logp = logp.detach()
-        if self.cfg.drop_rate > 0.0 and self.clean_metrics:
-            with torch.no_grad():
-                logp = self.forward(self.params, train=False)
-        new, self.opt_state = self.optimizer.update(
-            grads, self.opt_state, self.params.leaves())
-        self.params = self.params.replace_leaves(new)
-        correct = logp.argmax(dim=-1) == self.y
-        out = torch.stack([loss.detach().float(), *(
-            (correct & m).sum().float() for m in self.masks)])
-        if self.group is not None:  # the loss and the counts over the ranks
-            self.group.all_reduce_sum_(out, "metrics_all_reduce")
-        out[1:] /= self.mask_counts
-        out = out.tolist()
+        dev = self.device
+        epoch = self.epochs_run
+        self.epochs_run += 1
+        with span("epoch", epoch=epoch):
+            with span("forward", dev):
+                leaves = [p.detach().requires_grad_()
+                          for p in self.params.leaves()]
+                logp = self.forward(self.params.replace_leaves(leaves),
+                                    train=True)
+                # the masked NLL over the global train count
+                # (`nll_loss_masked`'s arithmetic): under a mesh, this
+                # rank's share of the global mean
+                picked = logp.gather(1, self.y[:, None])[:, 0]
+                loss = torch.where(self.masks[0], -picked, 0.0).sum() / (
+                    self.mask_counts[0])
+            with span("backward", dev):
+                loss.backward()
+                grads = [p.grad for p in leaves]
+                if self.group is not None:
+                    grads = self.group.reduce_grads(grads)
+            logp = logp.detach()
+            if self.cfg.drop_rate > 0.0 and self.clean_metrics:
+                with span("clean_forward", dev), torch.no_grad():
+                    logp = self.forward(self.params, train=False)
+            with span("update", dev):
+                new, self.opt_state = self.optimizer.update(
+                    grads, self.opt_state, self.params.leaves())
+                self.params = self.params.replace_leaves(new)
+            with span("readback"):
+                correct = logp.argmax(dim=-1) == self.y
+                out = torch.stack([loss.detach().float(), *(
+                    (correct & m).sum().float() for m in self.masks)])
+                if self.group is not None:  # the loss and the counts
+                    self.group.all_reduce_sum_(out, "metrics_all_reduce")
+                out[1:] /= self.mask_counts
+                out = out.tolist()
         return out[0], out[1], out[2], out[3]
 
     @property

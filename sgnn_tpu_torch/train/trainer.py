@@ -41,7 +41,7 @@ from ..nn.optim import make_optimizer
 from ..sampler.blocks import SampledBatch, SampledBlock, WeightKind
 from ..sampler.host import HostSampledBatch, HostSampler
 from ..utils.logging import get_logger
-from ..utils.timing import PhaseTimer
+from ..utils.timing import PhaseTimer, span
 from .advisor import advise_estimator_regime
 from .checkpoint import (
     decode_np_rng, load_opt_state, load_params, np_rng_state, opt_state_dict,
@@ -149,12 +149,15 @@ def loss_and_grads(params: GNNParams, family: str, batch: SampledBatch, *,
     the batch's device.  `cache_emb` is the hot-vertex cache's layer-0
     rows (`model_forward`)."""
     leaves = [p.detach().requires_grad_() for p in params.leaves()]
-    logp = model_forward(params.replace_leaves(leaves), family, batch,
-                         drop_rate=drop_rate, train=True, generator=generator,
-                         remat=remat, batch_norm=batch_norm, heads=heads,
-                         cache_emb=cache_emb)
-    loss = nll_loss_masked(logp, batch.labels, batch.label_valid)
-    loss.backward()
+    with span("forward", batch.labels):
+        logp = model_forward(params.replace_leaves(leaves), family, batch,
+                             drop_rate=drop_rate, train=True,
+                             generator=generator, remat=remat,
+                             batch_norm=batch_norm, heads=heads,
+                             cache_emb=cache_emb)
+        loss = nll_loss_masked(logp, batch.labels, batch.label_valid)
+    with span("backward", batch.labels):
+        loss.backward()
     return StepOut(loss.detach(), logp.detach(), [p.grad for p in leaves])
 
 
@@ -488,11 +491,12 @@ class SampleTrainer:
                              heads=self.cfg.heads, cache_emb=cache_emb)
         grads = (out.grads if self.grad_reduce is None
                  else self.grad_reduce(out.grads))
-        new, self.opt_state = self.optimizer.update(
-            grads, self.opt_state, self.params.leaves())
-        self.params = self.params.replace_leaves(new)
-        return out.loss, masked_accuracy(out.logp, batch.labels,
-                                         batch.label_valid)
+        with span("update", self.device):
+            new, self.opt_state = self.optimizer.update(
+                grads, self.opt_state, self.params.leaves())
+            self.params = self.params.replace_leaves(new)
+            return out.loss, masked_accuracy(out.logp, batch.labels,
+                                             batch.label_valid)
 
     @torch.no_grad()
     def eval_step(self, batch: SampledBatch) -> torch.Tensor:

@@ -1462,3 +1462,36 @@ def test_reordered_k2_matches_plain(cuda_device, mode):
         outs.append(out.cpu())
     back = outs[1][torch.from_numpy(old_to_new).long()]
     torch.testing.assert_close(back, outs[0], **F32)
+
+
+def test_sample_span_holds_its_kernel_launches(cuda_device):
+    """The program's spans are on the clock of the profiler's events on
+    the card too: in a profiled `sample` call (CUDA activity only, as the
+    benchmark's traced window records), every kernel launch the trace
+    holds lies inside the `sample` span, and the span's events give its
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgnn_tpu_torch.utils import timing
+
+    ds = random_graph_dataset(4000, 10, 32, 5, seed=0)
+    cfg = RunConfig(algorithm="GATSAMPLEALLGPU", layer_sizes=[32, 16, 5],
+                    fanout=[5, 3], batch_size=512, heads=2, vertices=4000)
+    trainer = build_trainer(cfg, ds, device=cuda_device)
+    seeds, valid = next(trainer._seed_batches(trainer.train_nids, False))
+    trainer.sample(seeds, valid)
+    torch.cuda.synchronize()
+    timing.RECORDER.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        assert timing.tracing()
+        trainer.sample(seeds, valid)
+        torch.cuda.synchronize()
+    (s,) = [r for r in timing.RECORDER.records() if r["name"] == "sample"]
+    launches = [e for e in prof.profiler.kineto_results.events()
+                if "LaunchKernel" in e.name()]
+    assert launches
+    for e in launches:
+        a = e.start_ns()
+        assert s["start_ns"] <= a and a + e.duration_ns() <= s["end_ns"], (
+            e.name(), a, s)
+    assert s["device"] and s["device_ms"] > 0
