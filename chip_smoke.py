@@ -82,11 +82,22 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
 10. train_gat — GATSAMPLEALLGPU (device sampler), GAT 602-128-41, heads 4,
                fanout 25-10, batch 10000: the first batch's loss and every
                weight's and attention vector's gradient on the card held to
-               the port's CPU on the same blocks (drop 0, seeded nonzero
-               attention), then one epoch (16 steps, drop 0.5) and
-               `evaluate`: finite losses, the loss falling, no K1 and no K3
-               launch (sampled GAT aggregates with torch ops); per-step
-               median time, sampled edges/s, accuracies, peak memory;
+               the port's CPU in f64 on the same blocks (drop 0, seeded
+               nonzero attention; the CPU's f32 readings beside them), then
+               one epoch (16 steps, drop 0.5) and
+               `evaluate`: finite losses, the loss falling, no K1-K4
+               launch, the sampled GAT kernels' (csrc/gat_sampled.cu) a
+               forward per layer of each step and eval batch and a
+               backward per layer of each step, `gat_sampled.kernel` the
+               layers; per-step median time, sampled edges/s, accuracies,
+               peak memory;
+10b. kernel_gat_sampled — `scripts/torch_gat_sampled.py`'s `measure` on
+               the same graph: at one device-sampled batch's two layers
+               (F=128 H=4, F=41 H=1) the sampled GAT kernels held to their
+               plain versions in f64 (1e-5) and bit-identical on repeat,
+               timed beside plain, the torch-op path they replace (the
+               layer's attention forward + backward under autograd, and
+               through the kernels) and the bound; layouts and registers;
 11. kernel_k2_bwd — K2's backward (`spmm_csr_bwd_cuda`: csr_sum.cuh's
                edge-balanced sum over the transposed CSR, counted apart)
                against `spmm_csr_plain` over the same CSR, on skewed random
@@ -286,7 +297,8 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
 24. kernels  — one line listing every kernel with its launches on its main
                path (serving for `spmm_csr`, train_device for K1,
                serving_gat for K3, train_full for K2's backward and K4,
-               kernel_probes for the probes) and, for K2, K3, K4 and K1, on
+               train_gat for the sampled GAT kernels, kernel_probes for
+               the probes) and, for K2, K3, K4 and K1, on
                the paths of phases 16-19 and 21-23 (`launches_by_path`),
                its error and its times (`spmm_csr` and `gat_bwd_dst` also
                their layouts and registers and local bytes at the main
@@ -1093,6 +1105,7 @@ def main() -> int:
     from sgnn_tpu_torch.ops.cuda import gather_agg as k1
     from sgnn_tpu_torch.ops.cuda.build import build_all
     from sgnn_tpu_torch.ops.cuda import gat_bwd as k4
+    from sgnn_tpu_torch.ops.cuda import gat_sampled as gsk
     from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda, vector_columns
     from sgnn_tpu_torch.ops.cuda.gat_bwd import (
         dst_layout, gat_bwd_dst_cuda, gat_bwd_src_cuda,
@@ -1136,7 +1149,7 @@ def main() -> int:
     from sgnn_tpu_torch.train.trainer import (
         host_batch_to_device, loss_and_grads,
     )
-    from sgnn_tpu_torch.utils import roofline
+    from sgnn_tpu_torch.utils import roofline, timing
     from sgnn_tpu_torch.utils.timing import PhaseTimer, cuda_graph_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
@@ -1262,6 +1275,14 @@ def main() -> int:
 
     def counts() -> dict:
         return {n: f.launches for n, f in counted.items()}
+
+    def load_script(stem: str):
+        spec = importlib.util.spec_from_file_location(
+            stem, pathlib.Path(__file__).resolve().parent / "scripts"
+            / f"{stem}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
 
     def first_batch(trainer, omit_map=None):
         """The first TRAIN_BATCH train vertices of `trainer`, sampled on the
@@ -1929,7 +1950,12 @@ def main() -> int:
             "GATSAMPLEALLGPU did not build the GAT device trainer")
     # the first batch at drop 0, card against CPU, with seeded nonzero
     # attention vectors (the trainer's own start at zeros, uniform
-    # attention, which would leave the scores untested)
+    # attention, which would leave the scores untested).  The CPU runs its
+    # torch ops in f64, the reference: the card's f32 kernels and the CPU's
+    # f32 torch ops sum in other orders, and on this draw a1's gradient,
+    # a small sum of cancelling terms, differs between them by 3.4e-4 of
+    # its largest entry: the card's lies within 9e-6 of f64, the CPU's f32
+    # 3.4e-4 off (PERF.md); both f32 readings are kept
     check_params = gat_trainer.params._replace(attn=tuple(
         (torch.randn(a.shape, generator=attn_gen) * GAT_ATTN_SCALE).to(dev)
         for a in gat_trainer.params.attn))
@@ -1939,15 +1965,27 @@ def main() -> int:
     cpu = loss_and_grads(check_params.to("cpu"), "gat",
                          batch_to(batch, "cpu"), heads=GAT_TRAIN_HEADS)
     cpu_step_s = time.perf_counter() - t0
-    loss_diff = abs(card.loss.item() - cpu.loss.item())
+    ref = loss_and_grads(
+        check_params.to("cpu", torch.float64), "gat",
+        dataclasses.replace(batch_to(batch, "cpu"),
+                            x0=batch.x0.cpu().double()),
+        heads=GAT_TRAIN_HEADS)
+    loss_diff = abs(card.loss.item() - ref.loss.item())
     require(loss_diff <= TRAIN_LOSS_ATOL,
-            f"GAT card vs CPU loss: {loss_diff}")
-    grad_errs = [rel_err(a, b) for a, b in zip(card.grads, cpu.grads)]
+            f"GAT card vs CPU f64 loss: {loss_diff}")
+    grad_errs = [rel_err(a, b) for a, b in zip(card.grads, ref.grads)]
     require(len(grad_errs) == 4 and max(grad_errs) <= TRAIN_GRAD_RTOL,
-            f"GAT card vs CPU gradients (W0, W1, a0, a1): {grad_errs}")
+            f"GAT card vs CPU f64 gradients (W0, W1, a0, a1): {grad_errs}")
+    cpu_f32_errs = {
+        "cpu_f32_vs_f64": [rel_err(a, b) for a, b in zip(cpu.grads,
+                                                         ref.grads)],
+        "card_vs_cpu_f32": [rel_err(a, b) for a, b in zip(card.grads,
+                                                          cpu.grads)]}
     first_loss = card.loss.item()
-    del card, cpu, batch
+    del card, cpu, ref, batch
     reset_counts()
+    gsk.gat_sampled_fwd_cuda.launches = gsk.gat_sampled_bwd_cuda.launches = 0
+    layers_before = timing.RECORDER.counters.get("gat_sampled.kernel")
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1955,6 +1993,12 @@ def main() -> int:
     epoch_s = time.perf_counter() - t0
     val_acc = gat_trainer.evaluate(gat_trainer.val_nids)
     gat_train_counts = counts()
+    gat_evals = -(-gat_trainer.val_nids.size // TRAIN_BATCH)
+    gat_sampled_launches = {
+        "fwd": gsk.gat_sampled_fwd_cuda.launches,
+        "bwd": gsk.gat_sampled_bwd_cuda.launches,
+        "layers": (timing.RECORDER.counters.get("gat_sampled.kernel")
+                   - layers_before)}
     steps = len(gat_trainer.step_ms)
     losses = gat_trainer.step_losses
     require(all(np.isfinite(losses)) and np.isfinite(tr_loss),
@@ -1963,7 +2007,12 @@ def main() -> int:
     require(float(np.mean(losses[-4:])) < losses[0],
             f"GAT loss did not fall: first {losses[0]}, last 4 {losses[-4:]}")
     require(not any(gat_train_counts.values()),
-            f"sampled GAT launched kernels: {gat_train_counts}")
+            f"sampled GAT launched K1-K4: {gat_train_counts}")
+    steps_evals = 2 * (len(gat_trainer.step_ms) + gat_evals)
+    require(gat_sampled_launches == {"fwd": steps_evals,
+                                     "bwd": 2 * len(gat_trainer.step_ms),
+                                     "layers": steps_evals},
+            f"sampled GAT kernel launches: {gat_sampled_launches}")
     med_step_ms = statistics.median(gat_trainer.step_ms[1:])
     emit({"phase": "train_gat", "engine": "GATSAMPLEALLGPU",
           "model": "gat 602-128-41", "heads": GAT_TRAIN_HEADS,
@@ -1972,6 +2021,7 @@ def main() -> int:
           "first_batch_loss": first_loss,
           "first_batch_loss_abs_diff": loss_diff, "loss_atol": TRAIN_LOSS_ATOL,
           "grad_rel_err": grad_errs, "grad_rtol": TRAIN_GRAD_RTOL,
+          "grad_rel_err_f32": cpu_f32_errs,
           "host_cpu_loss_and_grads_s": cpu_step_s,
           "steps": steps, "step_ms": gat_trainer.step_ms,
           "step_ms_median_after_first": med_step_ms,
@@ -1981,8 +2031,19 @@ def main() -> int:
           "overflow": gat_trainer.last_overflow, "losses": losses,
           "train_acc": tr_acc, "val_acc": val_acc,
           "launches": gat_train_counts,
+          "gat_sampled_launches": gat_sampled_launches,
+          "eval_batches": gat_evals,
           "peak_mem_gb_epoch": torch.cuda.max_memory_allocated() / 1e9})
     del gat_trainer
+
+    # ---- 10b. the sampled GAT kernels at the training shapes ---------------
+    gat_sampled = load_script("torch_gat_sampled").measure(dev, ds)
+    for row in gat_sampled["layers"]:
+        require(max(row["rel_err"].values()) <= 1e-5
+                and row["repeat_bit_identical"],
+                f"sampled GAT kernels, layer {row['layer']}: "
+                f"{row['rel_err']}, repeat {row['repeat_bit_identical']}")
+    emit({"phase": "kernel_gat_sampled", **gat_sampled})
 
     # ---- 11. K2's backward against its plain version -----------------------
     def skewed_rows(n_rows, n_src, no_out_every):
@@ -2403,14 +2464,6 @@ def main() -> int:
               backward=True, row_ops=3.0)}})
 
     # ---- 14. rate probes (main path: the probe scripts, counted) ----------
-    def load_script(stem: str):
-        spec = importlib.util.spec_from_file_location(
-            stem, pathlib.Path(__file__).resolve().parent / "scripts"
-            / f"{stem}.py")
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
-
     probe_t0 = time.perf_counter()
     gather_mod = load_script("torch_probe_gather")
     tile_mod = load_script("torch_probe_tile_spmm")
@@ -3070,7 +3123,7 @@ def main() -> int:
         "train_device_sampled_edges_per_s_steady": dev_edges_per_s, **run}
     del gs_tr
     # (b) GCNSAMPLEPDCACHE (the default route: the device trainer) and
-    # GATSAMPLEPDCACHE heads 4 (no K1, no K3: sampled GAT is torch ops)
+    # GATSAMPLEPDCACHE heads 4 (no K1, no K3: sampled GAT has its own)
     for algo, heads, k1_on_path in (("GCNSAMPLEPDCACHE", 1, True),
                                     ("GATSAMPLEPDCACHE", GAT_TRAIN_HEADS,
                                      False)):
@@ -3874,6 +3927,31 @@ def main() -> int:
             k4_line.update(layouts=[t["layout"] for t in rows],
                            registers=[t["registers"] for t in rows])
         kernels.append(k4_line)
+    # one GATSAMPLEALLGPU heads-4 step's two layers, forward + backward
+    gs_rows = [{"ms": t["ms"]["fwd"] + t["ms"]["bwd"],
+                "plain_ms": t["ms"]["plain_fwd_bwd"], "library_ms": None,
+                "max_abs_err": max(t["rel_err"].values()),
+                "bound_ms": sum(b["bound_ms"] for b in t["bound"].values()),
+                "bound_by": ("bytes" if all(b["bound_by"] == "bytes"
+                                            for b in t["bound"].values())
+                             else "operations")}
+               for t in gat_sampled["layers"]]
+    gs_line = line(
+        "gat_sampled", gs_rows, "sgnn_tpu_torch/csrc/gat_sampled.cu",
+        "sgnn_tpu/models/gnn.py:84 (XLA einsums, no Pallas kernel)",
+        gat_sampled_launches,
+        "one GATSAMPLEALLGPU heads-4 step's two layers (D, K, S, F, H) = "
+        + ", ".join(f"({t['D']}, {t['K']}, {t['S']}, {t['F']}, {t['H']})"
+                    for t in gat_sampled["layers"])
+        + ", forward + backward (max_abs_err: relative to f64 plain; "
+        "library_ms null: no single PyTorch call computes it; "
+        "torch_ops_ms is the layer's attention through the torch ops "
+        "under autograd, kernels_layer_ms the same through the kernels)")
+    gs_line.update(
+        torch_ops_ms=gat_sampled["ms_per_step"]["layer_torch_ops"],
+        kernels_layer_ms=gat_sampled["ms_per_step"]["layer_kernels"],
+        layouts=[t["layout"] for t in gat_sampled["layers"]])
+    kernels.append(gs_line)
     for kname, rows, source, replaces, what in (
             ("probe_gather_sum", gather_rows, "probe_gather.cu",
              "scripts/profile_vmem_gather.py:57",

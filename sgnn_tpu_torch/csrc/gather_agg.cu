@@ -249,6 +249,24 @@ block_transpose_fill_kernel(const int2* __restrict__ sorted,
   }
 }
 
+// The slots' variant of the fill, for a caller that reads per-slot state
+// itself (the sampled GAT backward, gat_sampled.cu): entry i is the slot
+// p = sorted[i].y, and rowptr_t as the fill's.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+block_transpose_slots_kernel(const int2* __restrict__ sorted,
+                             int32_t* __restrict__ slot_t,
+                             int64_t* __restrict__ rowptr_t, int64_t n_slots,
+                             int64_t num_src) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t n = max(n_slots, num_src + 1);
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride) {
+    if (i < n_slots) slot_t[i] = sorted[i].y;
+    if (i <= num_src) rowptr_t[i] = lower_bound_key(sorted, n_slots, i);
+  }
+}
+
 // dw's layout: a destination row to a group of `lanes` lanes (32 / lanes
 // rows a warp), `vec` adjacent columns a load (4: one 16-byte f32 or
 // 8-byte bf16 load, where F % 4 == 0 and g and x are aligned; else 1),
@@ -531,6 +549,21 @@ extern "C" int sgnn_block_transpose_fill(const void* sorted, const void* w,
       static_cast<const int2*>(sorted), static_cast<const float*>(w),
       static_cast<int32_t*>(col_t), static_cast<float*>(w_t),
       static_cast<int64_t*>(rowptr_t), n_slots, k_slots, num_src);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Or the slots: slot_t [n_slots] int32 and rowptr_t [num_src + 1] int64.
+extern "C" int sgnn_block_transpose_fill_slots(const void* sorted,
+                                               void* slot_t, void* rowptr_t,
+                                               long long n_slots,
+                                               long long num_src,
+                                               void* stream) {
+  const int64_t n = std::max<int64_t>(n_slots, num_src + 1);
+  const dim3 grid(sgnn::warp_blocks(n / 32 + 1));
+  block_transpose_slots_kernel<<<grid, kWarpsPerBlock * 32, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int2*>(sorted), static_cast<int32_t*>(slot_t),
+      static_cast<int64_t*>(rowptr_t), n_slots, num_src);
   return static_cast<int>(cudaGetLastError());
 }
 

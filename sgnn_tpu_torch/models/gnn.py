@@ -29,8 +29,10 @@ from ..ops.aggregate import (
     aggregate_edges_to_dst, edge_softmax, gather_aggregate,
     scatter_src_to_edges,
 )
-from ..ops.gat import NEG_SLOPE
+from ..ops.gat import NEG_SLOPE, pack_score_tables
+from ..ops.gat_sampled import gat_sampled_aggregate
 from ..sampler.blocks import SampledBatch
+from ..utils import timing
 
 MODEL_FAMILIES = ("gcn", "sage", "gat")
 
@@ -142,8 +144,28 @@ def _gat_layer(w: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
     """One sampled GAT layer, pre-activation (sgnn_tpu/models/gnn.py:84-125):
     `heads` > 1 splits the F' output columns into blocks, each with its own
     attention (concat-of-heads; parameter shapes as single-head).  The
-    leaky_relu slope is NEG_SLOPE, the one whole-graph serving uses."""
+    leaky_relu slope is NEG_SLOPE, the one whole-graph serving uses.  On
+    the card the attention aggregation is one op over hand-written kernels
+    (ops/gat_sampled.py: the same function, no [D, K, F] edge tensors;
+    the counter `gat_sampled.kernel` counts the layers that take it); on
+    the CPU the torch ops of `gat_attention_ops`."""
     h = x @ w.to(x.dtype)                                   # [S, F']
+    if h.device.type == "cuda":
+        fprime = h.shape[-1]
+        ts, td = pack_score_tables(h, a[:fprime, 0].to(h.dtype),
+                                   a[fprime:, 0].to(h.dtype), heads)
+        timing.RECORDER.counters.add("gat_sampled.kernel", 1)
+        return gat_sampled_aggregate(h, ts, td, nbr, wgt, seed_in_src, heads)
+    return gat_attention_ops(h, a, nbr, wgt, seed_in_src, heads)
+
+
+def gat_attention_ops(h: torch.Tensor, a: torch.Tensor, nbr: torch.Tensor,
+                      wgt: torch.Tensor, seed_in_src: torch.Tensor,
+                      heads: int = 1) -> torch.Tensor:
+    """A sampled GAT layer's attention aggregation from h = x·W [S, F'] in
+    torch ops, the CPU's path: the [D, K, F'] edge tensors, the score
+    einsums, `edge_softmax`, `aggregate_edges_to_dst`, and autograd's
+    backward through them."""
     fprime = h.shape[-1]
     h_src_e = scatter_src_to_edges(h, nbr)                  # [D, K, F']
     h_dst = h.index_select(0, seed_in_src)                  # [D, F']

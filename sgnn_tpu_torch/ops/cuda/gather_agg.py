@@ -18,7 +18,10 @@ Four entry points, each launching its kernels on PyTorch's current stream:
 Each checks device, dtype, contiguity and shapes and raises on anything
 the kernel does not take; index bounds are the caller's (see
 `ops/aggregate.check_block_args`).  Each has a `.launches` counter, raised
-by one where it launches its kernel and nowhere else.
+by one where it launches its kernel and nowhere else.  The sampled GAT
+backward (ops/cuda/gat_sampled.py) shares the transpose's radix passes,
+ending in the slots themselves (`transpose_slots`), and dx's transpose
+and sum (`block_sum`), counted by its own wrapper.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ _ARGS = {
     "sgnn_block_transpose_count": [_P] * 4 + [_I64, _I32, _I32, _I64, _P],
     "sgnn_block_transpose_scatter": [_P] * 6 + [_I64, _I32, _I32, _I64, _P],
     "sgnn_block_transpose_fill": [_P] * 5 + [_I64, _I32, _I64, _P],
+    "sgnn_block_transpose_fill_slots": [_P] * 3 + [_I64, _I64, _P],
     "sgnn_gather_agg_bwd_dx": CSR_SUM_ARGTYPES,
     "sgnn_gather_agg_dw_layout": ([_P, _P, _I64, _I32, _I32]
                                   + [ctypes.POINTER(_I32)] * 5),
@@ -129,6 +133,39 @@ def _transpose(nbr: torch.Tensor, w: torch.Tensor, num_src: int,
     w_t = torch.empty(n_slots, dtype=torch.float32, device=dev)
     if n_slots == 0:
         return rowptr_t.zero_(), col_t, w_t
+    work, src = _sort_slots(nbr, w, num_src, stream)
+    _call("sgnn_block_transpose_fill", stream, src, w.data_ptr(),
+          col_t.data_ptr(), w_t.data_ptr(), rowptr_t.data_ptr(), n_slots, k,
+          num_src)
+    return rowptr_t, col_t, w_t
+
+
+def transpose_slots(nbr: torch.Tensor, w: torch.Tensor, num_src: int,
+                    stream: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The transpose's radix passes, then its slots: `(rowptr_t [S+1]
+    int64, slot_t [D*K] int32)`, slot_t[i] the slot p = d·K + k of entry
+    i (each source's slots in ascending p, zero-weight slots past
+    rowptr_t[S]), on `stream` of the current device.  For a caller that
+    reads per-slot state itself (ops/cuda/gat_sampled.py); counted by the
+    caller's wrapper."""
+    check_transpose_args(nbr, w, num_src)
+    n_slots = nbr.numel()
+    rowptr_t = torch.empty(num_src + 1, dtype=torch.int64, device=nbr.device)
+    slot_t = torch.empty(n_slots, dtype=torch.int32, device=nbr.device)
+    if n_slots == 0:
+        return rowptr_t.zero_(), slot_t
+    work, src = _sort_slots(nbr, w, num_src, stream)
+    _call("sgnn_block_transpose_fill_slots", stream, src, slot_t.data_ptr(),
+          rowptr_t.data_ptr(), n_slots, num_src)
+    return rowptr_t, slot_t
+
+
+def _sort_slots(nbr: torch.Tensor, w: torch.Tensor, num_src: int,
+                stream: int) -> tuple[torch.Tensor, int]:
+    """The stable radix sort of the slots' (key, slot) pairs: the int32
+    workspace, which holds the result until it is freed, and the address
+    of the sorted pairs in it."""
+    n_slots, dev = nbr.numel(), nbr.device
     tiles = -(-n_slots // SORT_TILE_SLOTS)
     # keys reach num_src: every pass sorts RADIX_BITS more of their bits
     passes = -(-max(1, num_src.bit_length()) // RADIX_BITS)
@@ -149,10 +186,7 @@ def _transpose(nbr: torch.Tensor, w: torch.Tensor, num_src: int,
               w.data_ptr(), src, counts.data_ptr(), cums.data_ptr(),
               pairs[step % 2], n_slots, num_src, step * RADIX_BITS, tiles)
         src = pairs[step % 2]
-    _call("sgnn_block_transpose_fill", stream, src, w.data_ptr(),
-          col_t.data_ptr(), w_t.data_ptr(), rowptr_t.data_ptr(), n_slots, k,
-          num_src)
-    return rowptr_t, col_t, w_t
+    return work, src
 
 
 def gather_agg_bwd_dx_cuda(g: torch.Tensor, nbr: torch.Tensor,
@@ -167,14 +201,21 @@ def gather_agg_bwd_dx_cuda(g: torch.Tensor, nbr: torch.Tensor,
     if not (d and k and feat and s):
         return torch.zeros((s, feat), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        stream = _stream(x)
-        csr_t = _transpose(nbr, w, s, stream)
-        block_transpose_cuda.launches += 1
-        dx = launch_csr_sum(
-            functools.partial(_entry, "sgnn_gather_agg_bwd_dx"),
-            "gather_agg_bwd_dx", g, *csr_t, d * k, stream)
+        dx = block_sum(g, nbr, w, s, _stream(x))
+    block_transpose_cuda.launches += 1
     gather_agg_bwd_dx_cuda.launches += 1
     return dx
+
+
+def block_sum(g: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
+              num_src: int, stream: int) -> torch.Tensor:
+    """dx's two steps on `stream` of the current device, counted by the
+    caller: the transpose, then the CSR sum of g's rows along it, [S, F]
+    in g's dtype.  For nbr, w of D·K >= 1 slots and S >= 1."""
+    csr_t = _transpose(nbr, w, num_src, stream)
+    return launch_csr_sum(
+        functools.partial(_entry, "sgnn_gather_agg_bwd_dx"),
+        "gather_agg_bwd_dx", g, *csr_t, nbr.numel(), stream)
 
 
 def dw_layout(g: torch.Tensor, x: torch.Tensor, k: int) -> dict:

@@ -65,21 +65,29 @@ NEG_SLOPE = 0.2
 F32_TINY = torch.finfo(torch.float32).tiny
 
 
+def table_dtype(ht: torch.Tensor) -> torch.dtype:
+    """The score tables' dtype for rows `ht`: f64 for f64 rows, else f32
+    (a bf16 row widens exactly)."""
+    return torch.float64 if ht.dtype == torch.float64 else torch.float32
+
+
 def pack_score_tables(ht: torch.Tensor, a_src: torch.Tensor,
                       a_dst: torch.Tensor, heads: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row score halves `(ts, td)`, each [rows, heads] f32: head h's
-    attention vectors are the fh-column blocks of a_src / a_dst ([F]), the
-    head structure of models/gnn._gat_layer.  Products in f32 (a bf16 ht
-    widens exactly), as the JAX einsum with f32 accumulation."""
+    """Per-row score halves `(ts, td)`, each [rows, heads] in
+    `table_dtype(ht)`: head h's attention vectors are the fh-column blocks
+    of a_src / a_dst ([F]), the head structure of models/gnn._gat_layer.
+    Products in f32 (a bf16 ht widens exactly), as the JAX einsum with f32
+    accumulation."""
     f = ht.shape[1]
     if heads < 1 or f % heads:
         raise ValueError(f"pack_score_tables: heads={heads} must divide the "
                          f"width {f}")
     fh = f // heads
-    hh = ht.float().reshape(-1, heads, fh)
-    ts = torch.einsum("vhf,hf->vh", hh, a_src.float().reshape(heads, fh))
-    td = torch.einsum("vhf,hf->vh", hh, a_dst.float().reshape(heads, fh))
+    acc = table_dtype(ht)
+    hh = ht.to(acc).reshape(-1, heads, fh)
+    ts = torch.einsum("vhf,hf->vh", hh, a_src.to(acc).reshape(heads, fh))
+    td = torch.einsum("vhf,hf->vh", hh, a_dst.to(acc).reshape(heads, fh))
     return ts.contiguous(), td.contiguous()
 
 

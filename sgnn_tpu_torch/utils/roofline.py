@@ -234,6 +234,33 @@ def _b2(b, V, E, F, H) -> Work:
     return _k4(b, V, E, F, H, 1, 2)
 
 
+def _gat_sampled(b, D, K, S, F, H, nnz, backward) -> Work:
+    # nbr and w, seed, the two score tables and att [D, K, H] f32 (the
+    # forward writes it, the backward reads it) once; h's S rows read; the
+    # forward writes out's D rows, the backward reads G's D rows and writes
+    # dh's S rows and dts, dtd.  A (valid slot, column): 2 flops a product
+    # (the forward's att·h; the backward's datt dot and att·G); a (valid
+    # slot, head): the score, leaky_relu, max, exp and z, 8 in all forward,
+    # 10 backward.  A gather reads a source row a valid slot, forward and
+    # in the backward's destination pass, and a G row a slot in its source
+    # pass
+    fixed = D * K * 8 + D * 4 + 2 * S * H * 4 + D * K * H * 4
+    if not backward:
+        once = fixed + S * F * b + D * F * b
+        return once, 2 * nnz * F + 8 * nnz * H, once + (nnz - S) * F * b
+    once = fixed + 2 * S * F * b + D * F * b + 2 * S * H * 4
+    return (once, 4 * nnz * F + 10 * nnz * H,
+            once + (2 * nnz - S - D) * F * b)
+
+
+def _gat_sampled_fwd(b, D, K, S, F, H, nnz) -> Work:
+    return _gat_sampled(b, D, K, S, F, H, nnz, False)
+
+
+def _gat_sampled_bwd(b, D, K, S, F, H, nnz) -> Work:
+    return _gat_sampled(b, D, K, S, F, H, nnz, True)
+
+
 def _p_g(b, rows_read, E, F, tiles) -> Work:
     # the distinct table rows read, the indices, one summed row a tile
     fixed = E * 4 + tiles * F * 4
@@ -270,6 +297,7 @@ _KERNELS: Dict[str, Callable[..., Work]] = {
     "k1_transpose": _k1_transpose,
     "k2_fwd": _k2, "k2_bwd": _k2, "k2_pushdown": _k2_pushdown,
     "k3": _k3, "b1": _b1, "b2": _b2,
+    "gat_sampled_fwd": _gat_sampled_fwd, "gat_sampled_bwd": _gat_sampled_bwd,
     "p_g": _p_g, "p_s": _p_s, "p_t": _p_t, "p_t_gather": _p_t_gather,
     "p_a": _p_a,
 }
@@ -282,10 +310,12 @@ def kernel_bound(kernel: str, device: str, dtype_bytes: int = 4,
 
     kernel (its shape keywords): k1_fwd, k1_dx, k1_dw (D, K, S, F, nnz);
     k1_transpose (D, K, S); k2_fwd, k2_bwd (V, E, F); k2_pushdown (C, V,
-    E, F); k3, b1, b2 (V, E, F, H); p_g (rows_read, E, F, tiles); p_s (m,
+    E, F); k3, b1, b2 (V, E, F, H); gat_sampled_fwd, gat_sampled_bwd (D,
+    K, S, F, H, nnz); p_g (rows_read, E, F, tiles); p_s (m,
     n); p_t (slab_rows, F, E, windows, out_rows[, dst, weighted]);
     p_t_gather (slab_rows, F, E); p_a (tiles, S, W, E, F, cols, live_dst,
-    live_both).  Where the work depends on the data (K1's nonzero slots,
+    live_both).  Where the work depends on the data (K1's and the sampled
+    GAT kernels' nonzero slots,
     the rows P-G reads, P-A's live edges) the shape counts this run's.
 
     Returns bytes_once, operations, gather_bytes, bound_ms = max(bytes

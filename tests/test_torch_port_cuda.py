@@ -10,6 +10,8 @@ held to its plain PyTorch version on the same CUDA tensors, and the server
 on the card to the same server on the CPU.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from sgnn_tpu_torch.ops import aggregate as agg
 from sgnn_tpu_torch.ops import probes as pr
 from sgnn_tpu_torch.ops.cuda import gather_agg as k1
 from sgnn_tpu_torch.ops.cuda import probes as prc
+from sgnn_tpu_torch.ops.cuda import gat_sampled as gs
 from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda, vector_columns
 from sgnn_tpu_torch.ops.cuda.gat_bwd import (
     dst_layout, gat_bwd_dst_cuda, gat_bwd_src_cuda,
@@ -44,6 +47,7 @@ from sgnn_tpu_torch.train import build_trainer
 from sgnn_tpu_torch.train.fullbatch import FullBatchTrainer
 from sgnn_tpu_torch.train.inference import InferenceServer
 from sgnn_tpu_torch.train.trainer import host_batch_to_device, loss_and_grads
+from sgnn_tpu_torch.utils import timing
 from sgnn_tpu_torch.utils.timing import cuda_graph_ms
 
 pytestmark = pytest.mark.cuda
@@ -498,21 +502,202 @@ def test_gat_server_on_card_matches_cpu(cuda_device, heads):
 
 
 def test_gat_device_trainer_epoch(cuda_device):
-    """GATSAMPLEALLGPU on the card: finite losses, and neither K1 nor K3
-    launched (sampled GAT aggregates with torch ops)."""
+    """GATSAMPLEALLGPU on the card: finite losses, neither K1 nor K3
+    launched, and the sampled GAT kernels taken by every layer: a forward
+    per layer of each step and eval batch, a backward per layer of each
+    step (`gat_sampled.kernel` counts the layers)."""
     ds = random_graph_dataset(3000, 10, 48, 5, seed=4)
     cfg = RunConfig(algorithm="GATSAMPLEALLGPU", layer_sizes=[48, 16, 5],
                     fanout=[5, 3], batch_size=256, drop_rate=0.5, heads=4,
                     vertices=ds.num_vertices)
     tr = build_trainer(cfg, ds, device=cuda_device)
     fns = (k1.gather_agg_fwd_cuda, k1.gather_agg_bwd_dx_cuda,
-           k1.gather_agg_bwd_dw_cuda, gat_aggregate_cuda)
+           k1.gather_agg_bwd_dw_cuda, k1.block_transpose_cuda,
+           gat_aggregate_cuda)
     before = [f.launches for f in fns]
+    ours = [gs.gat_sampled_fwd_cuda.launches, gs.gat_sampled_bwd_cuda.launches,
+            timing.RECORDER.counters.get("gat_sampled.kernel")]
     loss, acc, edges = tr.train_epoch()
     acc_val = tr.evaluate(tr.val_nids)
+    steps = len(tr.step_ms)
+    evals = -(-tr.val_nids.size // cfg.batch_size)
     assert np.isfinite(tr.step_losses).all() and edges > 0
     assert 0.0 <= acc <= 1.0 and 0.0 <= acc_val <= 1.0
     assert [f.launches for f in fns] == before
+    assert [gs.gat_sampled_fwd_cuda.launches - ours[0],
+            gs.gat_sampled_bwd_cuda.launches - ours[1],
+            timing.RECORDER.counters.get("gat_sampled.kernel") - ours[2]] == [
+        2 * (steps + evals), 2 * steps, 2 * (steps + evals)]
+
+
+# ---------------------------------------- sampled GAT (gat_sampled.cu) ----
+def _batch_to(batch, device):
+    """A SampledBatch with every tensor moved to `device`."""
+    def move(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).to(device)
+            for f in dataclasses.fields(obj)
+            if hasattr(getattr(obj, f.name), "to")})
+    return dataclasses.replace(move(batch),
+                               blocks=[move(b) for b in batch.blocks])
+
+
+def _gat_sampled_inputs(rng, d, k, s, feat, heads, hub=None):
+    """A sampled GAT block: 30% padded slots (pointing at row 0, as the
+    sampler's), every 7th row with no valid slot, `hub` (if given) taking
+    half the slots, seeds drawn with repeats; h, G and score tables of a
+    size that spreads the attention."""
+    nbr = rng.integers(0, s, (d, k)).astype(np.int32)
+    if hub is not None:
+        nbr[rng.random((d, k)) < 0.5] = hub
+    w = rng.random((d, k)).astype(np.float32) + 0.5
+    w[rng.random((d, k)) < 0.3] = 0.0
+    w[::7] = 0.0
+    nbr[w == 0] = 0
+    seed = rng.integers(0, s, d).astype(np.int32)
+    h = rng.standard_normal((s, feat)).astype(np.float32)
+    g = rng.standard_normal((d, feat)).astype(np.float32)
+    ts = (2 * rng.standard_normal((s, heads))).astype(np.float32)
+    td = (2 * rng.standard_normal((s, heads))).astype(np.float32)
+    return [torch.from_numpy(a) for a in (h, ts, td, nbr, w, seed, g)]
+
+
+def _gat_sampled_check(dev, dtype, tol, d, k, s, feat, heads, hub=None,
+                       seed=0):
+    """The forward and backward kernels against their plain versions on the
+    same values in f64 (the rows rounded to `dtype` first): f32 differs by
+    its own rounding, bf16 by the kernel's one rounding of out and dh;
+    bit-identical on repeat, each wrapper launched once a call."""
+    from sgnn_tpu_torch.ops import gat_sampled as op
+
+    rng = np.random.default_rng(seed)
+    h, ts, td, nbr, w, sd, g = (t.to(dev) for t in _gat_sampled_inputs(
+        rng, d, k, s, feat, heads, hub))
+    h, g = h.to(dtype), g.to(dtype)
+    counts = [gs.gat_sampled_fwd_cuda.launches,
+              gs.gat_sampled_bwd_cuda.launches]
+    out, att = op.gat_sampled_fwd(h, ts, td, nbr, w, sd, heads)
+    grads = op.gat_sampled_bwd(g, h, ts, td, nbr, w, sd, att, heads)
+    torch.cuda.synchronize()
+    assert [gs.gat_sampled_fwd_cuda.launches,
+            gs.gat_sampled_bwd_cuda.launches] == [c + 1 for c in counts]
+    assert out.dtype == grads[0].dtype == dtype
+    h64, ts64, td64 = h.double(), ts.double(), td.double()
+    ref_out, ref_att = op.gat_sampled_fwd_plain(h64, ts64, td64, nbr, w, sd,
+                                                heads)
+    ref = op.gat_sampled_bwd_plain(g.double(), h64, ts64, td64, nbr, w, sd,
+                                   ref_att, heads)
+    errs = [_rel(out, ref_out), _rel(att, ref_att),
+            *(_rel(a, b) for a, b in zip(grads, ref))]
+    assert max(errs) <= tol, errs
+    assert torch.equal(att[::7], torch.zeros_like(att[::7]))
+    again = op.gat_sampled_fwd(h, ts, td, nbr, w, sd, heads)
+    assert torch.equal(out, again[0]) and torch.equal(att, again[1])
+    for a, b in zip(grads,
+                    op.gat_sampled_bwd(g, h, ts, td, nbr, w, sd, att, heads)):
+        assert torch.equal(a, b)
+    return errs
+
+
+# (heads, F, K): the cell's two layers' widths; K past 32 (slots in two
+# chunks); a power-of-two head of lanes (8, 64) and heads reduced over the
+# whole group (3, 30); column tiles in both modes (16 heads of 64 and 2 of
+# 512 over F = 1024); scalar columns at F = 7
+GAT_SAMPLED_CASES = [(4, 128, 10), (1, 41, 25), (8, 64, 40), (3, 30, 5),
+                     (16, 1024, 3), (2, 1024, 4), (1, 7, 33)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("heads,feat,k", GAT_SAMPLED_CASES)
+def test_gat_sampled_kernels_match_plain(cuda_device, dtype, tol, heads,
+                                         feat, k):
+    _gat_sampled_check(cuda_device, dtype, tol, 1001, k, 700, feat, heads,
+                       hub=5, seed=heads * feat + k)
+    lay = gs.row_layout(torch.empty(1, feat, device=cuda_device, dtype=dtype),
+                        torch.empty(1, feat, device=cuda_device, dtype=dtype),
+                        heads)
+    assert lay["vec"] == (4 if feat % 4 == 0 and (feat // heads) % 4 == 0
+                          else 1)
+    assert lay["lanes"] in (8, 16, 32) and lay["registers"] > 0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("d,k,feat,heads", [(233_088, 10, 128, 4),
+                                            (10_112, 25, 41, 1)])
+def test_gat_sampled_kernels_at_the_cells_shapes(cuda_device, dtype, tol, d,
+                                                 k, feat, heads):
+    """The sampled GAT cell's two layers (602-128-41, 4 heads, fanout
+    25-10, batch 10,000): D, K, F and H as the device sampler pads them,
+    S the Reddit-shaped graph's 233,088 padded rows, a hub source.  A
+    forward and backward hold less scratch beside their outputs than one
+    [D, K, F] edge tensor of the torch ops."""
+    from sgnn_tpu_torch.ops import gat_sampled as op
+
+    s = 233_088
+    h, ts, td, nbr, w, sd, g = (t.to(cuda_device) for t in
+                                _gat_sampled_inputs(np.random.default_rng(3),
+                                                    d, k, s, feat, heads))
+    h, g = h.to(dtype), g.to(dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    out, att = op.gat_sampled_fwd(h, ts, td, nbr, w, sd, heads)
+    grads = op.gat_sampled_bwd(g, h, ts, td, nbr, w, sd, att, heads)
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in (out, att, *grads))
+    edge_tensor = d * k * feat * h.element_size()
+    assert torch.cuda.max_memory_allocated(cuda_device) - base < (
+        held + edge_tensor)
+    del h, ts, td, nbr, w, sd, g, out, att, grads
+    _gat_sampled_check(cuda_device, dtype, tol, d, k, s, feat, heads,
+                       hub=17)
+
+
+def test_gat_sampled_kernels_reject_bad_args(cuda_device):
+    from sgnn_tpu_torch.ops import gat_sampled as op
+
+    h, ts, td, nbr, w, sd, g = (t.to(cuda_device) for t in
+                                _gat_sampled_inputs(np.random.default_rng(1),
+                                                    8, 3, 5, 8, 2))
+    with pytest.raises(ValueError, match="td is on cpu"):
+        op.gat_sampled_fwd(h, ts, td.cpu(), nbr, w, sd, 2)
+    with pytest.raises(ValueError, match="h must be"):
+        op.gat_sampled_fwd(h.double(), ts, td, nbr, w, sd, 2)
+    with pytest.raises(ValueError, match="heads=3"):
+        op.gat_sampled_fwd(h, ts, td, nbr, w, sd, 3)
+    _, att = op.gat_sampled_fwd(h, ts, td, nbr, w, sd, 2)
+    with pytest.raises(ValueError, match="g must be"):
+        op.gat_sampled_bwd(g[:4], h, ts, td, nbr, w, sd, att, 2)
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+def test_gat_sampled_step_card_vs_torch_ops(cuda_device, heads):
+    """One GATSAMPLEALLGPU batch, sampled on the card: loss and gradients
+    through the kernels against the torch-op path (the CPU's) on the same
+    blocks and weights with nonzero attention vectors (f32, TF32 off;
+    test_model_grads_card_vs_cpu's tolerances), and the layer counter at
+    2."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = random_graph_dataset(3000, 10, 48, 5, seed=4)
+    cfg = RunConfig(algorithm="GATSAMPLEALLGPU", layer_sizes=[48, 16, 5],
+                    fanout=[5, 3], batch_size=256, heads=heads,
+                    vertices=ds.num_vertices)
+    tr = build_trainer(cfg, ds, device=cuda_device)
+    gen = torch.Generator().manual_seed(2)
+    p = tr.params._replace(attn=tuple(
+        torch.randn(a.shape, generator=gen).to(cuda_device)
+        for a in tr.params.attn))
+    batch = tr.sample(*next(tr._seed_batches(tr.train_nids, False)))
+    before = timing.RECORDER.counters.get("gat_sampled.kernel")
+    card = loss_and_grads(p, "gat", batch, heads=heads)
+    assert timing.RECORDER.counters.get("gat_sampled.kernel") - before == 2
+    cpu = loss_and_grads(p.to("cpu"), "gat", _batch_to(batch, "cpu"),
+                         heads=heads)
+    assert abs(card.loss.item() - cpu.loss.item()) <= 1e-5
+    for a, b in zip(card.grads, cpu.grads):
+        assert _rel(a.cpu(), b) <= 1e-4
 
 
 # --------------------------------------------------- whole-graph training --
@@ -832,7 +1017,8 @@ def test_fullbatch_trainer_card_vs_cpu(cuda_device, family, aggregator,
     """One whole-graph epoch's loss and gradients, card against CPU from
     the same parameters (drop 0, TF32 off), and the launches of an epoch
     with METRICS:clean at drop 0.5: GCN/SAGE 4 SpMM forward + 2 backward,
-    GAT 4 K3 + 2 B1 + 2 B2, min/max none."""
+    GAT 4 K3 + 2 B1 + 2 B2, min/max none; none of the sampled GAT
+    kernels and no `gat_sampled.kernel` layer in any."""
     ds = random_graph_dataset(2000, 10, 48, 5, seed=3)
     cfg = RunConfig(layer_sizes=[48, 16, 5], drop_rate=0.0, heads=heads,
                     aggregator=aggregator, vertices=ds.num_vertices)
@@ -859,6 +1045,13 @@ def test_fullbatch_trainer_card_vs_cpu(cuda_device, family, aggregator,
                                     vertices=ds.num_vertices),
                           ds, family=family, device=cuda_device)
     before = [f.launches for f in fns]
+
+    def sampled_gat():
+        return [gs.gat_sampled_fwd_cuda.launches,
+                gs.gat_sampled_bwd_cuda.launches,
+                timing.RECORDER.counters.get("gat_sampled.kernel")]
+
+    sampled_before = sampled_gat()
     loss, *accs = tr.train_epoch()
     assert np.isfinite(loss) and all(0.0 <= a <= 1.0 for a in accs)
     want = {"gat": [0, 0, 4, 2, 2]}.get(
@@ -868,6 +1061,7 @@ def test_fullbatch_trainer_card_vs_cpu(cuda_device, family, aggregator,
     tr.predict()
     assert [f.launches - b for f, b in zip(fns, before)] == [
         w // 2 if i in (0, 2) else 0 for i, w in enumerate(want)]
+    assert sampled_gat() == sampled_before
 
 
 # ---- rate probes (ops/probes.py, csrc/probe_gather.cu, probe_tile.cu) ----

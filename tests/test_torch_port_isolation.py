@@ -185,7 +185,8 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 @pytest.mark.parametrize("script", ["torch_probe_gather.py",
                                     "torch_probe_tile_spmm.py",
-                                    "torch_probe_gat_tile.py"])
+                                    "torch_probe_gat_tile.py",
+                                    "torch_gat_sampled.py"])
 def test_probe_scripts_raise_without_a_card(script):
     import os
 

@@ -189,6 +189,23 @@ def test_kernel_bound_k4(kernel, want):
                                      + 10 * E * 4)
 
 
+@pytest.mark.parametrize("kernel, want", [("gat_sampled_fwd", 0.1038),
+                                          ("gat_sampled_bwd", 0.1537)])
+def test_kernel_bound_gat_sampled(kernel, want):
+    # one GATSAMPLEALLGPU heads-4 step's two layers (602-128-41, 25-10,
+    # batch 10000): K1's (D, K, S) with F=128 H=4 and F=41 H=1; nnz at
+    # most D·K, the bound is the bytes'
+    rows = [_bound(kernel, H=h, **s) for s, h in zip(_k1_layers(), (4, 1))]
+    assert all(r["bound_by"] == "bytes" for r in rows)
+    assert round(sum(r["bound_ms"] for r in rows), 4) == want
+    d, k = 233_088, 10
+    fixed = d * k * 8 + d * 4 + 2 * V_PAD * 4 * 4 + d * k * 4 * 4
+    rows_f = V_PAD * 128 * 4 + d * 128 * 4
+    assert rows[0]["bytes_once"] == (
+        fixed + rows_f if kernel == "gat_sampled_fwd"
+        else fixed + rows_f + V_PAD * 128 * 4 + 2 * V_PAD * 4 * 4)
+
+
 # the distinct table rows gather_inputs(0, T) draws (np.unique of its 2^20
 # indices; T = 2048 is checked below, the larger tables' draws are past
 # 29.8 M and 537 M normals)
