@@ -9,10 +9,11 @@ written once, whatever the kernel reads again.  No kernel time can fall
 below it, so a share of it cannot pass 100%.  `b` is the element size of
 the rows the kernel reads.
 
-Step FLOPs count what a forward and backward pass require at the valid
-shapes of a step: valid destination rows, kept edges and the source rows
-they reference, no padding, no recomputation, no evaluation forward.  The
-dense products and the aggregations are counted; elementwise work
+Step FLOPs count, layer by layer (a cell's reference module sums them
+for its architecture), what a forward and backward pass require at the
+valid shapes of a step: valid destination rows, kept edges and the source
+rows they reference, no padding, no recomputation, no evaluation
+forward.  The dense products and the aggregations are counted; elementwise work
 (activations, dropout, softmax's exponentials, the loss, the optimizer)
 is not, so the count is a lower bound of the work and a share of the peak
 built on it cannot pass 100%.
@@ -69,6 +70,21 @@ def b2(b: int, V: int, E: int, F: int, H: int) -> Work:
     return _k4(b, V, E, F, H, 1, 2)
 
 
+def gat_sampled(b: int, D: int, K: int, S: int, F: int, H: int, nnz: int,
+                backward: bool) -> Work:
+    """The sampled GAT kernel pair over a [D, K] block of S source rows,
+    nnz valid slots: nbr and w, the seeds, the two score tables and att
+    [D, K, H] f32 once; h's S rows read; the forward writes out's D rows,
+    the backward reads G's D rows and h's S rows and writes dh's S rows,
+    dts and dtd.  2 operations a (valid slot, column) a product (one
+    forward, two backward); 8 a (valid slot, head) forward, 10 backward."""
+    fixed = D * K * 8 + D * 4 + 2 * S * H * 4 + D * K * H * 4
+    if not backward:
+        return fixed + S * F * b + D * F * b, 2 * nnz * F + 8 * nnz * H
+    once = fixed + 2 * S * F * b + D * F * b + 2 * S * H * 4
+    return once, 4 * nnz * F + 10 * nnz * H
+
+
 def bound_s(work: Work, device_name: str) -> float:
     """Seconds of the bytes-once bound of `work` on the named card."""
     once, ops = work
@@ -109,23 +125,6 @@ def gat_layer_flops(nnz: int, dv: int, sv: int, fin: int, fout: int,
     return forward + backward
 
 
-LAYER_FLOPS = {"gcn": gcn_layer_flops, "gat": gat_layer_flops}
-
-
-def step_flops(family: str, widths, layers) -> int:
-    """Required FLOPs of one step: `widths` the configuration's layer
-    sizes, `layers` one (nnz, dv, sv) per layer, bottom first."""
-    fn = LAYER_FLOPS[family]
-    return sum(fn(nnz, dv, sv, widths[l], widths[l + 1], l > 0)
-               for l, (nnz, dv, sv) in enumerate(layers))
-
-
-def fullgraph_epoch_flops(family: str, widths, V: int, E: int) -> int:
-    """A whole-graph training epoch's required FLOPs: every vertex is a
-    destination and a source, every edge is kept."""
-    return step_flops(family, widths, [(E, V, V)] * (len(widths) - 1))
-
-
 def kernel_bounds_per_step(kind: str, device_name: str, b: int,
                            shapes: Dict[str, int]) -> float:
     """Seconds of the bytes-once bounds of every launch one training step
@@ -137,6 +136,8 @@ def kernel_bounds_per_step(kind: str, device_name: str, b: int,
         clean pass) and backward, per layer; shapes V, E, F{l}
       gat: K3, two forwards an epoch, per layer; shapes V, E, F{l}, H{l}
       gat_bwd: B1 and B2 per layer; shapes V, E, F{l}, H{l}
+      gat_sampled: the sampled GAT pair, forward and backward, per layer
+        of a sampled step; shapes D{l}, K{l}, S{l}, F{l}, H{l}, nnz{l}
     """
     n_layers = shapes["layers"]
     total = 0.0
@@ -159,6 +160,11 @@ def kernel_bounds_per_step(kind: str, device_name: str, b: int,
                     shapes[f"H{l}"])
             total += bound_s(b1(*args), device_name)
             total += bound_s(b2(*args), device_name)
+        elif kind == "gat_sampled":
+            args = (b,) + tuple(shapes[f"{k}{l}"]
+                                for k in ("D", "K", "S", "F", "H", "nnz"))
+            total += bound_s(gat_sampled(*args, False), device_name)
+            total += bound_s(gat_sampled(*args, True), device_name)
         else:
             raise ValueError(f"unknown kernel group {kind!r}")
     return total

@@ -59,9 +59,7 @@ def diagnose(cell, inp, cap) -> dict:
 
     from benchmark import correctness
 
-    cfg = cell.config
-    n_w = len(cfg["layer_sizes"]) - 1
-    p0 = {"weights": cap.p0[:n_w], "attn": cap.p0[n_w:]}
+    cfg, p0 = cell.config, cap.p0
     ref = inp.ref.train_steps(cfg, bool(cell.workload["adam_bias_correction"]),
                               p0, correctness.step_inputs(inp, cell, cap))
     prog = correctness.program_steps(cfg, cap)
@@ -218,7 +216,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = bool(cell.config["tf32"])
     torch.backends.cudnn.allow_tf32 = bool(cell.config["tf32"])
     arrays = graph.load_graph(cell.config["graph"])
-    ref_mod = spec.reference_module(cell.workload["reference"])
+    ref_mod = cell.reference
     lines = []
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()

@@ -191,8 +191,7 @@ def judge(cell, inp: Inputs, cap, precision: str = "float64",
     program's."""
     ref_mod, cfg = inp.ref, cell.config
     bc = bool(cell.workload["adam_bias_correction"])
-    p0 = {"weights": cap.p0[:len(cfg["layer_sizes"]) - 1],
-          "attn": cap.p0[len(cfg["layer_sizes"]) - 1:]}
+    p0 = cap.p0   # the program's leaves, in the order the module declares
     steps = step_inputs(inp, cell, cap)
     ref = ref_mod.train_steps(cfg, bc, p0, steps, precision)
     if as_program is None:

@@ -5,6 +5,6 @@ from benchmark.readings import forwards_per_epoch, roofline_pct
 
 
 def read(ctx):
-    layers = len(ctx.widths) - 1
+    layers = len(ctx.kernel_layers)
     return roofline_pct(ctx, "gat", "fullgraph", "gat_kernel<",
                         forwards_per_epoch(ctx.cell) * layers)

@@ -5,5 +5,5 @@ from benchmark.readings import roofline_pct
 
 
 def read(ctx):
-    layers = len(ctx.widths) - 1
+    layers = len(ctx.kernel_layers)
     return roofline_pct(ctx, "gat_bwd", "fullgraph", "gat_bwd_dst_", layers)

@@ -7,6 +7,6 @@ from benchmark.readings import roofline_pct
 
 
 def read(ctx):
-    layers = len(ctx.widths) - 1
+    layers = len(ctx.kernel_layers)
     return roofline_pct(ctx, "gather_agg", "sampled", "gather_agg_fwd",
                         layers)

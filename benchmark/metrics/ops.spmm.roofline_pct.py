@@ -6,6 +6,6 @@ from benchmark.readings import forwards_per_epoch, roofline_pct
 
 
 def read(ctx):
-    layers = len(ctx.widths) - 1
+    layers = len(ctx.kernel_layers)
     return roofline_pct(ctx, "spmm", "fullgraph", "spmm_csr_kernel",
                         forwards_per_epoch(ctx.cell) * layers)

@@ -54,6 +54,13 @@ def run_config(cell: Cell, seed: int, num_vertices: int) -> RunConfig:
     if t["mode"] == "sampled":
         kw.update(fanout=list(t["fanout"]), batch_size=int(t["batch_size"]),
                   batch_type=t["batch_type"])
+    own = c.get("program", {})
+    known = {f.name for f in dataclasses.fields(RunConfig)}
+    unknown = sorted(set(own) - known)
+    if unknown:
+        raise ValueError(f"configuration {c['name']!r}: program keys "
+                         f"{unknown} are not RunConfig's")
+    kw.update(own)
     return RunConfig(**kw)
 
 
@@ -69,32 +76,43 @@ def core(trainer):
     return getattr(trainer, "base", trainer)
 
 
-def make_weights(cell: Cell, seed: int, device) -> Dict[str, list]:
-    """The benchmark's initial parameters, drawn on the device from the
-    run's seed in one call: every weight W_l [in, out] and, for GAT, every
-    attention vector a_l [2 out, 1], uniform in +-sqrt(6/(fan_in +
-    fan_out))."""
-    sizes = cell.config["layer_sizes"]
-    shapes = [(sizes[i], sizes[i + 1]) for i in range(len(sizes) - 1)]
-    if cell.config["family"] == "gat":
-        shapes += [(2 * sizes[i + 1], 1) for i in range(len(sizes) - 1)]
-    total = sum(a * b for a, b in shapes)
+def make_weights(cell: Cell, seed: int, device) -> List[torch.Tensor]:
+    """The benchmark's initial parameters: every leaf the cell's reference
+    module declares (`leaves(cfg)`), in the program's flat order, drawn on
+    the device from the run's seed in one call over the drawn leaves'
+    total size, a uniform leaf in +-sqrt(6/(fan_in + fan_out)), a zero
+    leaf zeros."""
+    decl = cell.reference.leaves(cell.config)
+    total = sum(math.prod(shape) for _, shape, draw in decl
+                if draw[0] == "uniform")
     gen = torch.Generator(device=device).manual_seed(int(seed))
     flat = torch.rand(total, generator=gen, device=device,
                       dtype=torch.float32) * 2.0 - 1.0
     leaves, off = [], 0
-    for a, b in shapes:
-        bound = math.sqrt(6.0 / (a + b))
-        leaves.append((flat[off:off + a * b] * bound).view(a, b).clone())
-        off += a * b
-    n = len(sizes) - 1
-    return {"weights": leaves[:n], "attn": leaves[n:]}
+    for name, shape, draw in decl:
+        if draw[0] == "zeros":
+            leaves.append(torch.zeros(shape, dtype=torch.float32,
+                                      device=device))
+            continue
+        if draw[0] != "uniform":
+            raise ValueError(f"leaf {name}: unknown draw {draw!r}")
+        n = math.prod(shape)
+        bound = math.sqrt(6.0 / (draw[1] + draw[2]))
+        leaves.append((flat[off:off + n] * bound).view(*shape).clone())
+        off += n
+    return leaves
 
 
-def set_weights(trainer, p0: Dict[str, list]) -> None:
+def set_weights(trainer, p0: List[torch.Tensor]) -> None:
+    """Replace every parameter leaf of the program by `p0`'s, which have
+    to match the program's leaves one for one in shape."""
     c = core(trainer)
-    c.params = c.params.replace_leaves(
-        [t.clone() for t in p0["weights"] + p0["attn"]])
+    have = [tuple(t.shape) for t in c.params.leaves()]
+    want = [tuple(t.shape) for t in p0]
+    if have != want:
+        raise ValueError(f"the reference module declares leaves {want}; "
+                         f"the program holds {have}")
+    c.params = c.params.replace_leaves([t.clone() for t in p0])
 
 
 def sync(device) -> None:
@@ -370,16 +388,15 @@ def run_window(trainer, seconds: float, device, sampled: bool) -> Window:
 
 
 @contextmanager
-def counting_shapes(trainer, out: List[List[tuple]]):
+def counting_shapes(trainer, out: List[List[tuple]], own_rows: bool):
     """Per step of the epochs run inside the block: each layer's (kept
-    edges, valid destinations, distinct source rows read) as device
-    counts and its padded (destinations, slots a row, sources), read into
-    `out` when the block ends.  A traced run counts them in the warm-up
-    epoch before its window, so that no kernel of the harness's runs
-    inside the trace."""
+    edges, valid destinations, distinct source rows read, with the
+    destinations' own rows where `own_rows`) as device counts and its
+    padded (destinations, slots a row, sources), read into `out` when the
+    block ends.  A traced run counts them in the warm-up epoch before its
+    window, so that no kernel of the harness's runs inside the trace."""
     orig = trainer.sample
     counts: list = []
-    family = core(trainer).family
 
     def sample(seeds, valid, omit_map=None):
         batch = orig(seeds, valid, omit_map)
@@ -391,7 +408,7 @@ def counting_shapes(trainer, out: List[List[tuple]]):
                               device=keep.device)
             idx = torch.where(keep, blk.nbr.long(), n_src)
             hit.index_fill_(0, idx.reshape(-1), 1)
-            if family == "gat":
+            if own_rows:
                 own = torch.where(blk.dst_valid, blk.seed_in_src.long(),
                                   n_src)
                 hit.index_fill_(0, own, 1)

@@ -10,7 +10,7 @@ metric is then left out of the result line.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -38,12 +38,10 @@ class Context:
         return self.cell.mode
 
     @property
-    def family(self) -> str:
-        return self.cell.config["family"]
-
-    @property
-    def widths(self) -> List[int]:
-        return list(self.cell.config["layer_sizes"])
+    def kernel_layers(self) -> List[Tuple[int, int]]:
+        """Per layer, the (F, H) its aggregation kernels see, from the
+        cell's reference module."""
+        return self.cell.reference.kernel_layers(self.cell.config)
 
     @property
     def steps(self) -> int:
@@ -90,14 +88,16 @@ def per_step_mean(ctx: Context, per_step) -> Optional[float]:
 
 
 def step_flops_total(ctx: Context) -> Optional[float]:
-    """Required FLOPs of the traced window's work; a sampled window's are
-    its steps times the counted steps' mean."""
+    """Required FLOPs of the traced window's work, as the cell's reference
+    module counts them; a sampled window's are its steps times the counted
+    steps' mean."""
+    ref, cfg = ctx.cell.reference, ctx.cell.config
     if ctx.mode == "sampled":
-        mean = per_step_mean(ctx, lambda step: bounds.step_flops(
-            ctx.family, ctx.widths, [row[:3] for row in step]))
+        mean = per_step_mean(ctx, lambda step: ref.step_flops(
+            cfg, [row[:3] for row in step]))
         return None if mean is None else ctx.steps * mean
-    return ctx.epochs * bounds.fullgraph_epoch_flops(
-        ctx.family, ctx.widths, ctx.num_vertices, ctx.num_edges)
+    return ctx.epochs * ref.epoch_flops(cfg, ctx.num_vertices,
+                                        ctx.num_edges)
 
 
 def mfu_pct(ctx: Context, mode: str) -> Optional[float]:
@@ -129,12 +129,6 @@ def products_ms(ctx: Context, mode: str) -> Optional[float]:
     return ns / 1e6 / per
 
 
-def _layer_width(fin: int, fout: int) -> int:
-    """The width a weighted-sum layer aggregates at: the narrower side
-    (transform first where the layer shrinks)."""
-    return min(fin, fout)
-
-
 def forwards_per_epoch(cell) -> int:
     """Whole-graph forwards an epoch: training, and the METRICS clean
     forward where dropout is on."""
@@ -160,14 +154,15 @@ def roofline_pct(ctx: Context, group: str, mode: str,
                                                                    group))
     if ns == 0:
         return None
-    w, L = ctx.widths, len(ctx.widths) - 1
+    layers = {"layers": len(ctx.kernel_layers)}
+    for l, (F, H) in enumerate(ctx.kernel_layers):
+        layers.update({f"F{l}": F, f"H{l}": H})
     if mode == "sampled":
         def step_bound(step):
-            shapes = {"layers": L}
+            shapes = dict(layers)
             for l, (nnz, _dv, _sv, D, K, S) in enumerate(step):
                 shapes.update({f"D{l}": D, f"K{l}": K, f"S{l}": S,
-                               f"nnz{l}": nnz,
-                               f"F{l}": _layer_width(w[l], w[l + 1])})
+                               f"nnz{l}": nnz})
             return bounds.kernel_bounds_per_step(group, ctx.device_name, 4,
                                                  shapes)
 
@@ -176,14 +171,8 @@ def roofline_pct(ctx: Context, group: str, mode: str,
             return None
         bound = units * mean
     else:
-        heads = ctx.cell.config["heads"]
-        shapes = {"layers": L, "V": ctx.num_vertices, "E": ctx.num_edges,
-                  "forwards": forwards_per_epoch(ctx.cell)}
-        for l in range(L):
-            gat = ctx.family == "gat"
-            shapes[f"F{l}"] = w[l + 1] if gat else _layer_width(w[l],
-                                                                 w[l + 1])
-            shapes[f"H{l}"] = 1 if l == L - 1 else heads
+        shapes = dict(layers, V=ctx.num_vertices, E=ctx.num_edges,
+                      forwards=forwards_per_epoch(ctx.cell))
         bound = units * bounds.kernel_bounds_per_step(group, ctx.device_name,
                                                       4, shapes)
     return 100.0 * bound / (ns / 1e9)

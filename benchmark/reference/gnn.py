@@ -11,10 +11,11 @@ bias correction).  Departures, which the program shares: no bias terms;
 relu after GAT's last layer before log_softmax (the reference system's GAT
 engine); dropout on hidden activations with masks the caller supplies.
 
-It imports torch alone, nothing of the program under test, and takes from
-the caller only inputs: the graph's edges, features, labels and split, the
-initial parameters, and for a sampled step the sampled neighbourhoods as
-global vertex ids and the dropout masks (the program's randomness, which
+It imports torch and the harness's FLOP formulas (benchmark/bounds.py),
+nothing of the program under test, and takes from the caller only inputs:
+the graph's edges, features, labels and split, the initial parameters,
+and for a sampled step the sampled neighbourhoods as global vertex ids
+and the dropout masks (the program's randomness, which
 `check_sample` and the caller's mask statistic judge on their own).  Edge
 weights, degrees, attention and every gradient are worked out here.
 
@@ -23,15 +24,24 @@ float32 with every dense product's operands rounded to TF32 (10 mantissa
 bits, round to nearest even, as a TF32 tensor-core product rounds them),
 forward and backward: the control that a float32 configuration with TF32
 off must fail.
+
+The module is also where the harness learns the architecture (section
+"architecture" below): the program's parameter leaves and their draw, a
+step's and an epoch's required FLOPs (counted by benchmark/bounds.py's
+layer formulas), the (F, H) each layer's aggregation kernels see, and
+whether the destinations' own rows are read.  A module for another
+architecture gives the same functions; the harness names none.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from benchmark import bounds
 
 EDGE_CHUNK = 1 << 21
 
@@ -271,32 +281,93 @@ def adam_step(cfg, bias_correction, step, params, grads, state):
     return new_p, {"m": new_m, "v": new_v}
 
 
+# ----------------------------------------------------------- architecture
+def _layers(cfg) -> int:
+    return len(cfg["layer_sizes"]) - 1
+
+
+def leaves(cfg) -> List[tuple]:
+    """Every parameter leaf in the program's flat order (the optimizer's:
+    each layer's W [in, out], then GAT's attention vectors a [2 out, 1]),
+    as (name, shape, draw): ("uniform", fan_in, fan_out) is uniform in
+    +-sqrt(6 / (fan_in + fan_out)), ("zeros",) all zero."""
+    w = cfg["layer_sizes"]
+    out = [(f"W{l}", (w[l], w[l + 1]), ("uniform", w[l], w[l + 1]))
+           for l in range(_layers(cfg))]
+    if cfg["family"] == "gat":
+        out += [(f"a{l}", (2 * w[l + 1], 1), ("uniform", 2 * w[l + 1], 1))
+                for l in range(_layers(cfg))]
+    return out
+
+
+def _split(cfg, flat: Sequence[torch.Tensor]) -> Dict[str, list]:
+    """The flat leaves of `leaves(cfg)` as `forward` reads them."""
+    n = _layers(cfg)
+    return {"weights": list(flat[:n]), "attn": list(flat[n:])}
+
+
+_LAYER_FLOPS = {"gcn": bounds.gcn_layer_flops, "gat": bounds.gat_layer_flops}
+
+
+def step_flops(cfg, layers) -> int:
+    """Required FLOPs of one step, `layers` one (nnz, dv, sv) per layer,
+    bottom first (benchmark/bounds.py counts a layer)."""
+    fn, w = _LAYER_FLOPS[cfg["family"]], cfg["layer_sizes"]
+    return sum(fn(nnz, dv, sv, w[l], w[l + 1], l > 0)
+               for l, (nnz, dv, sv) in enumerate(layers))
+
+
+def epoch_flops(cfg, num_vertices: int, num_edges: int) -> int:
+    """A whole-graph training epoch's required FLOPs: every vertex is a
+    destination and a source, every edge is kept."""
+    return step_flops(cfg, [(num_edges, num_vertices, num_vertices)]
+                      * _layers(cfg))
+
+
+def kernel_layers(cfg) -> List[Tuple[int, int]]:
+    """Per layer, the (F, H) its aggregation kernels see: GAT aggregates
+    its transform's out columns in the configuration's heads (one head on
+    the last layer); a weighted sum aggregates at the narrower side (the
+    transform first where the layer shrinks), one head."""
+    w, n = cfg["layer_sizes"], _layers(cfg)
+    if cfg["family"] == "gat":
+        return [(w[l + 1], 1 if l == n - 1 else int(cfg["heads"]))
+                for l in range(n)]
+    return [(min(w[l], w[l + 1]), 1) for l in range(n)]
+
+
+def reads_own_rows(cfg) -> bool:
+    """Whether a layer reads its destinations' own rows beside their
+    sampled sources (GAT's destination score does)."""
+    return cfg["family"] == "gat"
+
+
 # ---------------------------------------------------------------- training
-def train_steps(cfg: dict, bias_correction: bool, p0: Dict[str, list],
+def train_steps(cfg: dict, bias_correction: bool, p0: Sequence[torch.Tensor],
                 step_inputs: List[dict], precision: str = "float64",
                 half_batch: bool = False, frozen: bool = False) -> dict:
-    """Follow the program's first steps from the same initial parameters.
+    """Follow the program's first steps from the same initial parameters,
+    `p0` the leaves of `leaves(cfg)` in their order.
 
     `step_inputs[i]`: {"x": input rows of layer 0, "edges": [EdgeList] per
     layer, "masks": [bool mask or None] per hidden layer, "labels": labels
     of the last layer's destinations, "rows": the destinations the loss
     averages over}.  Returns each step's loss, the first gradient as the
     optimizer gets it (weight decay added) per leaf, and the parameters
-    after the first and after the last step per leaf (weights, then
-    attention vectors).  Two faults the comparison has to catch:
-    `half_batch` averages the loss over the first half of `rows`; `frozen`
-    is a step that returns its state unchanged (no update, the first
-    moment, and so the first gradient read from it, zero)."""
+    after the first and after the last step per leaf, in `p0`'s order.
+    Two faults the comparison has to catch: `half_batch` averages the
+    loss over the first half of `rows`; `frozen` is a step that returns
+    its state unchanged (no update, the first moment, and so the first
+    gradient read from it, zero)."""
     dt = dtype_of(precision)
     mm = make_matmul(precision)
-    n_w = len(p0["weights"])
-    leaves = [t.detach().to(dt) for t in p0["weights"] + p0["attn"]]
-    state = {"m": [torch.zeros_like(t) for t in leaves],
-             "v": [torch.zeros_like(t) for t in leaves]}
+    cur = [t.detach().to(dt) for t in p0]
+    state = {"m": [torch.zeros_like(t) for t in cur],
+             "v": [torch.zeros_like(t) for t in cur]}
     losses, grad1, params1 = [], None, None
     for i, inp in enumerate(step_inputs):
-        req = [t.clone().requires_grad_() for t in leaves]
-        params = {"weights": req[:n_w], "attn": req[n_w:]}
+        req = [t.clone().requires_grad_() for t in cur]
+        params = _split(cfg, req)
         logp = forward(cfg, params, inp["x"].to(dt), inp["edges"],
                        inp["masks"], mm)
         rows = inp["rows"]
@@ -306,15 +377,15 @@ def train_steps(cfg: dict, bias_correction: bool, p0: Dict[str, list],
         grads = torch.autograd.grad(loss, req)
         if i == 0:
             grad1 = [(g + cfg["weight_decay"] * p) * (0.0 if frozen else 1.0)
-                     for g, p in zip(grads, leaves)]
+                     for g, p in zip(grads, cur)]
         if not frozen:
-            leaves, state = adam_step(cfg, bias_correction, i + 1, leaves,
-                                      [g.detach() for g in grads], state)
+            cur, state = adam_step(cfg, bias_correction, i + 1, cur,
+                                   [g.detach() for g in grads], state)
         if i == 0:
-            params1 = list(leaves)
+            params1 = list(cur)
         losses.append(float(loss.detach()))
     return {"losses": losses, "grad1": [g.detach() for g in grad1],
-            "params1": params1, "params": leaves}
+            "params1": params1, "params": cur}
 
 
 # ------------------------------------------------------- building the inputs

@@ -8,7 +8,9 @@ from the root of a checkout.  The cell (an entry of BENCHMARK.json's
 `workloads`) names a configuration, a traffic mix and the files under
 `benchmark/` that belong to them.  One run:
 
-  1. set-up: the graph (cached under build/benchmark/graphs/), the trainer
+  1. set-up: the cell's files and its reference module (which also
+     declares the architecture: the parameter leaves, FLOPs and kernel
+     shapes), the graph (cached under build/benchmark/graphs/), the trainer
      through the program's own `build_trainer`, the benchmark's weights
      drawn on the card from --seed, the first three training steps driven
      through the trainer's own `train_epoch()` while what `correct` needs
@@ -146,8 +148,9 @@ def run(args: argparse.Namespace, opt: Options, out=sys.stdout,
     # a traced sampled run counts its steps' shapes in the warm-up, which
     # runs the window's epochs untraced
     shapes: list = []
-    counting = (program.counting_shapes(trainer, shapes)
-                if args.trace and sampled else contextlib.nullcontext())
+    counting = (program.counting_shapes(
+        trainer, shapes, cell.reference.reads_own_rows(cell.config))
+        if args.trace and sampled else contextlib.nullcontext())
     with counting:
         for _ in range(int(cell.traffic.get("warmup_epochs", 1))):
             trainer.train_epoch()
@@ -218,9 +221,7 @@ def run(args: argparse.Namespace, opt: Options, out=sys.stdout,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    ref_mod = spec.reference_module(cell.workload["reference"],
-                                    opt.bench_dir)
-    inp = correctness.Inputs(arrays, device, ref_mod)
+    inp = correctness.Inputs(arrays, device, cell.reference)
     numbers = correctness.judge(cell, inp, cap)
     checked = correctness.checks(numbers, cell.limits)
     failed = sum(e.steps for e in window.epochs if not math.isfinite(e.loss))

@@ -9,10 +9,15 @@ sits in a file of its own under `benchmark/`, named after it:
                               rule and reference module that check it
     limits/<cell>.json        the limit of each number `correct` compares
     metrics/<metric>.py       the reader of one metric, `read(ctx)`
-    reference/<module>.py     a plain reference, named by the cell's file
+    reference/<module>.py     a plain reference, named by the cell's file;
+                              also all the harness knows of the
+                              architecture (its parameter leaves, FLOPs
+                              and kernel shapes)
 
 so a later change adds a configuration, a cell or a metric by adding
-files and entries, without editing a file that is there.
+files and entries, without editing a file that is there.  A
+configuration's optional `program` group holds keys handed to the
+program's RunConfig as they are.
 """
 
 from __future__ import annotations
@@ -45,6 +50,9 @@ class Cell:
     limits: dict
     end_to_end: List[dict]
     per_layer: List[dict]
+    # the plain reference module the workload file names, loaded with the
+    # cell: the architecture's leaves, FLOPs and kernel shapes come from it
+    reference: ModuleType
 
     @property
     def mode(self) -> str:
@@ -78,13 +86,15 @@ def load_cell(name: str, bench_file: Path = ROOT / "BENCHMARK.json",
     e2e = _for_cell(spec["end_to_end"], name)
     per_layer = _for_cell(spec["per_layer"], name,
                           reported={m["name"] for m in e2e})
+    workload = _load_json(bench_dir / "workloads" / f"{name}.json")
     return Cell(
         name=name, chips=int(w["chips"]),
         config=_load_json(bench_file.parent / cfg_entry["file"]),
         traffic=_load_json(bench_dir / "traffic" / f"{w['traffic']}.json"),
-        workload=_load_json(bench_dir / "workloads" / f"{name}.json"),
+        workload=workload,
         limits=_load_json(bench_dir / "limits" / f"{name}.json"),
-        end_to_end=e2e, per_layer=per_layer)
+        end_to_end=e2e, per_layer=per_layer,
+        reference=reference_module(workload["reference"], bench_dir))
 
 
 def _load_module(path: Path, name: str) -> ModuleType:

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import pytest
 
-from benchmark import bounds, peaks
+from benchmark import bounds, peaks, spec
 from sgnn_tpu_torch.utils import roofline
 
 H100 = "NVIDIA H100 80GB HBM3"
@@ -34,6 +34,18 @@ def test_k2_hand_count_at_the_whole_graph_shape():
     ("k3", dict(V=V, E=E, F=128, H=4), lambda s: bounds.k3(4, **s)),
     ("b1", dict(V=V, E=E, F=41, H=1), lambda s: bounds.b1(4, **s)),
     ("b2", dict(V=V, E=E, F=128, H=4), lambda s: bounds.b2(4, **s)),
+    ("gat_sampled_fwd", dict(D=233_088, K=10, S=233_088, F=128, H=4,
+                             nnz=1_900_000),
+     lambda s: bounds.gat_sampled(4, **s, backward=False)),
+    ("gat_sampled_bwd", dict(D=233_088, K=10, S=233_088, F=128, H=4,
+                             nnz=1_900_000),
+     lambda s: bounds.gat_sampled(4, **s, backward=True)),
+    ("gat_sampled_fwd", dict(D=10_112, K=25, S=233_088, F=41, H=1,
+                             nnz=240_000),
+     lambda s: bounds.gat_sampled(4, **s, backward=False)),
+    ("gat_sampled_bwd", dict(D=10_112, K=25, S=233_088, F=41, H=1,
+                             nnz=240_000),
+     lambda s: bounds.gat_sampled(4, **s, backward=True)),
 ])
 def test_frozen_formulas_equal_the_ports_kernel_bound(kernel, shape, ours):
     got = roofline.kernel_bound(kernel, H100, 4, **shape)
@@ -57,7 +69,9 @@ def test_gcn_fullgraph_epoch_flops_hand_count():
     # and its input's gradient
     l0 = 4 * V * 602 * 128 + 4 * E * 128
     l1 = 6 * V * 128 * 41 + 4 * E * 41
-    got = bounds.fullgraph_epoch_flops("gcn", [602, 128, 41], V, E)
+    gnn = spec.reference_module("gnn")
+    got = gnn.epoch_flops({"family": "gcn", "layer_sizes": [602, 128, 41]},
+                          V, E)
     assert got == l0 + l1
     assert got / 1e9 == pytest.approx(87.17, abs=0.01)
 

@@ -194,7 +194,8 @@ def test_a_sampled_epochs_shapes_are_counted_outside_the_window(files):
 
     trainer.sample = sample
     shapes = []
-    with program.counting_shapes(trainer, shapes):
+    with program.counting_shapes(trainer, shapes,
+                                 c.reference.reads_own_rows(c.config)):
         edges = trainer.train_epoch()[-1]
     assert len(shapes) == len(kept) == len(trainer.step_losses)
     assert [[row[0] for row in step] for step in shapes] == kept

@@ -83,7 +83,7 @@ def test_products_idle_and_mfu():
     ctx = _ctx("gcn_reddit.fullgraph", ev, epochs=2, window=(0, 10_000_000))
     assert readings.products_ms(ctx, "fullgraph") == pytest.approx(1.5)
     assert readings.idle_pct(ctx, "fullgraph") == pytest.approx(60.0)
-    flops = 2 * bounds.fullgraph_epoch_flops("gcn", [602, 128, 41], V, E)
+    flops = 2 * ctx.cell.reference.epoch_flops(ctx.cell.config, V, E)
     assert readings.mfu_pct(ctx, "fullgraph") == pytest.approx(
         100 * flops / 0.01 / 67e12)
     assert readings.idle_pct(ctx, "sampled") is None
@@ -136,8 +136,8 @@ def test_sampled_readings_scale_the_counted_epoch_to_the_window():
     assert counted == pytest.approx(listed)
     f1 = readings.step_flops_total(_ctx("gcn_reddit.sampled", ev, epochs=2,
                                         steps=2, shapes=[small, partial]))
-    f2 = sum(bounds.step_flops("gcn", [602, 128, 41],
-                               [row[:3] for row in s])
+    cell = spec.load_cell("gcn_reddit.sampled", WHOLE)
+    f2 = sum(cell.reference.step_flops(cell.config, [row[:3] for row in s])
              for s in (small, partial, small, partial))
     assert f1 == pytest.approx(f2)
     assert readings.step_flops_total(_ctx("gcn_reddit.sampled", ev)) is None

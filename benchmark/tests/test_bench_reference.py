@@ -108,9 +108,10 @@ def test_one_step_gradient_and_update_by_hand(family):
     rows = [1, 2, 4]
     cfg, inp = _ref_inputs(family, x, mask, labels, rows)
     leaves = w + (a if family == "gat" else [])
-    p0 = {"weights": [torch.tensor(t) for t in w],
-          "attn": [torch.tensor(t) for t in a] if family == "gat" else []}
-    out = ref.train_steps(cfg, True, p0, [inp], "float64")
+    assert [name for name, _, _ in ref.leaves(cfg)] == (
+        ["W0", "W1"] + (["a0", "a1"] if family == "gat" else []))
+    out = ref.train_steps(cfg, True, [torch.tensor(t) for t in leaves],
+                          [inp], "float64")
 
     def loss_of(vals):
         ww, aa = vals[:2], vals[2:] or a

@@ -27,7 +27,14 @@ def with_held(bench: dict) -> dict:
     b = copy.deepcopy(bench)
     held = json.loads(HELD.read_text())
     b["workloads"] += held["workloads"]
-    b["per_layer"] += held["per_layer"]
+    b["end_to_end"] += held["end_to_end"]
+    have = {m["name"]: m for m in b["per_layer"]}
+    for m in held["per_layer"]:
+        if m["name"] in have:
+            # a metric read in cells of both: one entry listing them all
+            have[m["name"]]["workloads"] += m["workloads"]
+        else:
+            b["per_layer"].append(copy.deepcopy(m))
     for m in b["end_to_end"] + b["per_layer"]:
         m.get("workloads", []).extend(
             held["add_to_workloads"].get(m["name"], []))
