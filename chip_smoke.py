@@ -98,6 +98,13 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                timed beside plain, the torch-op path they replace (the
                layer's attention forward + backward under autograd, and
                through the kernels) and the bound; layouts and registers;
+10c. kernel_gat_sampled_products — the same script's `measure_products`:
+               the kernels at the gat_products cell's three layers ((D, S)
+               = (61952, 681472), (5632, 61952), (512, 5632); (F, H) =
+               (512, 4), (512, 4), (188, 4); 10 sampled slots and the own
+               row's under the self-loop rule) held to plain in f64
+               (1e-5), bit-identical on repeat, one forward and one
+               backward launch a layer, timed as 10b;
 11. kernel_k2_bwd — K2's backward (`spmm_csr_bwd_cuda`: csr_sum.cuh's
                edge-balanced sum over the transposed CSR, counted apart)
                against `spmm_csr_plain` over the same CSR, on skewed random
@@ -2045,6 +2052,17 @@ def main() -> int:
                 f"{row['rel_err']}, repeat {row['repeat_bit_identical']}")
     emit({"phase": "kernel_gat_sampled", **gat_sampled})
 
+    # ---- 10c. the sampled GAT kernels at gat_products' shapes -------------
+    gat_products = load_script("torch_gat_sampled").measure_products(dev)
+    for row in gat_products["layers"]:
+        require(max(row["rel_err"].values()) <= 1e-5
+                and row["repeat_bit_identical"]
+                and row["launches"] == {"fwd": 1, "bwd": 1},
+                f"sampled GAT kernels at gat_products' layer {row['layer']}: "
+                f"{row['rel_err']}, repeat {row['repeat_bit_identical']}, "
+                f"launches {row['launches']}")
+    emit({"phase": "kernel_gat_sampled_products", **gat_products})
+
     # ---- 11. K2's backward against its plain version -----------------------
     def skewed_rows(n_rows, n_src, no_out_every):
         """A skewed CSR (hub rows, every 13th row without edges) whose
@@ -3952,6 +3970,31 @@ def main() -> int:
         kernels_layer_ms=gat_sampled["ms_per_step"]["layer_kernels"],
         layouts=[t["layout"] for t in gat_sampled["layers"]])
     kernels.append(gs_line)
+    # one gat_products step's three layers, forward + backward
+    gp_rows = [{"ms": t["ms"]["fwd"] + t["ms"]["bwd"],
+                "plain_ms": t["ms"]["plain_fwd_bwd"], "library_ms": None,
+                "max_abs_err": max(t["rel_err"].values()),
+                "bound_ms": sum(b["bound_ms"] for b in t["bound"].values()),
+                "bound_by": ("bytes" if all(b["bound_by"] == "bytes"
+                                            for b in t["bound"].values())
+                             else "operations")}
+               for t in gat_products["layers"]]
+    gp_line = line(
+        "gat_sampled.products", gp_rows, "sgnn_tpu_torch/csrc/gat_sampled.cu",
+        "sgnn_tpu/models/gnn.py:84 (XLA einsums, no Pallas kernel)",
+        {k: sum(t["launches"][k] for t in gat_products["layers"])
+         for k in ("fwd", "bwd")},
+        "one gat_products step's three layers (D, K, S, F, H) = "
+        + ", ".join(f"({t['D']}, {t['K']}, {t['S']}, {t['F']}, {t['H']})"
+                    for t in gat_products["layers"])
+        + " on random blocks, K the 10 sampled slots and the own row's, "
+        "forward + backward (max_abs_err: relative to f64 plain; launches: "
+        "the wrappers' one call a layer; library_ms null as above)")
+    gp_line.update(
+        torch_ops_ms=gat_products["ms_per_step"]["layer_torch_ops"],
+        kernels_layer_ms=gat_products["ms_per_step"]["layer_kernels"],
+        layouts=[t["layout"] for t in gat_products["layers"]])
+    kernels.append(gp_line)
     for kname, rows, source, replaces, what in (
             ("probe_gather_sum", gather_rows, "probe_gather.cu",
              "scripts/profile_vmem_gather.py:57",

@@ -25,10 +25,20 @@ attention vectors a:
   slots counted) and its share; the row kernels' layouts, registers and
   local bytes.
 
+`--products` measures the same at the three layers of the gat_products
+cell instead (PyG's ogbn-products GAT 100-4x128-4x128-4x47 mean, fan-out
+10-10-10, batch 512): (D, S) as the device sampler pads them, (F, H) =
+(512, 4), (512, 4), (188, 4), on random blocks of 10 sampled slots (a
+tenth empty, one in 50 the destination's own row, a tenth of the lower
+layers' destinations padded) under GATConv's self-loop rule
+(`ops/gat_sampled.own_row_slots`: 11 slots, the own row's last).
+
 Prints the card's name and power limit and one JSON object; `--out` also
-writes it to FILE.  `measure(dev[, ds])` returns the object (chip_smoke.py's
-kernel_gat_sampled phase calls it on its graph).  Needs a CUDA device and
-imports nothing of JAX.
+writes it to FILE.  `measure(dev[, ds])` and `measure_products(dev)`
+return the object (chip_smoke.py's kernel_gat_sampled and
+kernel_gat_sampled_products phases call them).  Each layer's row counts
+the launches of the wrappers' first call (one forward, one backward).
+Needs a CUDA device and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import json
 import pathlib
 import subprocess
 import sys
+from typing import NamedTuple
 
 import torch
 
@@ -59,6 +70,11 @@ from torch_variant_tools import event_ms, rel_err  # noqa: E402
 
 LAYERS, FANOUT, BATCH, HEADS = [602, 128, 41], [25, 10], 10000, 4
 KERNEL_REPS, PLAIN_REPS, LAYER_REPS = 20, 3, 10
+# the gat_products cell's layers, bottom first: (D, S, F) at heads 4, K
+# sampled slots a destination
+PRODUCTS_LAYERS = [(61_952, 681_472, 512), (5_632, 61_952, 512),
+                   (512, 5_632, 188)]
+PRODUCTS_K, PRODUCTS_HEADS = 10, 4
 
 
 def kernel_layer(h, a, nbr, w, seed_in_src, heads):
@@ -89,6 +105,40 @@ def sampled_blocks(dev, ds=None):
     return list(sample.blocks)
 
 
+class Block(NamedTuple):
+    """What `layer_row` reads of a sampled block."""
+
+    nbr: torch.Tensor
+    weight: torch.Tensor
+    seed_in_src: torch.Tensor
+    num_src_pad: int
+
+
+def products_blocks(dev):
+    """Random blocks at the gat_products cell's shapes under the self-loop
+    rule: per layer 10 slots uniform over the S source rows, a tenth of
+    them empty (weight 0, row 0, as the sampler leaves them), one in 50
+    the destination's own row (masked by the rule), the destinations the
+    first D source rows, a tenth of them padded below the top layer."""
+    gen = torch.Generator().manual_seed(21)
+    out = []
+    for layer, (d, s, _) in enumerate(PRODUCTS_LAYERS):
+        sd = torch.arange(d, dtype=torch.int32)
+        nbr = torch.randint(0, s, (d, PRODUCTS_K), generator=gen,
+                            dtype=torch.int32)
+        own = torch.rand(d, PRODUCTS_K, generator=gen) < 0.02
+        nbr = torch.where(own, sd[:, None], nbr)
+        w = (torch.rand(d, PRODUCTS_K, generator=gen) >= 0.1).float()
+        valid = torch.ones(d, dtype=torch.bool)
+        if layer < len(PRODUCTS_LAYERS) - 1:
+            valid[torch.rand(d, generator=gen) < 0.1] = False
+        w[~valid] = 0.0
+        nbr = torch.where(w != 0, nbr, 0)
+        nbr, w = op.own_row_slots(nbr, w, sd, valid)
+        out.append(Block(nbr.to(dev), w.to(dev), sd.to(dev), s))
+    return out
+
+
 def layer_row(dev, layer, blk, feat, heads, device_name):
     gen = torch.Generator().manual_seed(layer)
     (d, k), s = blk.nbr.shape, blk.num_src_pad
@@ -101,8 +151,13 @@ def layer_row(dev, layer, blk, feat, heads, device_name):
     row = {"layer": layer, "D": d, "K": k, "S": s, "F": feat, "H": heads,
            "valid_slots": nnz}
     # held to plain (f64), bit-identical on repeat
+    counts = (kern.gat_sampled_fwd_cuda.launches,
+              kern.gat_sampled_bwd_cuda.launches)
     out, att = kern.gat_sampled_fwd_cuda(h, ts, td, nbr, w, sd, heads)
     grads = kern.gat_sampled_bwd_cuda(g, h, ts, td, nbr, w, sd, att, heads)
+    row["launches"] = {
+        "fwd": kern.gat_sampled_fwd_cuda.launches - counts[0],
+        "bwd": kern.gat_sampled_bwd_cuda.launches - counts[1]}
     h64, ts64, td64 = h.double(), ts.double(), td.double()
     ref_out, ref_att = op.gat_sampled_fwd_plain(h64, ts64, td64, nbr, w, sd,
                                                 heads)
@@ -163,6 +218,21 @@ def measure(dev, ds=None) -> dict:
         feat = LAYERS[layer + 1]
         heads = HEADS if layer < len(LAYERS) - 2 else 1
         rows.append(layer_row(dev, layer, blk, feat, heads, name))
+    return summary(name, rows)
+
+
+def measure_products(dev) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = torch.cuda.get_device_name(dev)
+    rows = []
+    for layer, blk in enumerate(products_blocks(dev)):
+        rows.append(layer_row(dev, layer, blk, PRODUCTS_LAYERS[layer][2],
+                              PRODUCTS_HEADS, name))
+        torch.cuda.empty_cache()
+    return summary(name, rows)
+
+
+def summary(name, rows) -> dict:
     total = {key: sum(r["ms"][key] for r in rows) for key in rows[0]["ms"]}
     return {"device": name, "layers": rows, "ms_per_step": total,
             "bound_ms_per_step": {
@@ -173,13 +243,16 @@ def measure(dev, ds=None) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path)
+    ap.add_argument("--products", action="store_true",
+                    help="the gat_products cell's three layers")
     args = ap.parse_args()
     dev = resolve_device(None)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    result = {"nvidia_smi": smi, **measure(dev)}
+    result = {"nvidia_smi": smi,
+              **(measure_products(dev) if args.products else measure(dev))}
     print(smi, flush=True)
     text = json.dumps(result)
     print(text, flush=True)

@@ -49,8 +49,14 @@ class RunConfig:
     decay_rate: float = 0.97
     decay_epoch: int = 100
     optimizer: str = "adam"          # adam | sgd (Parameter has both)
+    adam_epsilon: float = 1e-9       # Adam's ε (the reference's; torch: 1e-8)
     drop_rate: float = 0.5
     heads: int = 1                   # GAT attention heads (1 = reference)
+    # GAT layers: "" the reference system's; "pyg" PyG's GATConv stack of
+    # examples/ogbn_products_gat.py (heads on every layer, the last
+    # averaged, self-loops, biases, linear skips, ELU, dropout); taken by
+    # GATSAMPLEALLGPU alone (train/engines.py refuses it elsewhere)
+    gat_variant: str = ""
     scan_unroll: int = 1             # fused-epoch scan unroll factor
     # pipeline / cache orchestration (NeutronOrch)
     pipeline_num: int = 4
@@ -184,6 +190,8 @@ _KEYMAP = {
     "DECAY_EPOCH": ("decay_epoch", int),
     "DROP_RATE": ("drop_rate", float),
     "HEADS": ("heads", int),
+    "GAT_VARIANT": ("gat_variant", str),
+    "ADAM_EPSILON": ("adam_epsilon", float),
     "SCAN_UNROLL": ("scan_unroll", int),
     "PIPELINE_NUM": ("pipeline_num", int),
     "CACHE_RATE": ("cache_rate", float),

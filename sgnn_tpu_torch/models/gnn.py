@@ -5,6 +5,10 @@ Model structure (reference toolkits/ engines), the same in both packages:
   (GCN uses symmetric-norm weights, SAGE mean weights — the only difference
   between the GCN* and GS* engines, GS_SAMPLE_ALLGPU.hpp:296).
   GAT layer l: W_l [in, out] plus an attention vector a_l [2·out, 1].
+  GAT variant "pyg" (PyG's GATConv stack of examples/ogbn_products_gat.py):
+  every layer has `heads` heads, concatenated on hidden layers and averaged
+  on the last, one self edge a destination, a bias b_l and a linear skip
+  x_dst·S_l + c_l; hidden layers end in ELU and dropout.
 
 The parameters are a plain NamedTuple of tensors, as the JAX package's are a
 pytree of arrays, so one layout crosses between them by `params_from_numpy`.
@@ -30,31 +34,40 @@ from ..ops.aggregate import (
     scatter_src_to_edges,
 )
 from ..ops.gat import NEG_SLOPE, pack_score_tables
-from ..ops.gat_sampled import gat_sampled_aggregate
+from ..ops.gat_sampled import gat_sampled_aggregate, own_row_slots
 from ..sampler.blocks import SampledBatch
 from ..utils import timing
 
 MODEL_FAMILIES = ("gcn", "sage", "gat")
+# RunConfig.gat_variant: "" is the reference system's GAT, "pyg" PyG's
+GAT_VARIANTS = ("", "pyg")
 
 
 class GNNParams(NamedTuple):
-    """Per-layer weights; attn is empty for GCN/SAGE, [2F',1]-style for GAT."""
+    """Per-layer weights; attn is empty for GCN/SAGE, [2F',1]-style for GAT;
+    bias, skip_w and skip_b are the "pyg" GAT variant's (else empty)."""
 
     weights: Tuple[torch.Tensor, ...]     # W_l: [in_l, out_l]
     attn: Tuple[torch.Tensor, ...]        # GAT a_l: [2*out_l, 1] (else empty)
+    bias: Tuple[torch.Tensor, ...] = ()   # b_l: [width_l]
+    skip_w: Tuple[torch.Tensor, ...] = ()  # S_l: [in_l, width_l]
+    skip_b: Tuple[torch.Tensor, ...] = ()  # c_l: [width_l]
 
     def to(self, device=None, dtype=None) -> "GNNParams":
-        return GNNParams(
-            weights=tuple(w.to(device=device, dtype=dtype) for w in self.weights),
-            attn=tuple(a.to(device=device, dtype=dtype) for a in self.attn))
+        return GNNParams(*(tuple(t.to(device=device, dtype=dtype)
+                                 for t in group) for group in self))
 
     def leaves(self) -> List[torch.Tensor]:
-        """Weights then attention vectors: the optimizers' flat order."""
-        return [*self.weights, *self.attn]
+        """Weights, attention vectors, biases, skip weights, skip biases:
+        the optimizers' flat order."""
+        return [t for group in self for t in group]
 
     def replace_leaves(self, leaves: Sequence[torch.Tensor]) -> "GNNParams":
-        n = len(self.weights)
-        return GNNParams(weights=tuple(leaves[:n]), attn=tuple(leaves[n:]))
+        groups, i = [], 0
+        for group in self:
+            groups.append(tuple(leaves[i:i + len(group)]))
+            i += len(group)
+        return GNNParams(*groups)
 
 
 def init_model(
@@ -63,11 +76,15 @@ def init_model(
     layer_sizes: Sequence[int],
     dtype: torch.dtype = torch.float32,
     device=None,
+    heads: int = 1,
+    gat_variant: str = "",
 ) -> GNNParams:
     """W: xavier-uniform (torch parity), drawn from a CPU `torch.Generator`
     seeded with `seed`, then moved to `device`.  GAT attention vectors
     `a`: zeros, as in the JAX package (gnn.py:79-80) — every layer starts
-    at uniform attention.
+    at uniform attention.  The "pyg" GAT variant's last W has `heads`
+    blocks of the last width (its heads are averaged), its skip weights
+    are xavier-uniform after the W, its biases zeros.
 
     Torch's generator draws other numbers than `jax.random` from the same
     seed; to hold the two packages to each other, make the weights once
@@ -75,16 +92,26 @@ def init_model(
     `params_from_numpy`."""
     if family not in MODEL_FAMILIES:
         raise ValueError(f"unknown model family {family!r}")
+    check_variant(family, gat_variant)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
-    ws, atts = [], []
-    for i in range(len(layer_sizes) - 1):
-        ws.append(xavier_uniform_init(gen, layer_sizes[i], layer_sizes[i + 1],
-                                      dtype=dtype).to(dev))
-        if family == "gat":
-            atts.append(torch.zeros((2 * layer_sizes[i + 1], 1), dtype=dtype,
-                                    device=dev))
-    return GNNParams(weights=tuple(ws), attn=tuple(atts))
+    n = len(layer_sizes) - 1
+    pyg = gat_variant == "pyg"
+    outs = [layer_sizes[i + 1] * (heads if pyg and i == n - 1 else 1)
+            for i in range(n)]
+    ws = [xavier_uniform_init(gen, layer_sizes[i], outs[i],
+                              dtype=dtype).to(dev) for i in range(n)]
+    atts = ([torch.zeros((2 * o, 1), dtype=dtype, device=dev) for o in outs]
+            if family == "gat" else [])
+    if not pyg:
+        return GNNParams(weights=tuple(ws), attn=tuple(atts))
+    skips = [xavier_uniform_init(gen, layer_sizes[i], layer_sizes[i + 1],
+                                 dtype=dtype).to(dev) for i in range(n)]
+    zeros = tuple(torch.zeros(layer_sizes[i + 1], dtype=dtype, device=dev)
+                  for i in range(n))
+    return GNNParams(weights=tuple(ws), attn=tuple(atts), bias=zeros,
+                     skip_w=tuple(skips),
+                     skip_b=tuple(torch.zeros_like(z) for z in zeros))
 
 
 def params_from_numpy(weights, attn=(), device=None) -> GNNParams:
@@ -111,10 +138,27 @@ def _batch_norm(t: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return ((t32 - mu) * torch.rsqrt(var + BN_EPS)).to(t.dtype)
 
 
-def check_heads(params: GNNParams, family: str, heads: int) -> None:
+def check_variant(family: str, gat_variant: str) -> None:
+    """Raise ValueError unless `gat_variant` is one of GAT_VARIANTS, and ""
+    for a family other than GAT."""
+    if gat_variant not in GAT_VARIANTS or (gat_variant and family != "gat"):
+        raise ValueError(f"gat_variant={gat_variant!r}: the GAT family takes "
+                         f"one of {GAT_VARIANTS}, the others only ''; got "
+                         f"family {family!r}")
+
+
+def check_heads(params: GNNParams, family: str, heads: int,
+                gat_variant: str = "") -> None:
     """GAT: raise ValueError unless every layer has its attention vector
     [2·out, 1] and `heads` >= 1 divides every hidden width (the last layer
-    is single-head).  GCN/SAGE ignore `heads`, as in the JAX package."""
+    is single-head; under the "pyg" variant every width, and its biases
+    and skips match the widths).  GCN/SAGE ignore `heads`, as in the JAX
+    package."""
+    check_variant(family, gat_variant)
+    pyg = gat_variant == "pyg"
+    if not pyg and (params.bias or params.skip_w or params.skip_b):
+        raise ValueError("biases and skips are the pyg GAT's parameters "
+                         f"(gat_variant='pyg'), not {family!r}'s")
     if family != "gat":
         return
     n_layers = len(params.weights)
@@ -123,10 +167,21 @@ def check_heads(params: GNNParams, family: str, heads: int) -> None:
             for w, a in zip(params.weights, params.attn)):
         raise ValueError("GAT needs one attention vector [2*out, 1] per "
                          f"layer, got {[tuple(a.shape) for a in params.attn]}")
-    widths = [int(w.shape[1]) for w in params.weights[:-1]]
+    widths = [int(w.shape[1]) for w in params.weights[:None if pyg else -1]]
     if heads < 1 or any(f % heads for f in widths):
-        raise ValueError(f"heads={heads} must divide every hidden width "
-                         f"{widths}")
+        raise ValueError(f"heads={heads} must divide every "
+                         f"{'' if pyg else 'hidden '}width {widths}")
+    if not pyg:
+        return
+    want = [(int(w.shape[0]), int(w.shape[1]) // (heads if l == n_layers - 1
+                                                  else 1))
+            for l, w in enumerate(params.weights)]
+    got = [(tuple(b.shape), tuple(s.shape), tuple(c.shape)) for b, s, c in
+           zip(params.bias, params.skip_w, params.skip_b)]
+    if got != [((o,), (i, o), (o,)) for i, o in want]:
+        raise ValueError(f"the pyg GAT needs a bias [out], a skip weight "
+                         f"[in, out] and a skip bias [out] a layer for "
+                         f"(in, out) {want}, got {got}")
 
 
 def _agg_linear(w: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
@@ -140,16 +195,24 @@ def _agg_linear(w: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
 
 def _gat_layer(w: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
                nbr: torch.Tensor, wgt: torch.Tensor, seed_in_src: torch.Tensor,
-               heads: int = 1) -> torch.Tensor:
+               heads: int = 1,
+               dst_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One sampled GAT layer, pre-activation (sgnn_tpu/models/gnn.py:84-125):
     `heads` > 1 splits the F' output columns into blocks, each with its own
     attention (concat-of-heads; parameter shapes as single-head).  The
-    leaky_relu slope is NEG_SLOPE, the one whole-graph serving uses.  On
-    the card the attention aggregation is one op over hand-written kernels
-    (ops/gat_sampled.py: the same function, no [D, K, F] edge tensors;
-    the counter `gat_sampled.kernel` counts the layers that take it); on
-    the CPU the torch ops of `gat_attention_ops`."""
+    leaky_relu slope is NEG_SLOPE, the one whole-graph serving uses.  With
+    `dst_valid` each valid destination attends to its own row once and
+    never through a sampled slot (GATConv's self-loop rule,
+    `own_row_slots`; the counter `gat_sampled.self_loop` counts the layers
+    that take it).  On the card the attention aggregation is one op over
+    hand-written kernels (ops/gat_sampled.py: the same function, no
+    [D, K, F] edge tensors; the counter `gat_sampled.kernel` counts the
+    layers that take it); on the CPU the torch ops of
+    `gat_attention_ops`."""
     h = x @ w.to(x.dtype)                                   # [S, F']
+    if dst_valid is not None:
+        nbr, wgt = own_row_slots(nbr, wgt, seed_in_src, dst_valid)
+        timing.RECORDER.counters.add("gat_sampled.self_loop", 1)
     if h.device.type == "cuda":
         fprime = h.shape[-1]
         ts, td = pack_score_tables(h, a[:fprime, 0].to(h.dtype),
@@ -199,6 +262,7 @@ def model_forward(
     remat: bool = False,
     heads: int = 1,
     batch_norm: bool = False,
+    gat_variant: str = "",
 ) -> torch.Tensor:
     """Run the L-layer model; returns log-probs [num_seed_pad, C].
 
@@ -215,6 +279,11 @@ def model_forward(
     (torch.utils.checkpoint) instead of storing it: GCN/SAGE's hidden
     aggregations, every GAT layer (as the JAX package's checkpoints).
 
+    `gat_variant="pyg"` is PyG's GATConv stack (`_pyg_gat_layer`): `heads`
+    on every layer, the self-loop rule, biases, linear skips, ELU and
+    dropout on hidden layers, the heads' mean then log_softmax in f32 on
+    the last; no batch norm and no cache.
+
     `cache_emb` ([C, H] hot-vertex rows, cache/embedding_cache.py), with a
     batch carrying `cache_mask`/`cache_slot`, replaces the cached
     destinations' layer-0 pre-activations (GCN/SAGE: agg·W before batch
@@ -226,7 +295,16 @@ def model_forward(
     n_layers = len(params.weights)
     if batch.num_layers != n_layers:
         raise ValueError(f"{batch.num_layers} blocks for {n_layers} layers")
-    check_heads(params, family, heads)
+    check_heads(params, family, heads, gat_variant)
+    if gat_variant == "pyg":
+        if batch_norm or cache_emb is not None:
+            raise ValueError("the pyg GAT takes no batch_norm and no "
+                             "hot-vertex cache")
+        x = batch.x0
+        for l, block in enumerate(batch.blocks):
+            x = _pyg_gat_layer(params, l, x, block, heads, drop_rate,
+                               train, generator, remat)
+        return x
     use_cache = (cache_emb is not None and batch.cache_mask is not None
                  and n_layers > 1)
     x = batch.x0
@@ -262,6 +340,45 @@ def model_forward(
             if train and drop_rate > 0.0 and generator is not None:
                 x = dropout(generator, x, drop_rate, train)
     return x
+
+
+def _pyg_gat_layer(params: GNNParams, l: int, x: torch.Tensor, block,
+                   heads: int, drop_rate: float, train: bool,
+                   generator: Optional[torch.Generator],
+                   remat: bool) -> torch.Tensor:
+    """Layer l of the "pyg" variant over its block (PyG's GATConv with
+    concat on hidden layers, concat=False on the last, then the example's
+    skip): the attention aggregation of `_gat_layer` with the self-loop
+    rule, then its epilogue inside the `epilogue` span: on the last layer
+    the mean of the heads; + b_l + x_dst·S_l + c_l (x_dst the
+    destinations' own input rows); hidden layers elu, then dropout drawn
+    from `generator` (through the module's `dropout`) while training; the
+    last log_softmax in f32.  `remat` recomputes the aggregation in the
+    backward pass.  The counter `gat.skip_layers` counts the layers that
+    take the skip."""
+    last = l == len(params.weights) - 1
+    fn = functools.partial(_gat_layer, heads=heads,
+                           dst_valid=block.dst_valid)
+    args = (params.weights[l], params.attn[l], x, block.nbr, block.weight,
+            block.seed_in_src)
+    agg = (checkpoint(fn, *args, use_reentrant=False) if remat
+           else fn(*args))
+    timing.RECORDER.counters.add("gat.skip_layers", 1)
+    with timing.span("epilogue", agg):
+        if last:
+            agg = agg.view(agg.shape[0], heads, -1).mean(dim=1)
+        dt = x.dtype
+        x_dst = x.index_select(0, block.seed_in_src.long())
+        out = torch.addmm(agg + (params.bias[l] + params.skip_b[l]).to(dt),
+                          x_dst, params.skip_w[l].to(dt))
+        if last:
+            # f32 at least, as the other heads (f64 stays f64)
+            return log_softmax(out.to(torch.promote_types(out.dtype,
+                                                          torch.float32)))
+        out = F.elu(out)
+        if train and drop_rate > 0.0 and generator is not None:
+            out = dropout(generator, out, drop_rate, train)
+    return out
 
 
 def _merge_cache(pre_act: torch.Tensor, batch: SampledBatch,

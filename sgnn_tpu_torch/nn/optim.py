@@ -9,7 +9,8 @@ optimizers (core/NtsScheduler.hpp):
         W  -= α · M / (√V + ε)          # NO bias correction
   - `learnC2C_with_decay_Adam` (:863, the CPU engines' update): same but
     with bias correction M̂ = M/(1-β1ᵗ), V̂ = V/(1-β2ᵗ).
-α = LEARN_RATE, β1 = 0.9, β2 = 0.999, ε = 1e-9; weight decay is L2-style
+α = LEARN_RATE, β1 = 0.9, β2 = 0.999, ε = ADAM_EPSILON (1e-9, the
+reference's, by default); weight decay is L2-style
 (added to the gradient), and the learning rate decays as
 α·decay_rate^(step // decay_epoch).  `torch.optim.Adam` has another rule
 (ε outside a bias-corrected √V̂, decay not folded the same way), so it is
@@ -119,6 +120,7 @@ def make_optimizer(cfg, bias_correction: bool = False):
     return ReferenceAdam(
         learn_rate=cfg.learn_rate,
         weight_decay=cfg.weight_decay,
+        epsilon=cfg.adam_epsilon,
         bias_correction=bias_correction,
         decay_rate=cfg.decay_rate,
         decay_epoch=cfg.decay_epoch,

@@ -26,6 +26,12 @@ tables carry their gradients back to h and the attention vectors through
 `pack_score_tables`' einsum.  No [D, K, F] tensor is formed on either
 path: the forward saves att [D, K, H].
 
+GATConv's self-loop rule (PyG's `remove_self_loops` then
+`add_self_loops`: exactly one self edge a destination) is the block
+`own_row_slots` returns, which both paths take as any other: the sampled
+slots whose source is the destination's own row masked, and one more slot
+a row holding that own row.
+
 Dispatch: a CPU tensor goes to the plain versions here (sums in f32, f64
 for f64 rows); a CUDA tensor to the kernels (ops/cuda/gat_sampled.py,
 csrc/gat_sampled.cu), which take f32 or bf16 rows and f32 tables and sum
@@ -96,6 +102,20 @@ def check_gat_sampled_grad(g: torch.Tensor, att: torch.Tensor,
             raise ValueError(f"gat_sampled: {name} must be a contiguous {dt} "
                              f"{list(shape)} tensor on {h.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def own_row_slots(nbr: torch.Tensor, w: torch.Tensor,
+                  seed_in_src: torch.Tensor, dst_valid: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A sampled block under GATConv's self-loop rule: `(nbr, w)` of
+    [D, K + 1], the K sampled slots with weight 0 where the source is the
+    destination's own row (`seed_in_src`), then slot K, the own row,
+    weighted 1 on valid destinations and 0 on padded ones.  The caller's
+    block is left as sampled."""
+    own = seed_in_src[:, None]
+    w = torch.cat([w.masked_fill(nbr == own, 0.0),
+                   dst_valid[:, None].to(w.dtype)], dim=1)
+    return torch.cat([nbr, own], dim=1), w
 
 
 # ---------------------------------------------------------------- plain ----

@@ -64,8 +64,8 @@ def np_rng_state(rng: np.random.Generator) -> torch.Tensor:
 
 
 def params_state(params: GNNParams) -> Dict[str, List[torch.Tensor]]:
-    return {"weights": [w.detach().cpu() for w in params.weights],
-            "attn": [a.detach().cpu() for a in params.attn]}
+    return {name: [t.detach().cpu() for t in group]
+            for name, group in zip(GNNParams._fields, params)}
 
 
 def _same_shapes(name: str, got: Sequence[torch.Tensor],
@@ -79,13 +79,14 @@ def _same_shapes(name: str, got: Sequence[torch.Tensor],
 def load_params(state: dict, like: GNNParams) -> GNNParams:
     """The checkpoint's parameters on `like`'s device and dtype, after
     checking they have `like`'s shapes (another model's checkpoint
-    raises)."""
-    ws, atts = list(state["weights"]), list(state["attn"])
-    _same_shapes("weights", ws, like.weights)
-    _same_shapes("attn", atts, like.attn)
-    return GNNParams(
-        weights=tuple(w.to(l.device, l.dtype) for w, l in zip(ws, like.weights)),
-        attn=tuple(a.to(l.device, l.dtype) for a, l in zip(atts, like.attn)))
+    raises; a group a checkpoint lacks is empty)."""
+    groups = []
+    for name, group in zip(GNNParams._fields, like):
+        got = list(state.get(name, []))
+        _same_shapes(name, got, group)
+        groups.append(tuple(t.to(l.device, l.dtype)
+                            for t, l in zip(got, group)))
+    return GNNParams(*groups)
 
 
 def opt_state_dict(opt_state) -> dict:

@@ -222,14 +222,31 @@ def build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     PUSHDOWN:1 on a plain sampled engine is the cached trainer on that
     engine's sampler; ESTIMATOR_ADVISOR:route turns PUSHDOWN on when the
     advisor fires.  The *MULTI engines join this process's data-parallel
-    group (`_build_multi`).  The build is the `build` span, recorded with
-    or without a profiler session (utils/timing.py)."""
+    group (`_build_multi`).  GAT_VARIANT (models/gnn.py's "pyg" GAT) is
+    taken by GATSAMPLEALLGPU without a cache alone; any other engine
+    raises ValueError naming it.  The build is the `build` span, recorded
+    with or without a profiler session (utils/timing.py)."""
     with span("build", always=True):
         return _build_trainer(cfg, dataset, device)
 
 
+# the one engine that takes GAT_VARIANT (models/gnn.py's "pyg" layers)
+VARIANT_ENGINE = "GATSAMPLEALLGPU"
+
+
+def _refuse_variant(cfg: RunConfig, spec: EngineSpec) -> None:
+    """GAT_VARIANT only on the device-sampled GAT engine without a cache
+    (PUSHDOWN or ESTIMATOR_ADVISOR:route's): ValueError naming the key."""
+    if cfg.gat_variant and (spec.name != VARIANT_ENGINE or spec.use_cache):
+        raise ValueError(
+            f"gat_variant={cfg.gat_variant!r} is taken by {VARIANT_ENGINE} "
+            f"without a cache alone, not by {spec.name}"
+            f"{' with a cache' if spec.use_cache else ''}")
+
+
 def _build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     spec = engine_from_config(cfg)
+    _refuse_variant(cfg, spec)
     degree_mode = resolve_degree_mode(cfg)
     if spec.fullbatch:
         return FullBatchEngine(cfg, dataset, spec.family, spec.weight_kind,
@@ -244,6 +261,7 @@ def _build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     if pushdown_derived:
         spec = dataclasses.replace(spec, use_cache=True,
                                    cache_on_device=spec.device_sampling)
+        _refuse_variant(cfg, spec)
     kw = dict(family=spec.family, weight_kind=spec.weight_kind,
               degree_mode=degree_mode, bias_correction=spec.bias_correction,
               device=device)

@@ -143,18 +143,19 @@ def loss_and_grads(params: GNNParams, family: str, batch: SampledBatch, *,
                    generator: Optional[torch.Generator] = None,
                    remat: bool = False, batch_norm: bool = False,
                    heads: int = 1,
-                   cache_emb: Optional[torch.Tensor] = None) -> StepOut:
-    """Forward, masked NLL and its gradient with respect to every weight
-    and attention vector: the differentiated part of a training step, on
-    the batch's device.  `cache_emb` is the hot-vertex cache's layer-0
-    rows (`model_forward`)."""
+                   cache_emb: Optional[torch.Tensor] = None,
+                   gat_variant: str = "") -> StepOut:
+    """Forward, masked NLL and its gradient with respect to every
+    parameter leaf: the differentiated part of a training step, on the
+    batch's device.  `cache_emb` is the hot-vertex cache's layer-0 rows,
+    `gat_variant` the GAT's layers (`model_forward`)."""
     leaves = [p.detach().requires_grad_() for p in params.leaves()]
     with span("forward", batch.labels):
         logp = model_forward(params.replace_leaves(leaves), family, batch,
                              drop_rate=drop_rate, train=True,
                              generator=generator, remat=remat,
                              batch_norm=batch_norm, heads=heads,
-                             cache_emb=cache_emb)
+                             cache_emb=cache_emb, gat_variant=gat_variant)
         loss = nll_loss_masked(logp, batch.labels, batch.label_valid)
     with span("backward", batch.labels):
         loss.backward()
@@ -288,8 +289,9 @@ class SampleTrainer:
             self.dev_labels = None
         self._init_feature_cache(hbm_budget_bytes)
         self.params = init_model(cfg.seed, family, cfg.layer_sizes,
-                                 device=self.device)
-        check_heads(self.params, family, cfg.heads)
+                                 device=self.device, heads=cfg.heads,
+                                 gat_variant=cfg.gat_variant)
+        check_heads(self.params, family, cfg.heads, cfg.gat_variant)
         # OPTIMIZER cfg key picks Adam (default) or the reference's SGD rule
         self.optimizer = make_optimizer(cfg, bias_correction)
         self.opt_state = self.optimizer.init(self.params.leaves())
@@ -488,7 +490,8 @@ class SampleTrainer:
                              drop_rate=self.cfg.drop_rate,
                              generator=self.generator, remat=self.cfg.remat,
                              batch_norm=self.cfg.batch_norm,
-                             heads=self.cfg.heads, cache_emb=cache_emb)
+                             heads=self.cfg.heads, cache_emb=cache_emb,
+                             gat_variant=self.cfg.gat_variant)
         grads = (out.grads if self.grad_reduce is None
                  else self.grad_reduce(out.grads))
         with span("update", self.device):
@@ -502,7 +505,8 @@ class SampleTrainer:
     def eval_step(self, batch: SampledBatch) -> torch.Tensor:
         logp = model_forward(self.params, self.family, batch, train=False,
                              batch_norm=self.cfg.batch_norm,
-                             heads=self.cfg.heads)
+                             heads=self.cfg.heads,
+                             gat_variant=self.cfg.gat_variant)
         return masked_accuracy(logp, batch.labels, batch.label_valid)
 
     # ------------------------------------------------------------- batching

@@ -563,16 +563,22 @@ def _gat_sampled_inputs(rng, d, k, s, feat, heads, hub=None):
 
 
 def _gat_sampled_check(dev, dtype, tol, d, k, s, feat, heads, hub=None,
-                       seed=0):
+                       seed=0, own=False):
     """The forward and backward kernels against their plain versions on the
     same values in f64 (the rows rounded to `dtype` first): f32 differs by
     its own rounding, bf16 by the kernel's one rounding of out and dh;
-    bit-identical on repeat, each wrapper launched once a call."""
+    bit-identical on repeat, each wrapper launched once a call.  `own`:
+    the block under the self-loop rule (`own_row_slots`, every 7th row a
+    padded destination)."""
     from sgnn_tpu_torch.ops import gat_sampled as op
 
     rng = np.random.default_rng(seed)
     h, ts, td, nbr, w, sd, g = (t.to(dev) for t in _gat_sampled_inputs(
         rng, d, k, s, feat, heads, hub))
+    if own:
+        valid = torch.ones(d, dtype=torch.bool, device=dev)
+        valid[::7] = False
+        nbr, w = op.own_row_slots(nbr, w, sd, valid)
     h, g = h.to(dtype), g.to(dtype)
     counts = [gs.gat_sampled_fwd_cuda.launches,
               gs.gat_sampled_bwd_cuda.launches]
@@ -653,6 +659,68 @@ def test_gat_sampled_kernels_at_the_cells_shapes(cuda_device, dtype, tol, d,
     del h, ts, td, nbr, w, sd, g, out, att, grads
     _gat_sampled_check(cuda_device, dtype, tol, d, k, s, feat, heads,
                        hub=17)
+
+
+@pytest.mark.parametrize("own", [False, True], ids=["sampled", "own_row"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("heads,feat", [(4, 512), (4, 188)])
+def test_gat_sampled_kernels_pyg_widths(cuda_device, dtype, tol, heads, feat,
+                                        own):
+    """The pyg GAT's layers: heads of 128 (F = 512, vector columns, two
+    column tiles) and 4 heads of 47 (F = 188, scalar columns, a head across
+    a tile), with and without the own-row slot, against the plain
+    versions; bit-identical on repeat."""
+    _gat_sampled_check(cuda_device, dtype, tol, 1001, 10, 700, feat, heads,
+                       hub=5, seed=feat, own=own)
+    lay = gs.row_layout(torch.empty(1, feat, device=cuda_device, dtype=dtype),
+                        torch.empty(1, feat, device=cuda_device, dtype=dtype),
+                        heads)
+    assert lay["vec"] == (4 if feat == 512 else 1)
+
+
+@pytest.mark.parametrize("d,s,feat", [(61_952, 681_472, 512),
+                                      (5_632, 61_952, 512), (512, 5_632, 188)])
+def test_gat_sampled_kernels_at_the_products_shapes(cuda_device, d, s, feat):
+    """The gat_products cell's three layers (100-4x128-4x128-4x47, fan-out
+    10-10-10, batch 512): D and S as the device sampler pads them, K = 10
+    sampled slots and the own row's, f32."""
+    _gat_sampled_check(cuda_device, torch.float32, 1e-5, d, 10, s, feat, 4,
+                       hub=17, own=True)
+
+
+def test_pyg_gat_step_card_vs_cpu(cuda_device):
+    """One gat_variant "pyg" GATSAMPLEALLGPU batch sampled on the card, with
+    sampled self-loops: loss and the 15 leaves' gradients through the
+    kernels against the CPU's torch ops on the same blocks and weights (no
+    dropout drawn), and per step 3 layers through the kernel pair, the
+    own-row term and the skip."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = random_graph_dataset(3000, 10, 48, 5, seed=4)
+    cfg = RunConfig(algorithm="GATSAMPLEALLGPU", layer_sizes=[48, 32, 32, 5],
+                    fanout=[5, 4, 3], batch_size=256, heads=4,
+                    gat_variant="pyg", vertices=ds.num_vertices)
+    tr = build_trainer(cfg, ds, device=cuda_device)
+    gen = torch.Generator().manual_seed(2)
+    p = tr.params.replace_leaves([
+        (torch.rand(t.shape, generator=gen) - 0.5).to(cuda_device)
+        for t in tr.params.leaves()])
+    batch = tr.sample(*next(tr._seed_batches(tr.train_nids, False)))
+    names = ("gat_sampled.kernel", "gat_sampled.self_loop", "gat.skip_layers")
+    before = [timing.RECORDER.counters.get(n) for n in names]
+    launches = [gs.gat_sampled_fwd_cuda.launches,
+                gs.gat_sampled_bwd_cuda.launches]
+    card = loss_and_grads(p, "gat", batch, heads=4, gat_variant="pyg")
+    assert [timing.RECORDER.counters.get(n) - b
+            for n, b in zip(names, before)] == [3, 3, 3]
+    assert [gs.gat_sampled_fwd_cuda.launches - launches[0],
+            gs.gat_sampled_bwd_cuda.launches - launches[1]] == [3, 3]
+    cpu = loss_and_grads(p.to("cpu"), "gat", _batch_to(batch, "cpu"),
+                         heads=4, gat_variant="pyg")
+    assert abs(card.loss.item() - cpu.loss.item()) <= 1e-5
+    assert len(card.grads) == 15
+    for a, b in zip(card.grads, cpu.grads):
+        assert _rel(a.cpu(), b) <= 1e-4
 
 
 def test_gat_sampled_kernels_reject_bad_args(cuda_device):
