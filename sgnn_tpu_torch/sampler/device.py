@@ -6,13 +6,16 @@ The port of sgnn_tpu/sampler/device.py.  Reference analog: the GPU sampler
 cuda/ntsCUDATransferKernel.cuh:852-1105).  Per hop: uniform position draws
 from a `torch.Generator` on the batch's device, clamped to deg-1; an O(K²)
 in-row duplicate mask; the source set as a presence bitmap over [V]
-(`scatter_reduce_`), ranked by `cumsum`, and ids scattered into their rank
-slots; edges whose source rank overflows an estimated bound are dropped and
-counted.  A bottom hop whose bound is the whole (padded) vertex set takes
-the identity branch: local ids are global ids and x0 is the feature matrix
-itself.  Duplicates within a row are masked rather than redrawn, as in the
-JAX package.  The draws are torch's, not jax.random's: the tests hold this
-sampler to invariants, not to the JAX package's draws.
+(`index_fill_`; each slot not kept and each padded seed writes a private
+dump entry past V, so writes share an address only where they are the same
+vertex), ranked by `cumsum`, and the present ids read back from the ranks
+by a sorted search; edges whose source rank overflows an estimated bound
+are dropped and counted.  A bottom hop whose bound is the whole (padded)
+vertex set takes the identity branch: local ids are global ids and x0 is
+the feature matrix itself.  Duplicates within a row are masked rather than
+redrawn, as in the JAX package.  The draws are torch's, not jax.random's:
+the tests hold this sampler to invariants, not to the JAX package's
+draws.
 
 By construction every kept slot's local index is below the hop's
 `num_src_pad` (`keep_fit`), so K1's gathers stay in bounds.
@@ -24,6 +27,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..utils import timing
 from .blocks import SampledBatch, SampledBlock, WeightKind
 
 
@@ -55,6 +59,36 @@ def _edge_weights(keep, nbr_local, num_src_pad, fanout, weight_kind,
     if weight_kind == WeightKind.MEAN:
         w = w / keep.sum(dim=1).clamp_min(1)[:, None].float()
     return torch.where(keep, w, zero)
+
+
+def _source_set(keep, nbr_global, seeds_l, dst_valid, num_vertices,
+                num_src_pad):
+    """A hop's source set (reference bitmap + src_index_array reindex,
+    ntsFastSampler.hpp:1062-1080) → (srcs, src_valid, lookup).
+
+    The kept slots' sources and the valid seeds mark a presence bitmap over
+    [V]; every slot not kept and every invalid seed marks its own dump
+    entry past V instead.  `lookup` ([V]) is each present id's rank less
+    one, by prefix sum.  The ids present are increasing and so are their
+    ranks, so slot i of `srcs` is the first vertex of rank i + 1: a sorted
+    search of the prefix sum, no scatter.  Past `num_src_pad` present ids
+    the rank space overflows; slots past the present ids hold 0."""
+    dev = keep.device
+    b, fanout = keep.shape
+    n_slots = b * fanout
+    presence = torch.zeros(num_vertices + n_slots + b, dtype=torch.int32,
+                           device=dev)
+    dump = torch.arange(num_vertices, num_vertices + n_slots + b, device=dev)
+    presence.index_fill_(0, torch.where(
+        keep, nbr_global, dump[:n_slots].view(b, fanout)).reshape(-1), 1)
+    presence.index_fill_(0, torch.where(dst_valid, seeds_l, dump[n_slots:]),
+                         1)
+    ranks = presence[:num_vertices].cumsum(0)
+    rank_of_slot = torch.arange(1, num_src_pad + 1, device=dev)
+    src_valid = rank_of_slot <= ranks[-1]
+    srcs = torch.where(src_valid, torch.searchsorted(ranks, rank_of_slot,
+                                                     out_int32=True), 0)
+    return srcs, src_valid, ranks - 1
 
 
 def _sample_hop(generator, seeds, dst_valid, indptr, indices, fanout,
@@ -104,28 +138,13 @@ def _sample_hop(generator, seeds, dst_valid, indptr, indices, fanout,
             src_valid=torch.ones(num_src_pad, dtype=torch.bool, device=dev),
             seed_in_src=seeds)
         return block, torch.zeros((), dtype=torch.int32, device=dev)
-    # source set: a presence bitmap over [V], dense ranks by prefix sum, and
-    # each id scattered into its rank slot (reference bitmap +
-    # src_index_array reindex, ntsFastSampler.hpp:1062-1080)
-    presence = torch.zeros(num_vertices, dtype=torch.int32, device=dev)
-    presence.scatter_reduce_(
-        0, torch.where(keep, nbr_global, seeds[:1]).reshape(-1).long(),
-        keep.reshape(-1).to(torch.int32), reduce="amax")
-    presence.scatter_reduce_(0, seeds_l, dst_valid.to(torch.int32),
-                             reduce="amax")
-    ranks = presence.cumsum(0)
-    lookup = ranks - 1                       # [V] local index, if present
-    num_src = ranks[-1].clamp_max(num_src_pad)
+    timing.RECORDER.counters.add("sampler.rank_hops", 1)
+    srcs, src_valid, lookup = _source_set(keep, nbr_global, seeds_l,
+                                          dst_valid, num_vertices,
+                                          num_src_pad)
     # with an estimated bound (SRC_PAD_FACTOR) the tail of the rank space
-    # can overflow: those ids go to a dump slot and every edge pointing at
-    # them is dropped (weight 0) and counted
-    slot = torch.where((presence == 1) & (lookup < num_src_pad), lookup,
-                       num_src_pad)
-    srcs = torch.zeros(num_src_pad + 1, dtype=torch.int32, device=dev)
-    srcs.scatter_reduce_(0, slot, torch.arange(num_vertices, dtype=torch.int32,
-                                               device=dev), reduce="amax")
-    srcs = srcs[:num_src_pad]
-    src_valid = torch.arange(num_src_pad, device=dev) < num_src
+    # can overflow: every edge pointing past it is dropped (weight 0) and
+    # counted
     nbr_rank = lookup[nbr_global.clamp_min(0).long()]
     keep_fit = keep & (nbr_rank < num_src_pad)
     nbr_local = torch.where(keep_fit, nbr_rank, 0).to(torch.int32)

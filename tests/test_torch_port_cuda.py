@@ -11,10 +11,14 @@ on the card to the same server on the CPU.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
 import torch
+from _rank_scatter import (
+    assert_same_blocks, both_ways, rank_scatter_source_set,
+)
 
 from sgnn_tpu_torch.config import RunConfig
 from sgnn_tpu_torch.data.synthetic import random_graph_dataset
@@ -41,6 +45,7 @@ from sgnn_tpu_torch.ops.segment import (
     CSR_CHUNK_MIN, LONG_ROW_EDGES, csr_chunk_edges, csr_from_numpy,
     csr_transpose, spmm_csr, spmm_csr_bwd, spmm_csr_plain,
 )
+from sgnn_tpu_torch.sampler import device as device_sampler
 from sgnn_tpu_torch.sampler.blocks import WeightKind
 from sgnn_tpu_torch.sampler.host import HostSampler
 from sgnn_tpu_torch.train import build_trainer
@@ -1757,3 +1762,79 @@ def test_sample_span_holds_its_kernel_launches(cuda_device):
         assert s["start_ns"] <= a and a + e.duration_ns() <= s["end_ns"], (
             e.name(), a, s)
     assert s["device"] and s["device_ms"] > 0
+
+
+@pytest.mark.parametrize("num_src_pad", [5632, 2048])
+def test_source_set_matches_rank_scatter_at_products_size(cuda_device,
+                                                          monkeypatch,
+                                                          num_src_pad):
+    """One hop at ogbn-products' size (V = 2,449,152 padded, 512 seeds of
+    which 12 are padding, fanout 10) over a random graph of in-degree 50
+    whose sources are Zipf-skewed (density 1/rank: low ids are hubs): the
+    block and the overflow count equal the rank scatter's for the same
+    draws, at the exact pad (5,632) and at one the rank space overflows."""
+    v, in_deg, b, fanout = 2_449_152, 50, 512, 10
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    indptr = torch.arange(v + 1, dtype=torch.int64, device=cuda_device)
+    indptr *= in_deg
+    u = torch.rand(v * in_deg, generator=gen, device=cuda_device)
+    indices = (torch.exp(u * math.log(v)) - 1).to(torch.int32).clamp_(
+        0, v - 1)
+    del u
+    seeds = torch.randint(0, v, (b,), generator=gen, device=cuda_device,
+                          dtype=torch.int32)
+    valid = torch.arange(b, device=cuda_device) < b - 12
+    seeds = torch.where(valid, seeds, 0)
+
+    def hop():
+        return device_sampler._sample_hop(
+            gen, seeds, valid, indptr, indices, fanout, num_src_pad,
+            WeightKind.GCN, None, None)
+
+    (own, own_over), (ref, ref_over) = both_ways(monkeypatch, gen, hop)
+    assert int(own_over) == int(ref_over)
+    assert (int(own_over) > 0) == (num_src_pad < 5632)
+    assert_same_blocks([own], [ref])
+
+
+# kernel launches of one `sample` call of the trainer below with the rank
+# scatter that the sorted search replaced (NVIDIA H100 80GB HBM3, torch
+# 2.11 with CUDA 12.8; the sorted search's: 226)
+RANK_SCATTER_SAMPLE_LAUNCHES = 244
+
+
+def _sample_launches(trainer, seeds, valid):
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.sample(seeds, valid)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.sample(seeds, valid)
+        torch.cuda.synchronize()
+    return sum("LaunchKernel" in e.name()
+               for e in prof.profiler.kineto_results.events())
+
+
+def test_sample_launches_no_more_than_rank_scatter(cuda_device, monkeypatch):
+    """A `sample` call of a 3-hop GATSAMPLEALLGPU trainer whose three hops
+    all build a source set launches no more kernels than under the rank
+    scatter: than the count stated for it, and than the plain reference
+    in the sampler's place."""
+    ds = random_graph_dataset(20000, 10, 32, 5, seed=0)
+    cfg = RunConfig(algorithm="GATSAMPLEALLGPU", layer_sizes=[32, 16, 16, 5],
+                    fanout=[5, 3, 3], batch_size=128, heads=2,
+                    vertices=20000)
+    trainer = build_trainer(cfg, ds, device=cuda_device)
+    assert max(trainer.src_pads) < trainer.dev_indptr.shape[0] - 1
+    seeds, valid = next(trainer._seed_batches(trainer.train_nids, False))
+    counters = timing.RECORDER.counters
+    before = counters.get("sampler.rank_hops")
+    own = _sample_launches(trainer, seeds, valid)
+    # two `sample` calls (a warm one, then the profiled one), three hops each
+    assert counters.get("sampler.rank_hops") - before == 2 * 3
+    with monkeypatch.context() as m:
+        m.setattr(device_sampler, "_source_set", rank_scatter_source_set)
+        ref = _sample_launches(trainer, seeds, valid)
+    print(f"sample launches: {own}, under the rank scatter {ref}")
+    assert own <= ref
+    assert own <= RANK_SCATTER_SAMPLE_LAUNCHES

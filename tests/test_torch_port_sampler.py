@@ -12,13 +12,17 @@ held to invariants: each kept slot is a real in-edge of its seed, no
 duplicate in a row, small rows taken whole, sorted unique source sets that
 cover the seeds, `seed_in_src` right, `nbr < num_src_pad`, the overflow
 count 0 at exact pads and > 0 under a tiny SRC_PAD_FACTOR, and the
-identity bottom hop.
+identity bottom hop.  Its source set (a sorted search of the presence
+map's prefix sum) is held bit for bit to the rank scatter it replaced,
+kept in tests/_rank_scatter.py as the plain reference, and
+`sampler.rank_hops` counts the hops that build one.
 """
 
 import shutil
 
 import numpy as np
 import pytest
+from _rank_scatter import assert_same_blocks, both_ways
 
 from sgnn_tpu.graph.adjacency import Adjacency as JAdjacency
 from sgnn_tpu.sampler.blocks import WeightKind as JWeightKind
@@ -31,6 +35,7 @@ from sgnn_tpu_torch.sampler import native
 from sgnn_tpu_torch.sampler.blocks import WeightKind
 from sgnn_tpu_torch.sampler.host import HostSampler
 from sgnn_tpu_torch.train.device_trainer import DeviceSampleTrainer
+from sgnn_tpu_torch.utils import timing
 
 FIELDS = ("nbr", "weight", "srcs", "seeds", "seed_in_src", "dst_valid",
           "src_valid", "num_dst", "num_src")
@@ -167,3 +172,35 @@ def test_device_sampler_identity_bottom_hop(tiny_ds):
     assert bool(b0.src_valid.all())
     assert batch.x0.data_ptr() == tr.dev_features.data_ptr()  # no re-gather
     _check_invariants(tr, batch)
+
+
+@pytest.mark.parametrize("pad_factor", [0.0, 0.05])
+def test_device_source_set_matches_rank_scatter(mid_ds, monkeypatch,
+                                                pad_factor):
+    """The blocks and the overflow count of a `sample` call are those of
+    the rank scatter for the same draws: at exact pads and at pads so
+    tight that the rank space overflows, on a full batch and on the
+    epoch's last, whose padded seeds are invalid."""
+    tr = _device_trainer(mid_ds, src_pad_factor=pad_factor)
+    batches = list(tr._seed_batches(tr.train_nids, True))
+    assert not bool(batches[-1][1].all())       # a partial last batch
+    for seeds, valid in (batches[0], batches[-1]):
+        own, ref = both_ways(monkeypatch, tr.sample_generator,
+                             lambda: tr.sample(seeds, valid))
+        assert int(own.overflow) == int(ref.overflow)
+        assert (int(own.overflow) > 0) == (pad_factor > 0)
+        assert_same_blocks(own.blocks, ref.blocks)
+        np.testing.assert_array_equal(own.x0.numpy(), ref.x0.numpy())
+
+
+@pytest.mark.parametrize("ds_name,rank_hops", [("mid_ds", 2), ("tiny_ds", 1)])
+def test_device_sampler_counts_rank_hops(request, ds_name, rank_hops):
+    """`sampler.rank_hops` counts each hop that builds a source set: both
+    hops on `mid_ds`, the seed hop alone on `tiny_ds`, whose bottom hop
+    is the identity hop."""
+    tr = _device_trainer(request.getfixturevalue(ds_name))
+    seeds, valid = next(tr._seed_batches(tr.train_nids, True))
+    counters = timing.RECORDER.counters
+    before = counters.get("sampler.rank_hops")
+    tr.sample(seeds, valid)
+    assert counters.get("sampler.rank_hops") - before == rank_hops
