@@ -88,16 +88,16 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                `evaluate`: finite losses, the loss falling, no K1-K4
                launch, the sampled GAT kernels' (csrc/gat_sampled.cu) a
                forward per layer of each step and eval batch and a
-               backward per layer of each step, `gat_sampled.kernel` the
-               layers; per-step median time, sampled edges/s, accuracies,
-               peak memory;
+               backward per layer of each step, the layers read from the
+               forward's launches; per-step median time, sampled edges/s,
+               accuracies, peak memory;
 10b. kernel_gat_sampled — `scripts/torch_gat_sampled.py`'s `measure` on
                the same graph: at one device-sampled batch's two layers
                (F=128 H=4, F=41 H=1) the sampled GAT kernels held to their
                plain versions in f64 (1e-5) and bit-identical on repeat,
-               timed beside plain, the torch-op path they replace (the
-               layer's attention forward + backward under autograd, and
-               through the kernels) and the bound; layouts and registers;
+               timed beside plain, the layer's attention forward +
+               backward under autograd through the kernels, and the
+               bound; layouts and registers;
 10c. kernel_gat_sampled_products — the same script's `measure_products`:
                the kernels at the gat_products cell's three layers ((D, S)
                = (61952, 681472), (5632, 61952), (512, 5632); (F, H) =
@@ -1104,6 +1104,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    from sgnn_tpu_torch import full_f32_products
     from sgnn_tpu_torch.config import RunConfig
     from sgnn_tpu_torch.data.synthetic import reddit_like_dataset
     from sgnn_tpu_torch.graph.adjacency import Adjacency
@@ -1156,12 +1157,11 @@ def main() -> int:
     from sgnn_tpu_torch.train.trainer import (
         host_batch_to_device, loss_and_grads,
     )
-    from sgnn_tpu_torch.utils import roofline, timing
+    from sgnn_tpu_torch.utils import roofline
     from sgnn_tpu_torch.utils.timing import PhaseTimer, cuda_graph_ms
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    full_f32_products(dev)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1992,7 +1992,6 @@ def main() -> int:
     del card, cpu, ref, batch
     reset_counts()
     gsk.gat_sampled_fwd_cuda.launches = gsk.gat_sampled_bwd_cuda.launches = 0
-    layers_before = timing.RECORDER.counters.get("gat_sampled.kernel")
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2001,11 +2000,11 @@ def main() -> int:
     val_acc = gat_trainer.evaluate(gat_trainer.val_nids)
     gat_train_counts = counts()
     gat_evals = -(-gat_trainer.val_nids.size // TRAIN_BATCH)
+    # one forward launch a layer: the layers are the forward's launches
     gat_sampled_launches = {
         "fwd": gsk.gat_sampled_fwd_cuda.launches,
         "bwd": gsk.gat_sampled_bwd_cuda.launches,
-        "layers": (timing.RECORDER.counters.get("gat_sampled.kernel")
-                   - layers_before)}
+        "layers": gsk.gat_sampled_fwd_cuda.launches}
     steps = len(gat_trainer.step_ms)
     losses = gat_trainer.step_losses
     require(all(np.isfinite(losses)) and np.isfinite(tr_loss),
@@ -3963,10 +3962,9 @@ def main() -> int:
                     for t in gat_sampled["layers"])
         + ", forward + backward (max_abs_err: relative to f64 plain; "
         "library_ms null: no single PyTorch call computes it; "
-        "torch_ops_ms is the layer's attention through the torch ops "
-        "under autograd, kernels_layer_ms the same through the kernels)")
+        "kernels_layer_ms is the layers' attention through the kernels "
+        "under autograd)")
     gs_line.update(
-        torch_ops_ms=gat_sampled["ms_per_step"]["layer_torch_ops"],
         kernels_layer_ms=gat_sampled["ms_per_step"]["layer_kernels"],
         layouts=[t["layout"] for t in gat_sampled["layers"]])
     kernels.append(gs_line)
@@ -3991,7 +3989,6 @@ def main() -> int:
         "forward + backward (max_abs_err: relative to f64 plain; launches: "
         "the wrappers' one call a layer; library_ms null as above)")
     gp_line.update(
-        torch_ops_ms=gat_products["ms_per_step"]["layer_torch_ops"],
         kernels_layer_ms=gat_products["ms_per_step"]["layer_kernels"],
         layouts=[t["layout"] for t in gat_products["layers"]])
     kernels.append(gp_line)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Hold the sampled GAT kernels (`csrc/gat_sampled.cu`) to their plain
-versions and time them beside the torch-op path they replace, at the
-training shapes of one device-sampled GATSAMPLEALLGPU batch.
+versions and time them, at the training shapes of one device-sampled
+GATSAMPLEALLGPU batch.
 
     python3 scripts/torch_gat_sampled.py [--out FILE]
 
@@ -16,11 +16,9 @@ attention vectors a:
   reference element), and bit-identical on repeat;
 - CUDA events over 20 calls of the forward and of the backward kernels,
   over 3 plain calls (forward + backward), and over 10 calls of the whole
-  layer's attention forward + backward under autograd two ways: the
-  kernels (`pack_score_tables` and `gat_sampled_aggregate`, the card's
-  `models/gnn._gat_layer`) and the torch ops the CPU keeps
-  (`models/gnn.gat_attention_ops`: the [D, K, F] edge tensors and
-  autograd's `index_add_`), with the peak device memory of each;
+  layer's attention forward + backward under autograd through the kernels
+  (`pack_score_tables` and `gat_sampled_aggregate`, as
+  `models/gnn._gat_layer`), with its peak device memory;
 - `roofline.kernel_bound` of each kernel at the layer's shape (its valid
   slots counted) and its share; the row kernels' layouts, registers and
   local bytes.
@@ -56,10 +54,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
-from sgnn_tpu_torch import resolve_device  # noqa: E402
+from sgnn_tpu_torch import full_f32_products, resolve_device  # noqa: E402
 from sgnn_tpu_torch.config import RunConfig  # noqa: E402
 from sgnn_tpu_torch.data.synthetic import reddit_like_dataset  # noqa: E402
-from sgnn_tpu_torch.models.gnn import gat_attention_ops  # noqa: E402
 from sgnn_tpu_torch.ops import gat_sampled as op  # noqa: E402
 from sgnn_tpu_torch.ops.cuda import gat_sampled as kern  # noqa: E402
 from sgnn_tpu_torch.ops.gat import pack_score_tables  # noqa: E402
@@ -78,7 +75,8 @@ PRODUCTS_K, PRODUCTS_HEADS = 10, 4
 
 
 def kernel_layer(h, a, nbr, w, seed_in_src, heads):
-    """The same through the kernels, as the card's _gat_layer."""
+    """A layer's attention aggregation through the kernels, as
+    models/gnn._gat_layer."""
     fprime = h.shape[-1]
     ts, td = pack_score_tables(h, a[:fprime, 0], a[fprime:, 0], heads)
     return op.gat_sampled_aggregate(h, ts, td, nbr, w, seed_in_src, heads)
@@ -184,21 +182,19 @@ def layer_row(dev, layer, blk, feat, heads, device_name):
         op.gat_sampled_bwd_plain(g, h, ts, td, nbr, w, sd, p_att, heads)
 
     ms["plain_fwd_bwd"] = event_ms(plain, PLAIN_REPS)
-    for name, fn in (("layer_kernels", kernel_layer),
-                     ("layer_torch_ops", gat_attention_ops)):
-        hh = h.detach().requires_grad_()
-        aa = a.detach().requires_grad_()
+    hh = h.detach().requires_grad_()
+    aa = a.detach().requires_grad_()
 
-        def step():
-            y = fn(hh, aa, nbr, w, sd, heads)
-            torch.autograd.grad(y, (hh, aa), g)
+    def step():
+        y = kernel_layer(hh, aa, nbr, w, sd, heads)
+        torch.autograd.grad(y, (hh, aa), g)
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev)
-        ms[name] = event_ms(step, LAYER_REPS)
-        row.setdefault("peak_extra_bytes", {})[name] = (
-            torch.cuda.max_memory_allocated(dev) - base)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ms["layer_kernels"] = event_ms(step, LAYER_REPS)
+    row["peak_extra_bytes"] = {
+        "layer_kernels": torch.cuda.max_memory_allocated(dev) - base}
     row["ms"] = ms
     for kname in ("fwd", "bwd"):
         b = roofline.kernel_bound(f"gat_sampled_{kname}", device_name, 4,
@@ -211,7 +207,7 @@ def layer_row(dev, layer, blk, feat, heads, device_name):
 
 
 def measure(dev, ds=None) -> dict:
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_f32_products(dev)
     name = torch.cuda.get_device_name(dev)
     rows = []
     for layer, blk in enumerate(sampled_blocks(dev, ds)):
@@ -222,7 +218,7 @@ def measure(dev, ds=None) -> dict:
 
 
 def measure_products(dev) -> dict:
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_f32_products(dev)
     name = torch.cuda.get_device_name(dev)
     rows = []
     for layer, blk in enumerate(products_blocks(dev)):

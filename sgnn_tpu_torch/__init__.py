@@ -7,7 +7,8 @@ first use (`ops/cuda/build.py`); each has a plain PyTorch version beside it.
 
 Device rule: every entry point takes `device=None`, which means CUDA.
 Without a card that raises; the plain PyTorch versions run only when the
-caller asks for the CPU (`device="cpu"`), as the CPU tests do.
+caller asks for the CPU (`device="cpu"`), as the CPU tests do.  Precision
+rule: f32 products in full f32 on the card (`full_f32_products`).
 """
 
 from __future__ import annotations
@@ -31,3 +32,13 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"sgnn_tpu_torch runs on cuda or cpu, not {dev}")
     return dev
+
+
+def full_f32_products(device: torch.device) -> None:
+    """The precision choice of the whole package: f32 products in full f32
+    on the card, as the JAX package computes them (TF32 keeps ~3 decimal
+    digits; serving is held to the CPU pass at 1e-4).  Process-wide, like
+    every torch.backends flag; the trainers and serving call it."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

@@ -12,7 +12,7 @@
 //            slots (a row with no valid slot is all zero)
 //   out[d, head h] = sum over k of att[d, k, h] * h[s, head h]
 //
-// the function of models/gnn._gat_layer's torch ops (scatter_src_to_edges,
+// the function of ops/aggregate.py's edge ops (scatter_src_to_edges,
 // the score einsums, ops/aggregate.edge_softmax, aggregate_edges_to_dst),
 // max-shifted as edge_softmax, not K3's max-free clipped exponential.  With
 // G = dL/dout the backward is

@@ -8,7 +8,9 @@ Model structure (reference toolkits/ engines), the same in both packages:
   GAT variant "pyg" (PyG's GATConv stack of examples/ogbn_products_gat.py):
   every layer has `heads` heads, concatenated on hidden layers and averaged
   on the last, one self edge a destination, a bias b_l and a linear skip
-  x_dst·S_l + c_l; hidden layers end in ELU and dropout.
+  x_dst·S_l + c_l; hidden layers end in ELU and dropout.  Its parameters
+  are the only ones with biases and skips, which is how every forward
+  tells the two stacks apart (`GNNParams.gatconv`).
 
 The parameters are a plain NamedTuple of tensors, as the JAX package's are a
 pytree of arrays, so one layout crosses between them by `params_from_numpy`.
@@ -29,29 +31,33 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..nn.functional import BN_EPS, dropout, log_softmax
 from ..nn.layers import xavier_uniform_init
-from ..ops.aggregate import (
-    aggregate_edges_to_dst, edge_softmax, gather_aggregate,
-    scatter_src_to_edges,
-)
-from ..ops.gat import NEG_SLOPE, pack_score_tables
+from ..ops.aggregate import gather_aggregate
+from ..ops.gat import pack_score_tables
 from ..ops.gat_sampled import gat_sampled_aggregate, own_row_slots
 from ..sampler.blocks import SampledBatch
 from ..utils import timing
 
 MODEL_FAMILIES = ("gcn", "sage", "gat")
-# RunConfig.gat_variant: "" is the reference system's GAT, "pyg" PyG's
+# init_model's GAT stacks: "" is the reference system's GAT, "pyg" PyG's
 GAT_VARIANTS = ("", "pyg")
 
 
 class GNNParams(NamedTuple):
     """Per-layer weights; attn is empty for GCN/SAGE, [2F',1]-style for GAT;
-    bias, skip_w and skip_b are the "pyg" GAT variant's (else empty)."""
+    bias, skip_w and skip_b are the "pyg" GAT variant's (else empty): the
+    parameters name their layer stack, `gatconv`."""
 
     weights: Tuple[torch.Tensor, ...]     # W_l: [in_l, out_l]
     attn: Tuple[torch.Tensor, ...]        # GAT a_l: [2*out_l, 1] (else empty)
     bias: Tuple[torch.Tensor, ...] = ()   # b_l: [width_l]
     skip_w: Tuple[torch.Tensor, ...] = ()  # S_l: [in_l, width_l]
     skip_b: Tuple[torch.Tensor, ...] = ()  # c_l: [width_l]
+
+    @property
+    def gatconv(self) -> bool:
+        """PyG's GATConv stack (`init_model`'s "pyg" variant), the only
+        parameters with biases and skips; else the reference stack."""
+        return bool(self.bias or self.skip_w or self.skip_b)
 
     def to(self, device=None, dtype=None) -> "GNNParams":
         return GNNParams(*(tuple(t.to(device=device, dtype=dtype)
@@ -92,7 +98,10 @@ def init_model(
     `params_from_numpy`."""
     if family not in MODEL_FAMILIES:
         raise ValueError(f"unknown model family {family!r}")
-    check_variant(family, gat_variant)
+    if gat_variant not in GAT_VARIANTS or (gat_variant and family != "gat"):
+        raise ValueError(f"gat_variant={gat_variant!r}: the GAT family takes "
+                         f"one of {GAT_VARIANTS}, the others only ''; got "
+                         f"family {family!r}")
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     n = len(layer_sizes) - 1
@@ -138,28 +147,18 @@ def _batch_norm(t: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return ((t32 - mu) * torch.rsqrt(var + BN_EPS)).to(t.dtype)
 
 
-def check_variant(family: str, gat_variant: str) -> None:
-    """Raise ValueError unless `gat_variant` is one of GAT_VARIANTS, and ""
-    for a family other than GAT."""
-    if gat_variant not in GAT_VARIANTS or (gat_variant and family != "gat"):
-        raise ValueError(f"gat_variant={gat_variant!r}: the GAT family takes "
-                         f"one of {GAT_VARIANTS}, the others only ''; got "
-                         f"family {family!r}")
-
-
-def check_heads(params: GNNParams, family: str, heads: int,
-                gat_variant: str = "") -> None:
+def check_heads(params: GNNParams, family: str, heads: int) -> None:
     """GAT: raise ValueError unless every layer has its attention vector
-    [2·out, 1] and `heads` >= 1 divides every hidden width (the last layer
-    is single-head; under the "pyg" variant every width, and its biases
-    and skips match the widths).  GCN/SAGE ignore `heads`, as in the JAX
-    package."""
-    check_variant(family, gat_variant)
-    pyg = gat_variant == "pyg"
-    if not pyg and (params.bias or params.skip_w or params.skip_b):
-        raise ValueError("biases and skips are the pyg GAT's parameters "
-                         f"(gat_variant='pyg'), not {family!r}'s")
+    [2·out, 1] and `heads` >= 1 divides every hidden width (the reference
+    stack's last layer is single-head; PyG's GATConv stack, `gatconv`, has
+    `heads` on every layer, and its biases and skips match the widths).
+    GCN/SAGE ignore `heads`, as in the JAX package, and take no biases or
+    skips."""
+    pyg = params.gatconv
     if family != "gat":
+        if pyg:
+            raise ValueError("biases and skips are PyG's GATConv stack's "
+                             f"parameters, not {family!r}'s")
         return
     n_layers = len(params.weights)
     if len(params.attn) != n_layers or any(
@@ -184,6 +183,15 @@ def check_heads(params: GNNParams, family: str, heads: int,
                          f"(in, out) {want}, got {got}")
 
 
+def refuse_gatconv(params: GNNParams, where: str) -> None:
+    """Raise ValueError for PyG's GATConv stack at `where`, a forward that
+    runs the reference stack alone (the whole-graph forward and serving)."""
+    if params.gatconv:
+        raise ValueError(f"{where} runs the reference layer stack alone; "
+                         "biases and skips are PyG's GATConv stack "
+                         "(the 'pyg' variant), which the sampled trainer runs")
+
+
 def _agg_linear(w: torch.Tensor, x: torch.Tensor, nbr: torch.Tensor,
                 wgt: torch.Tensor) -> torch.Tensor:
     """agg(X)·W == agg(X·W): when the layer SHRINKS the width (in > out),
@@ -199,55 +207,19 @@ def _gat_layer(w: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
                dst_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One sampled GAT layer, pre-activation (sgnn_tpu/models/gnn.py:84-125):
     `heads` > 1 splits the F' output columns into blocks, each with its own
-    attention (concat-of-heads; parameter shapes as single-head).  The
-    leaky_relu slope is NEG_SLOPE, the one whole-graph serving uses.  With
+    attention (concat-of-heads; parameter shapes as single-head).  With
     `dst_valid` each valid destination attends to its own row once and
     never through a sampled slot (GATConv's self-loop rule,
-    `own_row_slots`; the counter `gat_sampled.self_loop` counts the layers
-    that take it).  On the card the attention aggregation is one op over
-    hand-written kernels (ops/gat_sampled.py: the same function, no
-    [D, K, F] edge tensors; the counter `gat_sampled.kernel` counts the
-    layers that take it); on the CPU the torch ops of
-    `gat_attention_ops`."""
+    `own_row_slots`).  The attention aggregation is one op
+    (ops/gat_sampled.py: no [D, K, F] edge tensors), which runs its plain
+    version on the CPU and the hand-written kernels on the card."""
     h = x @ w.to(x.dtype)                                   # [S, F']
     if dst_valid is not None:
         nbr, wgt = own_row_slots(nbr, wgt, seed_in_src, dst_valid)
-        timing.RECORDER.counters.add("gat_sampled.self_loop", 1)
-    if h.device.type == "cuda":
-        fprime = h.shape[-1]
-        ts, td = pack_score_tables(h, a[:fprime, 0].to(h.dtype),
-                                   a[fprime:, 0].to(h.dtype), heads)
-        timing.RECORDER.counters.add("gat_sampled.kernel", 1)
-        return gat_sampled_aggregate(h, ts, td, nbr, wgt, seed_in_src, heads)
-    return gat_attention_ops(h, a, nbr, wgt, seed_in_src, heads)
-
-
-def gat_attention_ops(h: torch.Tensor, a: torch.Tensor, nbr: torch.Tensor,
-                      wgt: torch.Tensor, seed_in_src: torch.Tensor,
-                      heads: int = 1) -> torch.Tensor:
-    """A sampled GAT layer's attention aggregation from h = x·W [S, F'] in
-    torch ops, the CPU's path: the [D, K, F'] edge tensors, the score
-    einsums, `edge_softmax`, `aggregate_edges_to_dst`, and autograd's
-    backward through them."""
     fprime = h.shape[-1]
-    h_src_e = scatter_src_to_edges(h, nbr)                  # [D, K, F']
-    h_dst = h.index_select(0, seed_in_src)                  # [D, F']
-    # [H_src ‖ H_dst]·a  ==  H_src·a[:F'] + H_dst·a[F':]
-    a_src = a[:fprime, 0].to(h.dtype)
-    a_dst = a[fprime:, 0].to(h.dtype)
-    mask = wgt != 0.0
-    if heads > 1:
-        fh = fprime // heads
-        d, k = h_src_e.shape[0], h_src_e.shape[1]
-        src_h = h_src_e.view(d, k, heads, fh)
-        score = torch.einsum("dkhf,hf->dkh", src_h, a_src.view(heads, fh))
-        score = score + torch.einsum("dhf,hf->dh", h_dst.view(d, heads, fh),
-                                     a_dst.view(heads, fh))[:, None, :]
-        att = edge_softmax(F.leaky_relu(score, NEG_SLOPE), mask)
-        return aggregate_edges_to_dst(src_h, att).reshape(d, fprime)
-    score = torch.einsum("dkf,f->dk", h_src_e, a_src) + (h_dst @ a_dst)[:, None]
-    att = edge_softmax(F.leaky_relu(score, NEG_SLOPE), mask)
-    return aggregate_edges_to_dst(h_src_e, att)             # [D, F']
+    ts, td = pack_score_tables(h, a[:fprime, 0].to(h.dtype),
+                               a[fprime:, 0].to(h.dtype), heads)
+    return gat_sampled_aggregate(h, ts, td, nbr, wgt, seed_in_src, heads)
 
 
 def model_forward(
@@ -262,7 +234,6 @@ def model_forward(
     remat: bool = False,
     heads: int = 1,
     batch_norm: bool = False,
-    gat_variant: str = "",
 ) -> torch.Tensor:
     """Run the L-layer model; returns log-probs [num_seed_pad, C].
 
@@ -279,10 +250,10 @@ def model_forward(
     (torch.utils.checkpoint) instead of storing it: GCN/SAGE's hidden
     aggregations, every GAT layer (as the JAX package's checkpoints).
 
-    `gat_variant="pyg"` is PyG's GATConv stack (`_pyg_gat_layer`): `heads`
-    on every layer, the self-loop rule, biases, linear skips, ELU and
-    dropout on hidden layers, the heads' mean then log_softmax in f32 on
-    the last; no batch norm and no cache.
+    Parameters with skips (`GNNParams.gatconv`) are PyG's GATConv stack
+    (`_pyg_gat_layer`): `heads` on every layer, the self-loop rule,
+    biases, linear skips, ELU and dropout on hidden layers, the heads' mean
+    then log_softmax in f32 on the last; no batch norm and no cache.
 
     `cache_emb` ([C, H] hot-vertex rows, cache/embedding_cache.py), with a
     batch carrying `cache_mask`/`cache_slot`, replaces the cached
@@ -295,8 +266,8 @@ def model_forward(
     n_layers = len(params.weights)
     if batch.num_layers != n_layers:
         raise ValueError(f"{batch.num_layers} blocks for {n_layers} layers")
-    check_heads(params, family, heads, gat_variant)
-    if gat_variant == "pyg":
+    check_heads(params, family, heads)
+    if params.gatconv:
         if batch_norm or cache_emb is not None:
             raise ValueError("the pyg GAT takes no batch_norm and no "
                              "hot-vertex cache")
@@ -354,8 +325,7 @@ def _pyg_gat_layer(params: GNNParams, l: int, x: torch.Tensor, block,
     destinations' own input rows); hidden layers elu, then dropout drawn
     from `generator` (through the module's `dropout`) while training; the
     last log_softmax in f32.  `remat` recomputes the aggregation in the
-    backward pass.  The counter `gat.skip_layers` counts the layers that
-    take the skip."""
+    backward pass."""
     last = l == len(params.weights) - 1
     fn = functools.partial(_gat_layer, heads=heads,
                            dst_valid=block.dst_valid)
@@ -363,7 +333,6 @@ def _pyg_gat_layer(params: GNNParams, l: int, x: torch.Tensor, block,
             block.seed_in_src)
     agg = (checkpoint(fn, *args, use_reentrant=False) if remat
            else fn(*args))
-    timing.RECORDER.counters.add("gat.skip_layers", 1)
     with timing.span("epilogue", agg):
         if last:
             agg = agg.view(agg.shape[0], heads, -1).mean(dim=1)

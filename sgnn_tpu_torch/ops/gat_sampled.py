@@ -1,13 +1,14 @@
 """The sampled GAT layer's attention aggregation as one differentiable op.
 
 `gat_sampled_aggregate(h, ts, td, nbr, w, seed_in_src, heads)` is the
-function models/gnn._gat_layer computes with torch ops on the CPU
-(`scatter_src_to_edges`, the score einsums, `edge_softmax`,
-`aggregate_edges_to_dst`), over a sampled block: nbr int32 [D, K] local
-source rows, w f32 [D, K] (0 on padded slots, used only as the mask),
-seed_in_src int32 [D] each destination's own source row, h [S, F] with
-F = heads·fh, and the per-row score halves ts, td [S, H]
-(`ops/gat.pack_score_tables`).  Per destination d, slot k, head h:
+attention aggregation of every sampled GAT layer (models/gnn._gat_layer),
+the function of the edge ops of ops/aggregate.py (`scatter_src_to_edges`,
+the score einsums, `edge_softmax`, `aggregate_edges_to_dst`), over a
+sampled block: nbr int32 [D, K] local source rows, w f32 [D, K] (0 on
+padded slots, used only as the mask), seed_in_src int32 [D] each
+destination's own source row, h [S, F] with F = heads·fh, and the per-row
+score halves ts, td [S, H] (`ops/gat.pack_score_tables`).  Per
+destination d, slot k, head h:
 
     score  = leaky_relu(ts[nbr[d,k], h] + td[seed_in_src[d], h], NEG_SLOPE)
     att    = edge_softmax(score, w != 0)   (max-shifted, max detached; 0 on

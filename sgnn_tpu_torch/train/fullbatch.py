@@ -50,12 +50,12 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import full_f32_products, resolve_device
 from ..config import RunConfig
 from ..data.dataset import Dataset, MASK_TEST, MASK_TRAIN, MASK_VAL
 from ..data.quant import quantize_columns
 from ..graph.adjacency import Adjacency
-from ..models.gnn import GNNParams, check_heads, init_model
+from ..models.gnn import GNNParams, check_heads, init_model, refuse_gatconv
 from ..nn.functional import BN_EPS, dropout, log_softmax
 from ..nn.optim import make_optimizer
 from ..ops.gat import GatAggregate, gat_aggregate, pack_score_tables
@@ -230,6 +230,7 @@ def full_forward(
     `x` (FEATURE_DTYPE:int8): W0 becomes W0 · x_scale[:, None], and the
     int8 levels enter as x_scale's dtype (module docstring)."""
     check_ported(family, aggregator)
+    refuse_gatconv(params, "full_forward")
     check_heads(params, family, heads)
     n_layers = len(params.weights)
     graphs = [graph] * n_layers if isinstance(graph, Csr) else list(graph)
@@ -358,10 +359,7 @@ class FullBatchTrainer:
         self.group = _graph_group(mesh, device)
         self.device = (resolve_device(device) if mesh is None
                        else self.group.device)
-        if self.device.type == "cuda":
-            # full f32 products, as the JAX package computes them
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        full_f32_products(self.device)
         t0 = time.perf_counter()
         self.adj = adj if adj is not None else Adjacency.from_edges(
             dataset.edges, dataset.num_vertices)

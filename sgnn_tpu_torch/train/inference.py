@@ -44,10 +44,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import full_f32_products, resolve_device
 from ..data.quant import quantize_columns
 from ..graph.adjacency import Adjacency
-from ..models.gnn import GNNParams, check_heads
+from ..models.gnn import GNNParams, check_heads, refuse_gatconv
 from ..nn.functional import BN_EPS, log_softmax
 from ..ops.gat import gat_aggregate, pack_score_tables
 from ..ops.segment import csr_from_numpy, spmm_csr, unique_inverse
@@ -174,7 +174,7 @@ class InferenceServer:
         self._weight_kind = weight_kind
         self._mean_style = mean_style
         self._qrng = np.random.default_rng(0)  # query(fanout=...) draws
-        _full_f32_products(self.device)
+        full_f32_products(self.device)
         src, w = _serving_coo(adj, weight_kind, mean_style)
         self.csr = csr_from_numpy(adj.indptr, src, w, adj.num_vertices,
                                   self.device)
@@ -201,6 +201,7 @@ class InferenceServer:
         return self._x.numel() * self._x.element_size()
 
     def update_params(self, params: GNNParams) -> None:
+        refuse_gatconv(params, "InferenceServer")
         check_heads(params, self.family, self.heads)
         self.params = params.to(self.device)
 
@@ -313,14 +314,6 @@ class InferenceServer:
         return logp.cpu().numpy()[inv]
 
 
-def _full_f32_products(device: torch.device) -> None:
-    """The precision choice of the whole package: f32 products in full f32
-    on the card (TF32 keeps ~3 decimal digits; serving is held to the CPU
-    pass at 1e-4).  Process-wide, like every torch.backends flag."""
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-
-
 def whole_graph_bytes(params: GNNParams, family: str, adj: Adjacency,
                       feature_dim: int, heads: int = 1) -> int:
     """The JAX package's estimate of a whole-graph pass's device bytes
@@ -384,6 +377,7 @@ def layerwise_inference(
     (host gather and upload), "aggregate" (kernel and download) and
     "batch_norm"."""
     check_ported(family)
+    refuse_gatconv(params, "layerwise_inference")
     dev = resolve_device(device)
     if weight_kind is None:
         weight_kind = _DEFAULT_WEIGHTS[family]
@@ -401,7 +395,7 @@ def layerwise_inference(
                                mean_style=mean_style, batch_norm=batch_norm,
                                device=dev).logprobs()
     check_heads(params, family, heads)
-    _full_f32_products(dev)
+    full_f32_products(dev)
     timers = timers if timers is not None else PhaseTimer()
     v = adj.num_vertices
     chunk = min(v, chunk_size or 65536)

@@ -25,7 +25,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import full_f32_products, resolve_device
 from ..cache.feature_cache import (
     FeatureCache, check_cold_pos, degree_ranked_hot_ids,
     feature_budget_bytes, hbm_feature_capacity, scatter_cold_rows,
@@ -143,19 +143,18 @@ def loss_and_grads(params: GNNParams, family: str, batch: SampledBatch, *,
                    generator: Optional[torch.Generator] = None,
                    remat: bool = False, batch_norm: bool = False,
                    heads: int = 1,
-                   cache_emb: Optional[torch.Tensor] = None,
-                   gat_variant: str = "") -> StepOut:
+                   cache_emb: Optional[torch.Tensor] = None) -> StepOut:
     """Forward, masked NLL and its gradient with respect to every
     parameter leaf: the differentiated part of a training step, on the
-    batch's device.  `cache_emb` is the hot-vertex cache's layer-0 rows,
-    `gat_variant` the GAT's layers (`model_forward`)."""
+    batch's device.  `cache_emb` is the hot-vertex cache's layer-0 rows
+    (`model_forward`)."""
     leaves = [p.detach().requires_grad_() for p in params.leaves()]
     with span("forward", batch.labels):
         logp = model_forward(params.replace_leaves(leaves), family, batch,
                              drop_rate=drop_rate, train=True,
                              generator=generator, remat=remat,
                              batch_norm=batch_norm, heads=heads,
-                             cache_emb=cache_emb, gat_variant=gat_variant)
+                             cache_emb=cache_emb)
         loss = nll_loss_masked(logp, batch.labels, batch.label_valid)
     with span("backward", batch.labels):
         loss.backward()
@@ -213,10 +212,7 @@ class SampleTrainer:
         if family == "gat":
             weight_kind = WeightKind.NONE
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # full f32 products, as the JAX package computes them
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        full_f32_products(self.device)
         self.cfg = cfg
         self.dataset = dataset
         self.family = family
@@ -291,7 +287,7 @@ class SampleTrainer:
         self.params = init_model(cfg.seed, family, cfg.layer_sizes,
                                  device=self.device, heads=cfg.heads,
                                  gat_variant=cfg.gat_variant)
-        check_heads(self.params, family, cfg.heads, cfg.gat_variant)
+        check_heads(self.params, family, cfg.heads)
         # OPTIMIZER cfg key picks Adam (default) or the reference's SGD rule
         self.optimizer = make_optimizer(cfg, bias_correction)
         self.opt_state = self.optimizer.init(self.params.leaves())
@@ -490,8 +486,7 @@ class SampleTrainer:
                              drop_rate=self.cfg.drop_rate,
                              generator=self.generator, remat=self.cfg.remat,
                              batch_norm=self.cfg.batch_norm,
-                             heads=self.cfg.heads, cache_emb=cache_emb,
-                             gat_variant=self.cfg.gat_variant)
+                             heads=self.cfg.heads, cache_emb=cache_emb)
         grads = (out.grads if self.grad_reduce is None
                  else self.grad_reduce(out.grads))
         with span("update", self.device):
@@ -505,8 +500,7 @@ class SampleTrainer:
     def eval_step(self, batch: SampledBatch) -> torch.Tensor:
         logp = model_forward(self.params, self.family, batch, train=False,
                              batch_norm=self.cfg.batch_norm,
-                             heads=self.cfg.heads,
-                             gat_variant=self.cfg.gat_variant)
+                             heads=self.cfg.heads)
         return masked_accuracy(logp, batch.labels, batch.label_valid)
 
     # ------------------------------------------------------------- batching

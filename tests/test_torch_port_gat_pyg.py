@@ -8,7 +8,8 @@ The loss and every leaf's gradient in float64 (only the order of sums
 differs), dropout from the program's recorded masks; three training steps
 of the float32 trainer against torch's Adam in float64; the parameter
 count at the published widths; the other families' leaves unchanged; the
-engines that refuse the variant; the harness's calls of the reference.
+engines and the reference-only forwards that refuse the variant; the
+harness's calls of the reference.
 """
 
 import dataclasses
@@ -17,14 +18,26 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from benchmark import spec
 from sgnn_tpu_torch.config import RunConfig, parse_cfg_text
 from sgnn_tpu_torch.data.synthetic import random_graph_dataset
+from sgnn_tpu_torch.graph.adjacency import Adjacency
 from sgnn_tpu_torch.models import gnn
 from sgnn_tpu_torch.ops import gat_sampled as op
+from sgnn_tpu_torch.ops.aggregate import (
+    aggregate_edges_to_dst, edge_softmax, scatter_src_to_edges,
+)
+from sgnn_tpu_torch.ops.gat import NEG_SLOPE
+from sgnn_tpu_torch.ops.segment import csr_from_numpy, csr_transpose
+from sgnn_tpu_torch.sampler.blocks import WeightKind
 from sgnn_tpu_torch.train import build_trainer
 from sgnn_tpu_torch.train.checkpoint import load_params, params_state
+from sgnn_tpu_torch.train.fullbatch import build_coo, full_forward
+from sgnn_tpu_torch.train.inference import (
+    InferenceServer, layerwise_inference,
+)
 from sgnn_tpu_torch.train.trainer import loss_and_grads
 from sgnn_tpu_torch.utils import timing
 
@@ -133,7 +146,7 @@ def test_loss_and_gradients_match_the_reference_f64(monkeypatch, self_loops,
     rec = _Masks(monkeypatch)
     out = loss_and_grads(params, "gat", batch, drop_rate=0.5,
                          generator=tr.generator if train else None,
-                         heads=HEADS, gat_variant="pyg")
+                         heads=HEADS)
     assert len(rec.masks) == (2 if train else 0)
     inp = _ref_inputs(ds, batch, rec.masks)
     leaves = [t.clone().requires_grad_() for t in params.leaves()]
@@ -190,7 +203,8 @@ def test_the_published_widths_hold_751574_parameters():
                       (100, 512), (512, 512), (512, 47), (512,), (512,),
                       (47,)]
     assert sum(t.numel() for t in p.leaves()) == 751_574
-    gnn.check_heads(p, "gat", 4, "pyg")
+    assert p.gatconv
+    gnn.check_heads(p, "gat", 4)
 
 
 @pytest.mark.parametrize("family,attn", [("gcn", []), ("sage", []),
@@ -202,9 +216,10 @@ def test_the_other_families_leaves_are_unchanged(family, attn):
     assert p.bias == p.skip_w == p.skip_b == ()
     again = p.replace_leaves([t + 1 for t in p.leaves()])
     assert [tuple(t.shape) for t in again.weights] == [(602, 128), (128, 41)]
-    assert len(again.attn) == len(attn)
+    assert len(again.attn) == len(attn) and not again.gatconv
     with pytest.raises(ValueError, match="gat_variant"):
-        gnn.check_heads(p, family, 4, "pyg" if family != "gat" else "dgl")
+        gnn.init_model(0, family, [602, 128, 41], device="cpu",
+                       gat_variant="pyg" if family != "gat" else "dgl")
 
 
 def test_the_checkpoint_carries_every_group():
@@ -237,11 +252,27 @@ def test_the_cfg_keys():
         gnn.init_model(0, "gat", WIDTHS, heads=HEADS, gat_variant="dgl")
 
 
+def _edge_ops(h, a, nbr, w, seed_in_src, heads):
+    """A sampled GAT layer's attention aggregation in the edge ops of
+    ops/aggregate.py: the [D, K, F'] edge tensors, the score einsums,
+    `edge_softmax`, `aggregate_edges_to_dst`."""
+    (d, k), fprime = nbr.shape, h.shape[-1]
+    fh = fprime // heads
+    src_h = scatter_src_to_edges(h, nbr).view(d, k, heads, fh)
+    h_dst = h.index_select(0, seed_in_src).view(d, heads, fh)
+    score = (torch.einsum("dkhf,hf->dkh", src_h,
+                          a[:fprime, 0].view(heads, fh))
+             + torch.einsum("dhf,hf->dh", h_dst,
+                            a[fprime:, 0].view(heads, fh))[:, None, :])
+    att = edge_softmax(F.leaky_relu(score, NEG_SLOPE), w != 0.0)
+    return aggregate_edges_to_dst(src_h, att).reshape(d, fprime)
+
+
 @pytest.mark.parametrize("heads,feat", [(4, 16), (4, 12), (1, 5)])
 def test_own_row_slots_on_both_paths(heads, feat):
     """The self-loop rule's block: a sampled self slot masked, the own row
-    one more slot (weight 0 on a padded destination); the CPU's torch ops
-    and the op's plain version agree over it in float64."""
+    one more slot (weight 0 on a padded destination); the edge ops and the
+    op's plain version agree over it in float64."""
     rng = np.random.default_rng(feat)
     d, k, s = 9, 4, 14
     nbr = torch.from_numpy(rng.integers(0, s, (d, k)).astype(np.int32))
@@ -258,7 +289,7 @@ def test_own_row_slots_on_both_paths(heads, feat):
     assert torch.equal(w2[:, k], valid.float())
     h = torch.from_numpy(rng.standard_normal((s, feat)))
     a = torch.from_numpy(rng.standard_normal((2 * feat, 1)))
-    plain = gnn.gat_attention_ops(h, a, nbr2, w2, seed, heads)
+    plain = _edge_ops(h, a, nbr2, w2, seed, heads)
     ts, td = gnn.pack_score_tables(h, a[:feat, 0], a[feat:, 0], heads)
     fused = op.gat_sampled_aggregate(h, ts, td, nbr2, w2, seed, heads)
     assert (plain - fused).abs().max() <= F64 * plain.abs().max()
@@ -267,24 +298,63 @@ def test_own_row_slots_on_both_paths(heads, feat):
     assert torch.count_nonzero(plain[-1]) == 0
 
 
-def test_counters_and_the_epilogue_span():
-    """Each layer counts its skip and its own-row term once a forward,
-    and records one `epilogue` span while a profiler records."""
+def test_one_epilogue_span_a_layer():
+    """Each layer records one `epilogue` span a forward while a profiler
+    records."""
     ds = _dataset(True)
     tr = build_trainer(_cfg(), ds, device="cpu")
     batch = tr.sample(*next(iter(tr._seed_batches(tr.train_nids, False))))
-    c = timing.RECORDER.counters
-    before = {k: c.as_dict().get(k, 0) for k in ("gat.skip_layers",
-                                                 "gat_sampled.self_loop")}
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU]):
         timing.RECORDER.clear()
         tr.train_step(batch)
         names = [r["name"] for r in timing.RECORDER.records()]
     assert names.count("epilogue") == 3
-    after = c.as_dict()
-    assert {k: after[k] - v for k, v in before.items()} == {
-        "gat.skip_layers": 3, "gat_sampled.self_loop": 3}
+
+
+def _reference_forward(where, params, ds):
+    """Call `where`, a forward that runs the reference stack alone, with
+    `params` over `ds`'s whole graph."""
+    adj = Adjacency.from_edges(ds.edges, ds.num_vertices)
+    if where == "full_forward":
+        src, _, w = build_coo(adj, WeightKind.NONE)
+        v = adj.num_vertices
+        csr = csr_from_numpy(adj.indptr, src, w, v, "cpu")
+        csr_t = csr_from_numpy(*csr_transpose(adj.indptr, src, w, v), v,
+                               "cpu")
+        return full_forward(params, "gat", torch.from_numpy(ds.features),
+                            csr, heads=HEADS, graph_t=csr_t)
+    if where == "update_params":
+        ref_params = gnn.init_model(0, "gat", WIDTHS, heads=HEADS,
+                                    device="cpu")
+        srv = InferenceServer(ref_params, "gat", adj, ds.features,
+                              heads=HEADS, device="cpu")
+        return srv.update_params(params)
+    if where == "InferenceServer":
+        return InferenceServer(params, "gat", adj, ds.features, heads=HEADS,
+                               device="cpu").logprobs()
+    return layerwise_inference(params, "gat", adj, ds.features, heads=HEADS,
+                               whole_graph=where.endswith("whole"),
+                               chunk_size=64, device="cpu")
+
+
+@pytest.mark.parametrize("where", [
+    "full_forward", "InferenceServer", "update_params",
+    "layerwise_inference.whole", "layerwise_inference.chunked"])
+def test_reference_only_forwards_refuse_gatconv(where):
+    """The whole-graph forward and serving run the reference stack alone:
+    PyG's GATConv parameters (biases, skips) raise, where a reference GAT
+    of the same widths and heads runs."""
+    ds = _dataset(True)
+    pyg = gnn.init_model(0, "gat", WIDTHS, heads=HEADS, gat_variant="pyg",
+                         device="cpu")
+    ref_gat = gnn.init_model(0, "gat", WIDTHS, heads=HEADS, device="cpu")
+    _reference_forward(where, ref_gat, ds)
+    with pytest.raises(ValueError, match="GATConv"):
+        _reference_forward(where, pyg, ds)
+    skips_only = ref_gat._replace(skip_w=pyg.skip_w)
+    with pytest.raises(ValueError, match="GATConv"):
+        _reference_forward(where, skips_only, ds)
 
 
 def test_the_harness_calls_are_the_reference():
