@@ -11,8 +11,8 @@ arguments and, when the run is traced on a card, prints one more line
 before the result: `SPANS {...}`, the traced window's idle by span class
 (`benchmark/spans.py`'s attribution, with the idle no span covers), by
 innermost span, and its largest uncovered gaps with their distance to the
-nearest spans; the kernel launches in the window, how many cross a span's
-bound and how many each `sample` span holds; each span's mean device
+nearest spans; the kernel and graph launches in the window, how many
+cross a span's bound and how many each `sample` span holds; each span's mean device
 milliseconds and host seconds; Python's garbage collections in the window
 and the idle they overlap; the `build` and `kernels.load` spans and the
 counters.  The result line is the run's own.
@@ -36,6 +36,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+
+def _launch(name: str) -> bool:
+    """A kernel launch or a CUDA graph launch (the sampler's replay)."""
+    return "LaunchKernel" in name or "GraphLaunch" in name
+
 
 # (start, end, generation) of every collection, on the trace's clock
 GC_LOG: list = []
@@ -85,9 +90,8 @@ def breakdown(ctx) -> dict:
             "before_next_span_us": ((starts[j] - mid) / 1e3
                                     if j < len(starts) else None)})
     launches = sorted(e.start for e in ctx.trace.host
-                      if "LaunchKernel" in e.name and win[0] <= e.start < win[1])
-    host_end = {e.start: e.end for e in ctx.trace.host
-                if "LaunchKernel" in e.name}
+                      if _launch(e.name) and win[0] <= e.start < win[1])
+    host_end = {e.start: e.end for e in ctx.trace.host if _launch(e.name)}
     bounds = sorted(b for s in mine for b in (s["start_ns"], s["end_ns"]))
     crossing = 0
     for t in launches:

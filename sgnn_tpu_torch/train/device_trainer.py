@@ -13,13 +13,14 @@ of steps with no host sync inside it, so `fused_epoch` keeps its meaning as
 CUDA each step's end is marked by an event, so `step_ms` gives the
 device-timeline time of every step of the last epoch without a sync inside
 it; `step_losses` and `last_overflow` are read at the epoch's one sync.
-CUDA graphs are later work.
+On CUDA the sampler runs as one CUDA graph replay a step (`SampleGraph`);
+the train step is launched op by op.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,11 +29,11 @@ from .. import resolve_device
 from ..config import RunConfig
 from ..data.dataset import Dataset
 from ..graph.adjacency import Adjacency
-from ..sampler.blocks import SampledBatch, WeightKind, pad_to
+from ..sampler.blocks import SampledBatch, SampledBlock, WeightKind, pad_to
 from ..sampler.device import device_sample_batch
 from ..utils.logging import get_logger
 from ..utils.profiling import memory_budget
-from ..utils.timing import span
+from ..utils.timing import RECORDER, span
 from .trainer import SampleTrainer
 
 log = get_logger("sgnn.dev")
@@ -55,6 +56,122 @@ class FeaturesExceedHbm(ValueError):
     per-row host fallback mid-step: such graphs train through the
     host-sampled engines.  The engine registry catches this and falls
     back."""
+
+
+_BLOCK_FIELDS = tuple(f.name for f in dataclasses.fields(SampledBlock))
+
+
+def _batch_tensors(batch: SampledBatch) -> List[torch.Tensor]:
+    """Every tensor of a batch but x0: each block's, then labels, their
+    valid flags and the overflow count (a tensor may appear twice: a
+    block's seeds are the sources of the block above)."""
+    return ([getattr(b, f) for b in batch.blocks for f in _BLOCK_FIELDS]
+            + [batch.labels, batch.label_valid, batch.overflow])
+
+
+def _with_tensors(batch: SampledBatch,
+                  tensors: List[torch.Tensor]) -> SampledBatch:
+    """`batch` with the tensors `_batch_tensors` lists replaced."""
+    n = len(_BLOCK_FIELDS)
+    blocks = [SampledBlock(**dict(zip(_BLOCK_FIELDS, tensors[i:i + n])))
+              for i in range(0, n * len(batch.blocks), n)]
+    labels, label_valid, overflow = tensors[n * len(blocks):]
+    return dataclasses.replace(batch, blocks=blocks, labels=labels,
+                               label_valid=label_valid, overflow=overflow)
+
+
+class BatchPack:
+    """Where each distinct tensor of a batch but x0 lies in one byte
+    buffer, at 16-byte aligned offsets: `pack` concatenates a batch's
+    tensors into a new buffer (one kernel), `unpack` views a buffer as a
+    batch."""
+
+    def __init__(self, batch: SampledBatch) -> None:
+        tensors = _batch_tensors(batch)
+        first = {}
+        self.index = [first.setdefault(id(t), len(first)) for t in tensors]
+        # where each distinct tensor first appears in `tensors`
+        self.distinct = [self.index.index(i) for i in range(len(first))]
+        self.layout = []
+        offset = 0
+        for t in (tensors[k] for k in self.distinct):
+            n = t.numel() * t.element_size()
+            self.layout.append((offset, n, t.dtype, t.shape))
+            offset += -(-n // 16) * 16
+
+    def pack(self, batch: SampledBatch) -> torch.Tensor:
+        tensors = _batch_tensors(batch)
+        pieces = []
+        for k, (_, n, _, _) in zip(self.distinct, self.layout):
+            pieces.append(tensors[k].reshape(-1).view(torch.uint8))
+            if n % 16:
+                pieces.append(pieces[-1].new_empty(16 - n % 16))
+        return torch.cat(pieces)
+
+    def unpack(self, buf: torch.Tensor, batch: SampledBatch) -> SampledBatch:
+        """`batch` (for x0 and the cache fields) with every other tensor
+        a view of `buf`."""
+        distinct = [buf[o:o + n].view(dtype).view(shape)
+                    for o, n, dtype, shape in self.layout]
+        return _with_tensors(batch, [distinct[i] for i in self.index])
+
+
+class SampleGraph:
+    """One `device_sample_batch` call, captured as a CUDA graph and
+    replayed once a step.
+
+    The graph reads static seed buffers: a call copies the step's seeds
+    in, replays it and copies its packed outputs out, three device copies
+    and one graph launch where the sampler op by op makes 226 launches (a
+    `gat_products` step).  The
+    capture follows `utils.timing.cuda_graph_ms`: one eager call on a side
+    stream, then the capture.  The sampler's generator is registered with
+    the graph and its state put back after the capture, so each replay
+    draws what an eager call from the same state would draw and leaves
+    the state where that call would.  The graph also packs every output
+    but x0 into one buffer (`BatchPack`), copied out after each replay: a
+    batch's blocks, labels and overflow are its own, as an eager call's
+    are, whatever a caller keeps.  x0, the gathered rows in the graph's
+    pool (or the feature matrix itself on the identity hop), is rewritten
+    by the next replay and is read within the step.  Host-side counts the
+    capture made (`sampler.rank_hops`) are made again at each replay."""
+
+    def __init__(self, sample: Callable[[torch.Tensor, torch.Tensor],
+                                        SampledBatch],
+                 seeds: torch.Tensor, valid: torch.Tensor,
+                 generator: torch.Generator) -> None:
+        counters = RECORDER.counters
+        state = generator.get_state()
+        hops = counters.get("sampler.rank_hops")
+        self.seeds, self.valid = seeds.clone(), valid.clone()
+        side = torch.cuda.Stream(seeds.device)
+        side.wait_stream(torch.cuda.current_stream(seeds.device))
+        with torch.cuda.stream(side):
+            sample(self.seeds, self.valid)
+        torch.cuda.current_stream(seeds.device).wait_stream(side)
+        warm = counters.get("sampler.rank_hops")
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        with torch.cuda.graph(self.graph, stream=side,
+                              capture_error_mode="relaxed"):
+            self.batch = sample(self.seeds, self.valid)
+            self.pack = BatchPack(self.batch)
+            self.packed = self.pack.pack(self.batch)
+        self.rank_hops = counters.get("sampler.rank_hops") - warm
+        counters.add("sampler.rank_hops",
+                     hops - counters.get("sampler.rank_hops"))
+        generator.set_state(state)
+        counters.add("sampler.graph_captures")
+
+    def __call__(self, seeds: torch.Tensor,
+                 valid: torch.Tensor) -> SampledBatch:
+        self.seeds.copy_(seeds)
+        self.valid.copy_(valid)
+        self.graph.replay()
+        counters = RECORDER.counters
+        counters.add("sampler.graph_replays")
+        counters.add("sampler.rank_hops", self.rank_hops)
+        return self.pack.unpack(self.packed.clone(), self.batch)
 
 
 class DeviceSampleTrainer(SampleTrainer):
@@ -152,6 +269,9 @@ class DeviceSampleTrainer(SampleTrainer):
         self.epochs_run = 0
         # x0 from row-sharded features (parallel/dp_device.py), else None
         self.fetch_x0: Optional[Callable[[SampledBatch], SampledBatch]] = None
+        # on CUDA: the captured sampler of each (seed shape, source bounds,
+        # gathered x0, generator) the trainer has sampled with
+        self._sample_graphs: Dict[tuple, SampleGraph] = {}
 
     def compute_src_pads(self, batch_size: int) -> Tuple[int, ...]:
         """Static per-hop source bounds for a seed-batch size: the host
@@ -213,17 +333,36 @@ class DeviceSampleTrainer(SampleTrainer):
         """One device-sampled batch for padded seeds (cache-omitting at the
         bottom hop with `omit_map`).  With `fetch_x0` set (row-sharded
         features, parallel/dp_device.py) the sampler gathers no rows and
-        x0 comes from it."""
+        x0 comes from it, after the sampler.  On CUDA without `omit_map`,
+        a replay of the `SampleGraph` of the call's seed shape, captured
+        at its first call; on the CPU and with `omit_map`, op by op."""
         with span("sample", self.device):
-            batch = device_sample_batch(
-                self.sample_generator, seeds, valid, self.dev_indptr,
-                self.dev_indices, self.dev_in_deg, self.dev_out_deg,
-                self.dev_features, self.dev_labels, tuple(self.cfg.fanout),
-                self.src_pads, self.weight_kind,
-                degree_mode=self.dev_degree_mode,
-                feat_scale=self._feat_scale, compute_dtype=self.compute_dtype,
-                omit_map=omit_map, gather_features=self.fetch_x0 is None)
+            if self.device.type != "cuda" or omit_map is not None:
+                batch = self._sample_batch(seeds, valid, omit_map)
+            else:
+                key = (tuple(seeds.shape), self.src_pads,
+                       self.fetch_x0 is None, self.sample_generator)
+                graph = self._sample_graphs.get(key)
+                if graph is None:
+                    graph = self._sample_graphs[key] = SampleGraph(
+                        self._sample_batch, seeds, valid,
+                        self.sample_generator)
+                batch = graph(seeds, valid)
             return batch if self.fetch_x0 is None else self.fetch_x0(batch)
+
+    def _sample_batch(self, seeds: torch.Tensor, valid: torch.Tensor,
+                      omit_map: Optional[torch.Tensor] = None
+                      ) -> SampledBatch:
+        """`device_sample_batch` over this trainer's graph, features and
+        generator, op by op."""
+        return device_sample_batch(
+            self.sample_generator, seeds, valid, self.dev_indptr,
+            self.dev_indices, self.dev_in_deg, self.dev_out_deg,
+            self.dev_features, self.dev_labels, tuple(self.cfg.fanout),
+            self.src_pads, self.weight_kind,
+            degree_mode=self.dev_degree_mode,
+            feat_scale=self._feat_scale, compute_dtype=self.compute_dtype,
+            omit_map=omit_map, gather_features=self.fetch_x0 is None)
 
     def train_step(self, batch: SampledBatch,
                    cache_emb: Optional[torch.Tensor] = None
@@ -295,7 +434,8 @@ class DeviceSampleTrainer(SampleTrainer):
                 losses.append(loss)
                 accs.append(acc)
                 edges.append(batch.num_sampled_edges())
-                overflow.append(batch.overflow)
+                # its own scalar: a view would hold the step's whole batch
+                overflow.append(batch.overflow.clone())
             if not losses:
                 return 0.0, 0, 0, 0
             with span("epoch_sync"):

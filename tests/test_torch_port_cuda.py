@@ -1727,8 +1727,9 @@ def test_reordered_k2_matches_plain(cuda_device, mode):
 def test_sample_span_holds_its_kernel_launches(cuda_device):
     """The program's spans are on the clock of the profiler's events on
     the card too: in a profiled `sample` call (CUDA activity only, as the
-    benchmark's traced window records), every kernel launch the trace
-    holds lies inside the `sample` span, and the span's events give its
+    benchmark's traced window records), every kernel or graph launch the
+    trace holds lies inside the `sample` span (the call replays the
+    sampler's graph: one graph launch), and the span's events give its
     device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1748,8 +1749,8 @@ def test_sample_span_holds_its_kernel_launches(cuda_device):
         torch.cuda.synchronize()
     (s,) = [r for r in timing.RECORDER.records() if r["name"] == "sample"]
     launches = [e for e in prof.profiler.kineto_results.events()
-                if "LaunchKernel" in e.name()]
-    assert launches
+                if "LaunchKernel" in e.name() or "GraphLaunch" in e.name()]
+    assert sum("GraphLaunch" in e.name() for e in launches) == 1
     for e in launches:
         a = e.start_ns()
         assert s["start_ns"] <= a and a + e.duration_ns() <= s["end_ns"], (
@@ -1790,29 +1791,32 @@ def test_source_set_matches_rank_scatter_at_products_size(cuda_device,
     assert_same_blocks([own], [ref])
 
 
-# kernel launches of one `sample` call of the trainer below with the rank
+# kernel launches of the trainer below's sampler op by op with the rank
 # scatter that the sorted search replaced (NVIDIA H100 80GB HBM3, torch
 # 2.11 with CUDA 12.8; the sorted search's: 226)
 RANK_SCATTER_SAMPLE_LAUNCHES = 244
 
 
 def _sample_launches(trainer, seeds, valid):
+    """Kernel launches of the trainer's sampler op by op: what its CUDA
+    graph holds."""
     from torch.profiler import ProfilerActivity, profile
 
-    trainer.sample(seeds, valid)
+    trainer._sample_batch(seeds, valid)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        trainer.sample(seeds, valid)
+        trainer._sample_batch(seeds, valid)
         torch.cuda.synchronize()
     return sum("LaunchKernel" in e.name()
                for e in prof.profiler.kineto_results.events())
 
 
 def test_sample_launches_no_more_than_rank_scatter(cuda_device, monkeypatch):
-    """A `sample` call of a 3-hop GATSAMPLEALLGPU trainer whose three hops
-    all build a source set launches no more kernels than under the rank
-    scatter: than the count stated for it, and than the plain reference
-    in the sampler's place."""
+    """The sampler of a 3-hop GATSAMPLEALLGPU trainer whose three hops
+    all build a source set, op by op (the kernels its `sample` call's
+    graph holds), launches no more kernels than under the rank scatter:
+    than the count stated for it, and than the plain reference in the
+    sampler's place."""
     ds = random_graph_dataset(20000, 10, 32, 5, seed=0)
     cfg = RunConfig(algorithm="GATSAMPLEALLGPU", layer_sizes=[32, 16, 16, 5],
                     fanout=[5, 3, 3], batch_size=128, heads=2,
