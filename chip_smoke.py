@@ -105,6 +105,18 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
                row's under the self-loop rule) held to plain in f64
                (1e-5), bit-identical on repeat, one forward and one
                backward launch a layer, timed as 10b;
+10d. gatv2_products — the sampled GATv2 kernels (csrc/gatv2_sampled.cu):
+               one GATSAMPLEALLGPU `gat_variant` "pyg_v2" epoch (the
+               gatv2_products stack's 512-wide layers at 4 heads, fan-out
+               10-10-10, batch 512, 16 steps on the Reddit-shaped graph):
+               finite losses, no other attention kernel, the pair's
+               forward and backward launched 3 times a step and the
+               counters `attention.gatv2_forwards` / `_backwards` raised as
+               often; then `scripts/torch_gatv2_sampled.py`'s `measure`:
+               the pair at the gatv2_products cell's three layers (as 10c's
+               blocks) held to plain in f64 (1e-5), bit-identical on
+               repeat, one forward and one backward launch a layer, timed
+               as 10b;
 11. kernel_k2_bwd — K2's backward (`spmm_csr_bwd_cuda`: csr_sum.cuh's
                edge-balanced sum over the transposed CSR, counted apart)
                against `spmm_csr_plain` over the same CSR, on skewed random
@@ -304,7 +316,8 @@ Builds the port's CUDA kernels from `sgnn_tpu_torch/csrc/` (nvcc, into
 24. kernels  — one line listing every kernel with its launches on its main
                path (serving for `spmm_csr`, train_device for K1,
                serving_gat for K3, train_full for K2's backward and K4,
-               train_gat for the sampled GAT kernels, kernel_probes for
+               train_gat for the sampled GAT kernels, gatv2_products
+               for the sampled GATv2 kernels, kernel_probes for
                the probes) and, for K2, K3, K4 and K1, on
                the paths of phases 16-19 and 21-23 (`launches_by_path`),
                its error and its times (`spmm_csr` and `gat_bwd_dst` also
@@ -380,6 +393,11 @@ TRAIN_LAYERS, TRAIN_FANOUT, TRAIN_BATCH = [602, 128, 41], [25, 10], 10000
 # are then O(1) (init_model's zeros would give uniform attention and leave
 # the scores untested)
 GAT_SERVE_HEADS, GAT_TRAIN_HEADS, GAT_ATTN_SCALE = (1, 4), 4, 0.1
+# GATv2: the gatv2_products cell's stack (4 heads of 128 hidden, fan-out
+# 10-10-10, batch 512, torch's Adam at lr 0.001, eps 1e-8) on the
+# Reddit-shaped graph's widths, for GATV2_STEPS steps
+GATV2_LAYERS, GATV2_FANOUT, GATV2_BATCH, GATV2_STEPS = (
+    [602, 512, 512, 41], [10, 10, 10], 512, 16)
 # K3's check grid: (heads, F).  The scores spread by 2 (the attention
 # scale), and one source row in K3_CLIP_EVERY has its score half raised by
 # 80, past the ±60 clip: about 1% of the edges, some in every hub row, are
@@ -1114,6 +1132,7 @@ def main() -> int:
     from sgnn_tpu_torch.ops.cuda.build import build_all
     from sgnn_tpu_torch.ops.cuda import gat_bwd as k4
     from sgnn_tpu_torch.ops.cuda import gat_sampled as gsk
+    from sgnn_tpu_torch.ops.cuda import gatv2_sampled as gs2k
     from sgnn_tpu_torch.ops.cuda.gat import gat_aggregate_cuda, vector_columns
     from sgnn_tpu_torch.ops.cuda.gat_bwd import (
         dst_layout, gat_bwd_dst_cuda, gat_bwd_src_cuda,
@@ -1157,7 +1176,7 @@ def main() -> int:
     from sgnn_tpu_torch.train.trainer import (
         host_batch_to_device, loss_and_grads,
     )
-    from sgnn_tpu_torch.utils import roofline
+    from sgnn_tpu_torch.utils import roofline, timing
     from sgnn_tpu_torch.utils.timing import PhaseTimer, cuda_graph_ms
 
     dev = torch.device("cuda")
@@ -2061,6 +2080,69 @@ def main() -> int:
                 f"{row['rel_err']}, repeat {row['repeat_bit_identical']}, "
                 f"launches {row['launches']}")
     emit({"phase": "kernel_gat_sampled_products", **gat_products})
+
+    # ---- 10d. the sampled GATv2 kernels: a pyg_v2 epoch, the cell's shapes -
+    v2_cfg = RunConfig(algorithm="GATSAMPLEALLGPU", layer_sizes=GATV2_LAYERS,
+                       fanout=GATV2_FANOUT, batch_size=GATV2_BATCH,
+                       learn_rate=0.001, adam_epsilon=1e-8, weight_decay=0.0,
+                       drop_rate=0.5, epochs=1, seed=0,
+                       heads=GAT_TRAIN_HEADS, gat_variant="pyg_v2",
+                       vertices=ds.num_vertices)
+    v2_trainer = build_trainer(v2_cfg, ds)
+    require(v2_trainer.params.gatv2 and len(v2_trainer.params.leaves()) == 24,
+            "GATSAMPLEALLGPU pyg_v2 did not build the GATv2 stack")
+    v2_trainer.train_nids = v2_trainer.train_nids[:GATV2_STEPS * GATV2_BATCH]
+    reset_counts()
+    gsk.gat_sampled_fwd_cuda.launches = gsk.gat_sampled_bwd_cuda.launches = 0
+    gs2k.gatv2_sampled_fwd_cuda.launches = 0
+    gs2k.gatv2_sampled_bwd_cuda.launches = 0
+    v2_counters = {k: timing.RECORDER.counters.as_dict().get(k, 0)
+                   for k in ("attention.gatv2_forwards",
+                             "attention.gatv2_backwards")}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v2_loss, v2_acc, v2_edges = v2_trainer.train_epoch()
+    v2_epoch_s = time.perf_counter() - t0
+    v2_counters = {k: timing.RECORDER.counters.as_dict().get(k, 0) - n
+                   for k, n in v2_counters.items()}
+    v2_steps = len(v2_trainer.step_losses)
+    gatv2_launches = {"fwd": gs2k.gatv2_sampled_fwd_cuda.launches,
+                      "bwd": gs2k.gatv2_sampled_bwd_cuda.launches}
+    v2_other = {**counts(), "gat_sampled_fwd": gsk.gat_sampled_fwd_cuda.launches,
+                "gat_sampled_bwd": gsk.gat_sampled_bwd_cuda.launches}
+    require(v2_steps == GATV2_STEPS,
+            f"{v2_steps} GATv2 steps in the epoch, expected {GATV2_STEPS}")
+    require(all(np.isfinite(v2_trainer.step_losses)) and np.isfinite(v2_loss),
+            f"non-finite GATv2 training loss: {v2_trainer.step_losses}")
+    require(not any(v2_other.values()),
+            f"the GATv2 stack launched other attention kernels: {v2_other}")
+    require(gatv2_launches == {"fwd": 3 * v2_steps, "bwd": 3 * v2_steps}
+            and list(v2_counters.values()) == [3 * v2_steps] * 2,
+            f"sampled GATv2 launches {gatv2_launches}, counters "
+            f"{v2_counters}: expected 3 each a step")
+    emit({"phase": "train_gatv2", "engine": "GATSAMPLEALLGPU",
+          "gat_variant": "pyg_v2",
+          "model": "gatv2 " + "-".join(map(str, GATV2_LAYERS)),
+          "heads": GAT_TRAIN_HEADS, "fanout": GATV2_FANOUT,
+          "batch": GATV2_BATCH, "steps": v2_steps,
+          "step_ms": v2_trainer.step_ms,
+          "step_ms_median_after_first": statistics.median(
+              v2_trainer.step_ms[1:]),
+          "epoch_s": v2_epoch_s, "edges_per_epoch": v2_edges,
+          "losses": v2_trainer.step_losses, "train_acc": v2_acc,
+          "gatv2_sampled_launches": gatv2_launches, "counters": v2_counters,
+          "peak_mem_gb_epoch": torch.cuda.max_memory_allocated() / 1e9})
+    del v2_trainer
+    gatv2_products = load_script("torch_gatv2_sampled").measure(dev)
+    for row in gatv2_products["layers"]:
+        require(max(row["rel_err"].values()) <= 1e-5
+                and row["repeat_bit_identical"]
+                and row["launches"] == {"fwd": 1, "bwd": 1},
+                f"sampled GATv2 kernels at gatv2_products' layer "
+                f"{row['layer']}: {row['rel_err']}, repeat "
+                f"{row['repeat_bit_identical']}, launches {row['launches']}")
+    emit({"phase": "kernel_gatv2_sampled_products", **gatv2_products})
 
     # ---- 11. K2's backward against its plain version -----------------------
     def skewed_rows(n_rows, n_src, no_out_every):
@@ -3992,6 +4074,26 @@ def main() -> int:
         kernels_layer_ms=gat_products["ms_per_step"]["layer_kernels"],
         layouts=[t["layout"] for t in gat_products["layers"]])
     kernels.append(gp_line)
+    # one gatv2_products step's three layers, forward + backward
+    g2_rows = [{"ms": t["ms"]["fwd"] + t["ms"]["bwd"],
+                "plain_ms": t["ms"]["plain_fwd_bwd"], "library_ms": None,
+                "max_abs_err": max(t["rel_err"].values()),
+                "bound_ms": sum(b["bound_ms"] for b in t["bound"].values()),
+                "bound_by": ("bytes" if all(b["bound_by"] == "bytes"
+                                            for b in t["bound"].values())
+                             else "operations")}
+               for t in gatv2_products["layers"]]
+    kernels.append(line(
+        "gatv2_sampled.products", g2_rows,
+        "sgnn_tpu_torch/csrc/gatv2_sampled.cu",
+        "none (the JAX package has no GATv2 layer)", gatv2_launches,
+        "one gatv2_products step's three layers (D, K, S, F, H) = "
+        + ", ".join(f"({t['D']}, {t['K']}, {t['S']}, {t['F']}, {t['H']})"
+                    for t in gatv2_products["layers"])
+        + " on random blocks, K the 10 sampled slots and the own row's, "
+        "forward + backward (max_abs_err: relative to f64 plain; launches: "
+        f"the train_gatv2 epoch's {GATV2_STEPS} steps; library_ms null: no "
+        "single PyTorch call computes it)"))
     for kname, rows, source, replaces, what in (
             ("probe_gather_sum", gather_rows, "probe_gather.cu",
              "scripts/profile_vmem_gather.py:57",

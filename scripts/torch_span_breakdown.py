@@ -15,7 +15,10 @@ nearest spans; the kernel and graph launches in the window, how many
 cross a span's bound and how many each `sample` span holds; each span's mean device
 milliseconds and host seconds; Python's garbage collections in the window
 and the idle they overlap; the `build` and `kernels.load` spans and the
-counters.  The result line is the run's own.
+counters; and the PyG layers' attention: the `attention` spans in the
+window, their device milliseconds a step, and the process's counts of
+GATv2 attention forwards and backwards (`attention.gatv2_*`).  The
+result line is the run's own.
 
 `--site-cost` prints the host nanoseconds of one span site and of one
 phase, with no profiler session and (on a card) inside one with CUDA
@@ -106,6 +109,7 @@ def breakdown(ctx) -> dict:
         host_s[s["name"]] += (s["end_ns"] - s["start_ns"]) / 1e9
         if s["device_ms"] is not None:
             device_ms[s["name"]].append(s["device_ms"])
+    counters = timing.RECORDER.counters.as_dict()
     gcs = [c for c in GC_LOG if c[1] > win[0] and c[0] < win[1]]
     gc_idle = sum(max(0, min(b, e) - max(a, s0))
                   for a, b in gaps for s0, e, _ in gcs)
@@ -127,7 +131,13 @@ def breakdown(ctx) -> dict:
         "build_spans": [[s["name"], (s["end_ns"] - s["start_ns"]) / 1e9]
                         for s in recs if s["name"] in ("build",
                                                        "kernels.load")],
-        "counters": timing.RECORDER.counters.as_dict()}
+        "counters": counters,
+        "attention": {
+            "spans_in_window": sum(s["name"] == "attention" for s in inw),
+            "device_ms_per_step": spans.device_ms_per_step(ctx,
+                                                           ("attention",)),
+            **{k: counters.get(f"attention.gatv2_{k}", 0)
+               for k in ("forwards", "backwards")}}}
 
 
 def site_cost(n: int) -> dict:

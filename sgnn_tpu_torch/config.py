@@ -54,8 +54,9 @@ class RunConfig:
     heads: int = 1                   # GAT attention heads (1 = reference)
     # GAT layers: "" the reference system's; "pyg" PyG's GATConv stack of
     # examples/ogbn_products_gat.py (heads on every layer, the last
-    # averaged, self-loops, biases, linear skips, ELU, dropout); taken by
-    # GATSAMPLEALLGPU alone (train/engines.py refuses it elsewhere)
+    # averaged, self-loops, biases, linear skips, ELU, dropout); "pyg_v2"
+    # that stack with GATv2Conv layers; both taken by GATSAMPLEALLGPU
+    # alone (train/engines.py refuses them elsewhere)
     gat_variant: str = ""
     scan_unroll: int = 1             # fused-epoch scan unroll factor
     # pipeline / cache orchestration (NeutronOrch)

@@ -19,7 +19,14 @@ not used.
 `update(grads, state, params)` returns new parameters and state, like the
 JAX package's pure functions, computing under `torch.no_grad()` in f32;
 it works on any sequence of tensors (the trainers pass
-`GNNParams.leaves()`).
+`GNNParams.leaves()`).  Adam's update is the rule's expressions one after
+another, each as one multi-tensor op over all the leaves
+(`torch._foreach_*`): a handful of launches a step whatever the number of
+leaves, where a loop over the leaves launched about 15 a leaf (the host's
+time a step grew with the leaves).  Each element sees the same
+operations in the same order as the per-leaf loop computed, on either
+device: a division by a Python number follows the eager op's device rule
+(`_div_scalar`).
 """
 
 from __future__ import annotations
@@ -32,6 +39,15 @@ import torch
 
 def _f32(x: float) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
+
+
+def _div_scalar(ts: List[torch.Tensor], c: float) -> List[torch.Tensor]:
+    """`t / c` for each tensor as eager torch computes it on their device:
+    on CUDA it multiplies by c's f32 reciprocal, where the multi-tensor
+    division divides; on the CPU both divide."""
+    if ts[0].is_cuda:
+        return torch._foreach_mul(ts, float(_f32(1.0) / _f32(c)))
+    return torch._foreach_div(ts, c)
 
 
 class AdamState(NamedTuple):
@@ -65,24 +81,27 @@ class ReferenceAdam:
         if self.decay_epoch > 0 and self.decay_rate != 1.0:
             lr = lr * _f32(self.decay_rate) ** float(step // self.decay_epoch)
         lr = float(lr)
-        new_p, new_m, new_v = [], [], []
-        for p, g, m, v in zip(params, grads, state.m, state.v):
-            p32 = p.float()
-            g = g.float() + self.weight_decay * p32
-            m = self.beta1 * m + (1.0 - self.beta1) * g
-            v = self.beta2 * v + (1.0 - self.beta2) * g.square()
-            if self.bias_correction:
-                # β^t in f32, as the JAX package computes it: 1 - β2 in
-                # f64 would differ from f32's 1 - 0.999f by 1.3e-5
-                m_hat = m / float(1.0 - _f32(self.beta1) ** step)
-                v_hat = v / float(1.0 - _f32(self.beta2) ** step)
-            else:
-                m_hat, v_hat = m, v
-            new_p.append((p32 - lr * m_hat / (v_hat.sqrt() + self.epsilon))
-                         .to(p.dtype))
-            new_m.append(m)
-            new_v.append(v)
-        return new_p, AdamState(m=tuple(new_m), v=tuple(new_v), step=step)
+        p32 = [p.float() for p in params]
+        g = torch._foreach_add([t.float() for t in grads],
+                               torch._foreach_mul(p32, self.weight_decay))
+        m = torch._foreach_add(torch._foreach_mul(state.m, self.beta1),
+                               torch._foreach_mul(g, 1.0 - self.beta1))
+        v = torch._foreach_add(
+            torch._foreach_mul(state.v, self.beta2),
+            torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - self.beta2))
+        if self.bias_correction:
+            # β^t in f32, as the JAX package computes it: 1 - β2 in f64
+            # would differ from f32's 1 - 0.999f by 1.3e-5
+            m_hat = _div_scalar(m, float(1.0 - _f32(self.beta1) ** step))
+            v_hat = _div_scalar(v, float(1.0 - _f32(self.beta2) ** step))
+        else:
+            m_hat, v_hat = m, v
+        step_size = torch._foreach_div(
+            torch._foreach_mul(m_hat, lr),
+            torch._foreach_add(torch._foreach_sqrt(v_hat), self.epsilon))
+        new_p = [t.to(p.dtype) for t, p in
+                 zip(torch._foreach_sub(p32, step_size), params)]
+        return new_p, AdamState(m=tuple(m), v=tuple(v), step=step)
 
 
 class SGDState(NamedTuple):

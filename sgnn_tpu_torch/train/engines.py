@@ -222,15 +222,16 @@ def build_trainer(cfg: RunConfig, dataset: Dataset, device=None):
     PUSHDOWN:1 on a plain sampled engine is the cached trainer on that
     engine's sampler; ESTIMATOR_ADVISOR:route turns PUSHDOWN on when the
     advisor fires.  The *MULTI engines join this process's data-parallel
-    group (`_build_multi`).  GAT_VARIANT (models/gnn.py's "pyg" GAT) is
-    taken by GATSAMPLEALLGPU without a cache alone; any other engine
-    raises ValueError naming it.  The build is the `build` span, recorded
+    group (`_build_multi`).  GAT_VARIANT (models/gnn.py's PyG GAT stacks,
+    "pyg" and "pyg_v2") is taken by GATSAMPLEALLGPU without a cache alone;
+    any other engine raises ValueError naming it.  The build is the `build` span, recorded
     with or without a profiler session (utils/timing.py)."""
     with span("build", always=True):
         return _build_trainer(cfg, dataset, device)
 
 
-# the one engine that takes GAT_VARIANT (models/gnn.py's "pyg" layers)
+# the one engine that takes GAT_VARIANT (models/gnn.py's "pyg" and
+# "pyg_v2" layers)
 VARIANT_ENGINE = "GATSAMPLEALLGPU"
 
 
@@ -239,9 +240,9 @@ def _refuse_variant(cfg: RunConfig, spec: EngineSpec) -> None:
     (PUSHDOWN or ESTIMATOR_ADVISOR:route's): ValueError naming the key."""
     if cfg.gat_variant and (spec.name != VARIANT_ENGINE or spec.use_cache):
         raise ValueError(
-            f"gat_variant={cfg.gat_variant!r} is taken by {VARIANT_ENGINE} "
-            f"without a cache alone, not by {spec.name}"
-            f"{' with a cache' if spec.use_cache else ''}")
+            f"gat_variant={cfg.gat_variant!r} (the PyG stacks 'pyg' and "
+            f"'pyg_v2') is taken by {VARIANT_ENGINE} without a cache alone, "
+            f"not by {spec.name}{' with a cache' if spec.use_cache else ''}")
 
 
 def _build_trainer(cfg: RunConfig, dataset: Dataset, device=None):

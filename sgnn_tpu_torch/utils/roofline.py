@@ -261,6 +261,37 @@ def _gat_sampled_bwd(b, D, K, S, F, H, nnz) -> Work:
     return _gat_sampled(b, D, K, S, F, H, nnz, True)
 
 
+def _gatv2_sampled(b, D, K, S, F, H, nnz, dv, sv, backward) -> Work:
+    # the block (nbr, w) [D, K] (K counts the own-row slot) and alpha
+    # [D, K, H] f32 (the forward writes it, the backward reads it) once;
+    # xl's sv rows read (sources and the destinations' own rows), xr's dv
+    # rows and att; the forward writes out's D rows, the backward reads
+    # G's dv rows and writes dxl's S rows, dxr's D rows and att's
+    # gradient.  A (kept sampled slot, column): 6 operations forward (u,
+    # leaky_relu, att's product and sum, the weighted sum), 10 backward;
+    # the own-row slots left out (nnz counts the kept sampled slots).  A
+    # gather reads xl's row a valid slot forward and twice in the
+    # backward's destination pass, and G's and xr's rows a valid slot in
+    # its source pass
+    slots = nnz + dv
+    rows_in = (sv + dv) * F * b + F * 4
+    if not backward:
+        once = D * K * 8 + rows_in + D * F * b + D * K * H * 4
+        return once, 6 * nnz * F, once + (slots - sv) * F * b
+    once = (D * K * 8 + D * K * H * 4 + rows_in + dv * F * b
+            + (S + D) * F * b + F * 4)
+    return (once, 10 * nnz * F,
+            once + (2 * slots - sv + 2 * slots - 2 * dv) * F * b)
+
+
+def _gatv2_sampled_fwd(b, D, K, S, F, H, nnz, dv, sv) -> Work:
+    return _gatv2_sampled(b, D, K, S, F, H, nnz, dv, sv, False)
+
+
+def _gatv2_sampled_bwd(b, D, K, S, F, H, nnz, dv, sv) -> Work:
+    return _gatv2_sampled(b, D, K, S, F, H, nnz, dv, sv, True)
+
+
 def _p_g(b, rows_read, E, F, tiles) -> Work:
     # the distinct table rows read, the indices, one summed row a tile
     fixed = E * 4 + tiles * F * 4
@@ -298,6 +329,8 @@ _KERNELS: Dict[str, Callable[..., Work]] = {
     "k2_fwd": _k2, "k2_bwd": _k2, "k2_pushdown": _k2_pushdown,
     "k3": _k3, "b1": _b1, "b2": _b2,
     "gat_sampled_fwd": _gat_sampled_fwd, "gat_sampled_bwd": _gat_sampled_bwd,
+    "gatv2_sampled_fwd": _gatv2_sampled_fwd,
+    "gatv2_sampled_bwd": _gatv2_sampled_bwd,
     "p_g": _p_g, "p_s": _p_s, "p_t": _p_t, "p_t_gather": _p_t_gather,
     "p_a": _p_a,
 }
@@ -311,7 +344,10 @@ def kernel_bound(kernel: str, device: str, dtype_bytes: int = 4,
     kernel (its shape keywords): k1_fwd, k1_dx, k1_dw (D, K, S, F, nnz);
     k1_transpose (D, K, S); k2_fwd, k2_bwd (V, E, F); k2_pushdown (C, V,
     E, F); k3, b1, b2 (V, E, F, H); gat_sampled_fwd, gat_sampled_bwd (D,
-    K, S, F, H, nnz); p_g (rows_read, E, F, tiles); p_s (m,
+    K, S, F, H, nnz); gatv2_sampled_fwd, gatv2_sampled_bwd (D, K, S, F, H,
+    nnz, dv, sv: K with the own-row slot, nnz the kept sampled slots, dv
+    the valid destinations, sv the source rows read); p_g (rows_read, E,
+    F, tiles); p_s (m,
     n); p_t (slab_rows, F, E, windows, out_rows[, dst, weighted]);
     p_t_gather (slab_rows, F, E); p_a (tiles, S, W, E, F, cols, live_dst,
     live_both).  Where the work depends on the data (K1's and the sampled

@@ -16,6 +16,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from _per_leaf_adam import ADAM_IDS, ADAM_VARIANTS, adam_per_leaf
 from _rank_scatter import (
     assert_same_blocks, both_ways, rank_scatter_source_set,
 )
@@ -765,6 +766,187 @@ def test_gat_sampled_step_card_vs_cpu(cuda_device, heads):
     assert abs(card.loss.item() - cpu.loss.item()) <= 1e-5
     for a, b in zip(card.grads, cpu.grads):
         assert _rel(a.cpu(), b) <= 1e-4
+
+
+# -------------------------------------- sampled GATv2 (gatv2_sampled.cu) --
+def _gatv2_check(dev, d, k, s, feat, heads, hub=None, seed=0, own=False):
+    """The GATv2 kernel pair against its plain versions in f64 on the same
+    f32 values (`_gat_sampled_inputs`' block, xr [D, F] and att drawn so
+    that the attention spreads): f32 differs by its own rounding;
+    bit-identical on repeat, each wrapper launched once a call.  `own`:
+    the block under the self-loop rule (every 7th row padded)."""
+    from sgnn_tpu_torch.ops import gat_sampled as gat_op
+    from sgnn_tpu_torch.ops import gatv2_sampled as op
+    from sgnn_tpu_torch.ops.cuda import gatv2_sampled as gs2
+
+    rng = np.random.default_rng(seed)
+    xl, _, _, nbr, w, sd, g = (t.to(dev) for t in _gat_sampled_inputs(
+        rng, d, k, s, feat, heads, hub))
+    xr = torch.from_numpy(rng.standard_normal((d, feat)).astype(
+        np.float32)).to(dev)
+    att = torch.from_numpy((2 * rng.standard_normal(feat) / math.sqrt(
+        feat // heads)).astype(np.float32)).to(dev)
+    if own:
+        valid = torch.ones(d, dtype=torch.bool, device=dev)
+        valid[::7] = False
+        nbr, w = gat_op.own_row_slots(nbr, w, sd, valid)
+    counts = [gs2.gatv2_sampled_fwd_cuda.launches,
+              gs2.gatv2_sampled_bwd_cuda.launches]
+    out, alpha = op.gatv2_sampled_fwd(xl, xr, att, nbr, w, heads)
+    grads = op.gatv2_sampled_bwd(g, xl, xr, att, nbr, w, alpha, heads)
+    torch.cuda.synchronize()
+    assert [gs2.gatv2_sampled_fwd_cuda.launches,
+            gs2.gatv2_sampled_bwd_cuda.launches] == [c + 1 for c in counts]
+    x64 = [t.double() for t in (xl, xr, att)]
+    ref_out, ref_alpha = op.gatv2_sampled_fwd_plain(*x64, nbr, w, heads)
+    ref = op.gatv2_sampled_bwd_plain(g.double(), *x64, nbr, ref_alpha, heads)
+    errs = [_rel(out, ref_out), _rel(alpha, ref_alpha),
+            *(_rel(a, b) for a, b in zip(grads, ref))]
+    assert max(errs) <= 1e-5, errs
+    assert torch.equal(alpha[::7], torch.zeros_like(alpha[::7]))
+    again = op.gatv2_sampled_fwd(xl, xr, att, nbr, w, heads)
+    assert torch.equal(out, again[0]) and torch.equal(alpha, again[1])
+    for a, b in zip(grads, op.gatv2_sampled_bwd(g, xl, xr, att, nbr, w,
+                                                alpha, heads)):
+        assert torch.equal(a, b)
+    return errs
+
+
+# (heads, F, K): the pyg_v2 widths (heads of 128, vector columns; 4 of 47,
+# scalar); K past 32 (slots in two chunks); one head of 512 (4 column
+# groups a lane) and of 128 scalar; narrow heads (8 of 8, 3 of 10)
+GATV2_CASES = [(4, 512, 11), (4, 188, 11), (2, 256, 40), (1, 512, 5),
+               (1, 41, 25), (8, 64, 33), (3, 30, 5), (1, 7, 3)]
+
+
+@pytest.mark.parametrize("heads,feat,k", GATV2_CASES)
+def test_gatv2_sampled_kernels_match_plain(cuda_device, heads, feat, k):
+    _gatv2_check(cuda_device, 1001, k, 700, feat, heads, hub=5,
+                 seed=heads * feat + k)
+
+
+@pytest.mark.parametrize("own", [False, True], ids=["sampled", "own_row"])
+def test_gatv2_sampled_kernels_unaligned_rows(cuda_device, own):
+    """Rows that are not 16-byte aligned take scalar columns: the same
+    numbers as the plain versions."""
+    from sgnn_tpu_torch.ops import gatv2_sampled as op
+    from sgnn_tpu_torch.ops.cuda import gatv2_sampled as gs2
+
+    rng = np.random.default_rng(9)
+    xl, _, _, nbr, w, _, g = (t.to(cuda_device) for t in
+                              _gat_sampled_inputs(rng, 300, 6, 200, 128, 4))
+    shifted = torch.empty(xl.numel() + 1, device=cuda_device)[1:].view_as(xl)
+    shifted.copy_(xl)
+    xr = torch.randn(300, 128, device=cuda_device)
+    att = torch.randn(128, device=cuda_device) / 4
+    assert gs2.columns_a_load(128, 4, shifted, xr) == 1
+    out, alpha = op.gatv2_sampled_fwd(shifted, xr, att, nbr, w, 4)
+    grads = op.gatv2_sampled_bwd(g, shifted, xr, att, nbr, w, alpha, 4)
+    x64 = [t.double() for t in (xl, xr, att)]
+    ref_out, ref_alpha = op.gatv2_sampled_fwd_plain(*x64, nbr, w, 4)
+    ref = op.gatv2_sampled_bwd_plain(g.double(), *x64, nbr, ref_alpha, 4)
+    errs = [_rel(out, ref_out), *(_rel(a, b) for a, b in zip(grads, ref))]
+    assert max(errs) <= 1e-5, errs
+
+
+@pytest.mark.parametrize("d,s,feat", [(61_952, 681_472, 512),
+                                      (5_632, 61_952, 512), (512, 5_632, 188)])
+def test_gatv2_sampled_kernels_at_the_products_shapes(cuda_device, d, s,
+                                                      feat):
+    """The gatv2_products cell's three layers (100-4x128-4x128-4x47,
+    fan-out 10-10-10, batch 512): D and S as the device sampler pads them,
+    K = 10 sampled slots and the own row's, a hub source."""
+    _gatv2_check(cuda_device, d, 10, s, feat, 4, hub=17, own=True)
+
+
+def test_gatv2_sampled_kernels_reject_bad_args(cuda_device):
+    from sgnn_tpu_torch.ops import gatv2_sampled as op
+
+    xl, _, _, nbr, w, _, g = (t.to(cuda_device) for t in
+                              _gat_sampled_inputs(np.random.default_rng(1),
+                                                  8, 3, 5, 8, 2))
+    xr, att = torch.randn(8, 8, device=cuda_device), torch.randn(
+        8, device=cuda_device)
+    with pytest.raises(ValueError, match="xr is on cpu"):
+        op.gatv2_sampled_fwd(xl, xr.cpu(), att, nbr, w, 2)
+    with pytest.raises(ValueError, match="xl must be"):
+        op.gatv2_sampled_fwd(xl.double(), xr, att, nbr, w, 2)
+    with pytest.raises(ValueError, match="heads=3"):
+        op.gatv2_sampled_fwd(xl, xr, att, nbr, w, 3)
+    _, alpha = op.gatv2_sampled_fwd(xl, xr, att, nbr, w, 2)
+    with pytest.raises(ValueError, match="g must be"):
+        op.gatv2_sampled_bwd(g[:4], xl, xr, att, nbr, w, alpha, 2)
+    wide = torch.randn(4, 1028, device=cuda_device)
+    with pytest.raises(ValueError, match="heads of at most"):
+        op.gatv2_sampled_fwd(wide, torch.randn(8, 1028, device=cuda_device),
+                             torch.randn(1028, device=cuda_device), nbr, w,
+                             1)
+
+
+def test_pyg_v2_step_card_vs_cpu(cuda_device):
+    """One gat_variant "pyg_v2" GATSAMPLEALLGPU batch sampled on the card,
+    with sampled self-loops: loss and the 24 leaves' gradients through the
+    kernels against the CPU's plain versions on the same blocks and
+    weights (no dropout drawn); a training step raises each of the
+    counters `attention.gatv2_forwards` and `attention.gatv2_backwards` by
+    3, one a layer, and launches the kernel pair 3 times."""
+    from sgnn_tpu_torch.ops.cuda import gatv2_sampled as gs2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = random_graph_dataset(3000, 10, 48, 5, seed=4)
+    cfg = RunConfig(algorithm="GATSAMPLEALLGPU", layer_sizes=[48, 32, 32, 5],
+                    fanout=[5, 4, 3], batch_size=256, heads=4,
+                    gat_variant="pyg_v2", vertices=ds.num_vertices)
+    tr = build_trainer(cfg, ds, device=cuda_device)
+    gen = torch.Generator().manual_seed(2)
+    p = tr.params.replace_leaves([
+        (torch.rand(t.shape, generator=gen) - 0.5).to(cuda_device)
+        for t in tr.params.leaves()])
+    batch = tr.sample(*next(tr._seed_batches(tr.train_nids, False)))
+    card = loss_and_grads(p, "gat", batch, heads=4)
+    cpu = loss_and_grads(p.to("cpu"), "gat", _batch_to(batch, "cpu"),
+                         heads=4)
+    assert abs(card.loss.item() - cpu.loss.item()) <= 1e-5
+    assert len(card.grads) == 24
+    for a, b in zip(card.grads, cpu.grads):
+        assert _rel(a.cpu(), b) <= 1e-4
+    counters = timing.RECORDER.counters
+    before = [counters.as_dict().get(f"attention.gatv2_{k}", 0)
+              for k in ("forwards", "backwards")]
+    launches = [gs2.gatv2_sampled_fwd_cuda.launches,
+                gs2.gatv2_sampled_bwd_cuda.launches]
+    tr.train_step(batch)
+    torch.cuda.synchronize()
+    assert [counters.as_dict()[f"attention.gatv2_{k}"] - b for k, b in
+            zip(("forwards", "backwards"), before)] == [3, 3]
+    assert [gs2.gatv2_sampled_fwd_cuda.launches - launches[0],
+            gs2.gatv2_sampled_bwd_cuda.launches - launches[1]] == [3, 3]
+
+
+@pytest.mark.parametrize("bias_correction", [False, True])
+def test_adam_update_on_the_card_is_the_cpus(cuda_device, bias_correction):
+    """ReferenceAdam's multi-tensor update on the card is the CPU's to f32
+    rounding, over 24 leaves as the pyg_v2 stack has: with bias correction
+    the card divides by a Python number as its reciprocal's product, the
+    CPU divides, so a step may differ in the last bit."""
+    from sgnn_tpu_torch.nn.optim import ReferenceAdam
+
+    gen = torch.Generator().manual_seed(3)
+    opt = ReferenceAdam(learn_rate=1e-3, weight_decay=1e-4, epsilon=1e-8,
+                        bias_correction=bias_correction)
+    cpu = [torch.randn(s, generator=gen) for s in [(100, 512), (512,),
+                                                   (512, 1), (47,)] * 6]
+    card = [t.to(cuda_device) for t in cpu]
+    st_cpu, st_card = opt.init(cpu), opt.init(card)
+    for it in range(3):
+        grads = [torch.randn(t.shape, generator=gen) * 10.0 ** -it
+                 for t in cpu]
+        cpu, st_cpu = opt.update(grads, st_cpu, cpu)
+        card, st_card = opt.update([g.to(cuda_device) for g in grads],
+                                   st_card, card)
+    for a, b in zip(card + list(st_card.m) + list(st_card.v),
+                    cpu + list(st_cpu.m) + list(st_cpu.v)):
+        assert _rel(a.cpu(), b) <= 1e-6
 
 
 # --------------------------------------------------- whole-graph training --
@@ -1835,3 +2017,25 @@ def test_sample_launches_no_more_than_rank_scatter(cuda_device, monkeypatch):
     print(f"sample launches: {own}, under the rank scatter {ref}")
     assert own <= ref
     assert own <= RANK_SCATTER_SAMPLE_LAUNCHES
+
+
+@pytest.mark.parametrize("kw", ADAM_VARIANTS, ids=ADAM_IDS)
+def test_adam_update_on_the_card_is_the_per_leaf_rule(cuda_device, kw):
+    """On the card, as on the CPU (test_torch_port_model.py), the
+    multi-tensor update computes each element as the per-leaf rule computes
+    it there, bit for bit, over 24 leaves as the pyg_v2 stack has."""
+    from sgnn_tpu_torch.nn.optim import ReferenceAdam
+
+    gen = torch.Generator().manual_seed(5)
+    opt = ReferenceAdam(**kw)
+    params = [torch.randn(s, generator=gen).to(cuda_device) for s in
+              [(100, 512), (512,), (512, 1), (47,)] * 6]
+    state = opt.init(params)
+    for it in range(4):
+        grads = [(torch.randn(p.shape, generator=gen) * 10.0 ** -it)
+                 .to(cuda_device) for p in params]
+        new, st = opt.update(grads, state, params)
+        want = adam_per_leaf(opt, grads, state, params)
+        for got, ref in zip((new, st.m, st.v), want):
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        params, state = new, st

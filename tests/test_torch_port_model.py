@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _per_leaf_adam import ADAM_IDS, ADAM_VARIANTS, adam_per_leaf
 
 from sgnn_tpu.graph.adjacency import Adjacency as JAdjacency
 from sgnn_tpu.models.gnn import init_model as j_init_model
@@ -163,3 +164,22 @@ def test_optimizer_five_updates_match_jax(kind, kw):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
                                    atol=1e-7)
     assert tst.step == int(jst.step) == 5
+
+
+@pytest.mark.parametrize("kw", ADAM_VARIANTS, ids=ADAM_IDS)
+def test_adam_update_is_the_per_leaf_rule_bit_for_bit(kw):
+    """The multi-tensor update computes each element as the per-leaf rule
+    did, on leaves of several shapes and gradients of several scales."""
+    gen = torch.Generator().manual_seed(0)
+    opt = ReferenceAdam(**kw)
+    params = [torch.randn(s, generator=gen) for s in
+              [(100, 16), (16,), (47, 1), (3,)]]
+    state = opt.init(params)
+    for it in range(4):
+        grads = [torch.randn(p.shape, generator=gen) * 10.0 ** -it
+                 for p in params]
+        new, st = opt.update(grads, state, params)
+        want = adam_per_leaf(opt, grads, state, params)
+        for got, ref in zip((new, st.m, st.v), want):
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        params, state = new, st
